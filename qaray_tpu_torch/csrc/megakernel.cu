@@ -1,0 +1,579 @@
+// Path-trace megakernel (K1a): one whole pathtrace or photonmap sample per
+// thread, camera ray to radiance, in one launch.
+//
+// Replaces the Pallas TPU kernel qaray_tpu/ops/pallas_pathtrace.py
+// ::_make_kernel (dispatched by _mega_raw), with its helpers _closest_hit,
+// _shadow_occluded, _illuminate, _blinn_direct, _glossy_jitter, _halton and
+// the in-kernel threefry of core/krng.py. The analytic, untextured,
+// mesh-free, gather-free configuration only (K1b-K1d come later).
+//
+// What bounds it on the H100: operations. A lane reads 12 bytes and
+// writes 16, but does per bounce a closest-hit sweep over the primitives,
+// a threefry cipher per random draw (about 120 integer operations each),
+// and for every soft light 16 to 64 shadow rays, each one cipher plus a
+// sweep. The work per lane varies with its path (roulette, escalation),
+// so threads of a warp diverge. The design answers with what the TPU
+// kernel could not do: one thread per lane with scalar control flow, dead
+// paths leave the bounce loop, shadow rays stop at their first occluder,
+// lanes that do not escalate skip the soft-shadow tail, and only the lobe a
+// path takes computes its direction. The scene tables (12 floats a
+// primitive, 22 a material, 12 a light, 25 for the camera) are staged in
+// shared memory once per block. Specialisation on scene facts is by
+// per-primitive and per-light kind tables read at run time, uniform across
+// a warp; the sum over lights keeps blinn_direct's order.
+//
+// Random draws are bit-exact with jax.random (threefry2x32 key words):
+// the per-lane key is fold(base, rid * 65536 + sid) in wrapping 32-bit
+// arithmetic, then fold(1000 + bounce) and a purpose tag per decision, as
+// in the wavefront engine.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "analytic.cuh"
+#include "threefry.cuh"
+
+namespace {
+
+// Material table columns (pallas_pathtrace._MT_*).
+constexpr int MT_DIFF = 0, MT_SPEC = 3, MT_EMIT = 6, MT_REFL = 9,
+              MT_REFR = 12, MT_GLOSS = 15, MT_RGLOSS = 16, MT_TGLOSS = 17,
+              MT_IOR = 18, MT_ABS = 19, MTL_COLS = 22;
+// Light table columns (_LT_*).
+constexpr int LT_INT = 0, LT_POS = 3, LT_DIR = 6, LT_SIZE = 9, LT_INNER = 10,
+              LT_OUTER = 11, LIGHT_COLS = 12;
+// Camera vector layout (_CAM_*).
+constexpr int CAM_POS = 0, CAM_A = 3, CAM_U = 6, CAM_V = 9, CAM_X = 12,
+              CAM_Y = 15, CAM_DOF = 18, CAM_BG = 19, CAM_ENV = 22,
+              CAM_COLS = 25;
+
+constexpr int LIGHT_AMBIENT = 0, LIGHT_DIRECT = 1, LIGHT_SPOT = 3;
+constexpr int P_LOBE_SELECT = 0, P_LOBE_SAMPLE = 1, P_DOF = 2, P_SHADOW = 3;
+constexpr float TWO_PI = (float)(2.0 * M_PI);
+constexpr float CLT = 0.00001f;  // COLOR_LUMA_THRESHOLD
+constexpr int kThreads = 128;
+
+struct Params {
+  const int* px;
+  const int* py;
+  const int* sid;
+  int n;
+  const float* prim;
+  const int* kinds;
+  const int* prim_mtl;
+  int num_prims;
+  const float* mtl;
+  int num_mtls;
+  const float* light;
+  const int* lkind;
+  const int* lsoft;
+  int num_lights;
+  float light_norm;  // (1 / num_lights) ^ norm_power
+  const float* cam;
+  uint32_t key0, key1;
+  int width;
+  int photonmap;  // 0 pathtrace, 1 photonmap
+  int max_bounce;
+  int shadow_spp, shadow_spp_max;
+  int has_dof, has_glossy;
+  float* r;
+  float* g;
+  float* b;
+  float* t0;
+  int* work;  // optional [n, 3]: prim tests, threefry ciphers, vertices
+};
+
+struct Shared {
+  float* prim;
+  int* kinds;
+  int* prim_mtl;
+  float* mtl;
+  float* light;
+  int* lkind;
+  int* lsoft;
+  float* cam;
+};
+
+struct Work {
+  int tests, ciphers, vertices;
+};
+
+__device__ __forceinline__ float luma3(V3 c) {
+  return 0.2126f * c.x + 0.7152f * c.y + 0.0722f * c.z;
+}
+__device__ __forceinline__ float max3(V3 c) {
+  return fmaxf(c.x, fmaxf(c.y, c.z));
+}
+__device__ __forceinline__ float pow_safe(float x, float e) {
+  return powf(fmaxf(x, 1e-6f), e);
+}
+
+__device__ __forceinline__ Key fold_w(Key k, uint32_t d, Work& w) {
+  ++w.ciphers;
+  return fold2(k, d);
+}
+__device__ __forceinline__ float draw_w(Key k, uint32_t f, Work& w) {
+  ++w.ciphers;
+  return draw_at(k, f);
+}
+
+// Radical inverse with the JAX engine's digit count (10 for bases 11, 13).
+__device__ __forceinline__ float halton(int i, int base) {
+  float r = 0.0f;
+  float f = (float)(1.0 / base);
+  for (int k = 0; k < 10; ++k) {
+    r = r + f * (float)(i % base);
+    f = f / (float)base;
+    i = i / base;
+  }
+  return r;
+}
+
+// core.vecmath.to_local_frame (math/math.cpp:37-46).
+__device__ __forceinline__ V3 to_local_frame(V3 n, V3 s) {
+  const bool use_a = fabsf(n.x) > fabsf(n.y);
+  const V3 y = norm3(use_a ? V3{n.z, 0.0f, -n.x} : V3{0.0f, -n.z, n.y});
+  const V3 x = norm3(cross3(y, n));
+  const V3 u = norm3(s);
+  return V3{u.x * x.x + u.y * y.x + u.z * n.x,
+            u.x * x.y + u.y * y.y + u.z * n.y,
+            u.x * x.z + u.y * y.z + u.z * n.z};
+}
+
+__device__ __forceinline__ bool shadow(const Params& P, const Shared& S,
+                                       V3 p, V3 d, float t_max, Work& w) {
+  return occluded(S.prim, S.kinds, P.num_prims, p, d, t_max, &w.tests);
+}
+
+// UniformBall quirk point from attempts (r1, r2, r2): `pick` already chosen,
+// radially clamped, scaled by `radius` (core/warps.uniform_ball_ref).
+__device__ __forceinline__ V3 clamp_ball(V3 pick, float radius) {
+  const float pn = sqrtf(dot3(pick, pick));
+  const float scale = pn > 1.0f ? 1.0f / fmaxf(pn, 1e-12f) : 1.0f;
+  return scale3(pick, scale * radius);
+}
+
+// Per-lane RGB intensity of light li including shadowing
+// (pallas_pathtrace._illuminate; lights/lights.cpp:39-144).
+__device__ V3 illuminate(const Params& P, const Shared& S, int li, V3 p,
+                         Key kb, Work& w) {
+  const float* lt = S.light + li * LIGHT_COLS;
+  const V3 inten = load3(lt + LT_INT);
+  const int kind = S.lkind[li];
+  if (kind == LIGHT_DIRECT) {
+    const V3 dn = norm3(neg3(load3(lt + LT_DIR)));
+    const bool occ = shadow(P, S, p, dn, QR_BIGFLOAT, w);
+    return scale3(inten, occ ? 0.0f : 1.0f);
+  }
+  const V3 pos = load3(lt + LT_POS);
+  V3 out;
+  if (!S.lsoft[li]) {
+    const V3 vec = sub3(pos, p);
+    const float d2 = dot3(vec, vec);
+    const float dist = sqrtf(fmaxf(d2, 1e-20f));
+    const bool occ = shadow(P, S, p, scale3(vec, 1.0f / dist), dist, w);
+    const float vis = occ ? 0.0f : 1.0f;
+    const float fall = fminf(1.0f, 1.0f / fmaxf(d2, 1e-20f));
+    out = V3{vis * fall * inten.x, vis * fall * inten.y,
+             vis * fall * inten.z};
+  } else {
+    // Adaptive 16 -> 64 soft shadows with the in-loop falloff recurrence
+    // (lights/lights.cpp:50-74). Sample s draws flat elements 4s..4s+3 of
+    // the engine's [s_max, 2, 2] uniform block. Lanes whose estimate never
+    // went fractional in the first s_min samples stop there.
+    const int s_min = P.shadow_spp;
+    const int s_max = max(P.shadow_spp_max, s_min);
+    const float size = lt[LT_SIZE];
+    const Key ks = fold_w(kb, (uint32_t)(P_SHADOW + 101 * li), w);
+    float in_shadow = 0.0f;
+    bool frac = false;
+    for (int s = 0; s < s_max; ++s) {
+      if (s == s_min && !frac) break;
+      const uint32_t f = 4u * (uint32_t)s;
+      const V3 c0 = V3{draw_w(ks, f, w) * 2.0f - 1.0f,
+                       draw_w(ks, f + 1, w) * 2.0f - 1.0f, 0.0f};
+      V3 pick = V3{c0.x, c0.y, c0.y};
+      if (!(sqrtf(dot3(pick, pick)) <= 1.0f)) {
+        const float r1 = draw_w(ks, f + 2, w) * 2.0f - 1.0f;
+        const float r2 = draw_w(ks, f + 3, w) * 2.0f - 1.0f;
+        pick = V3{r1, r2, r2};
+      }
+      const V3 target = add3(pos, clamp_ball(pick, size));
+      const V3 vec = sub3(target, p);
+      const float d2 = dot3(vec, vec);
+      const float dist = sqrtf(fmaxf(d2, 1e-20f));
+      const bool occ = shadow(P, S, p, scale3(vec, 1.0f / dist), dist, w);
+      const float x = occ ? 0.0f : 1.0f;
+      const float fall = fminf(1.0f, 1.0f / fmaxf(d2, 1e-20f));
+      const float upd =
+          in_shadow + (x - in_shadow) * fall / ((float)s + 1.0f);
+      in_shadow = upd;
+      if (s < s_min) frac = frac || (upd > 0.0f && upd < 1.0f);
+    }
+    out = scale3(inten, in_shadow);
+  }
+  if (kind == LIGHT_SPOT) {
+    // SpotLight::GetAttenuation (lights/lights.cpp:128-144).
+    const V3 ldir = load3(lt + LT_DIR);
+    const V3 to_p = norm3(sub3(p, pos), 1e-30f);
+    const float cos_t = dot3(to_p, ldir);
+    const float r =
+        sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t)) / fmaxf(cos_t, 1e-20f);
+    const float inner = lt[LT_INNER], outer = lt[LT_OUTER];
+    float ring = (outer - r) / fmaxf(outer - inner, 1e-20f);
+    ring = ring * ring;
+    float att = r < inner ? 1.0f : (r > outer ? 0.0f : ring);
+    if (cos_t < 0.0f) att = 0.0f;
+    out = scale3(out, att);
+  }
+  return out;
+}
+
+// blinn_direct with skip_ambient, lights summed in table order.
+__device__ V3 blinn_direct(const Params& P, const Shared& S, V3 p, V3 n,
+                           V3 v, V3 diffuse, V3 specular, float gloss,
+                           Key kb, Work& w) {
+  V3 total = V3{0.0f, 0.0f, 0.0f};
+  for (int li = 0; li < P.num_lights; ++li) {
+    const int kind = S.lkind[li];
+    if (kind == LIGHT_AMBIENT) continue;
+    const V3 inten =
+        scale3(illuminate(P, S, li, p, kb, w), P.light_norm);
+    const float* lt = S.light + li * LIGHT_COLS;
+    V3 l_dir;
+    if (kind == LIGHT_DIRECT) {
+      l_dir = norm3(neg3(load3(lt + LT_DIR)), 1e-30f);
+    } else {
+      const V3 to_p = norm3(sub3(p, load3(lt + LT_POS)), 1e-30f);
+      l_dir = norm3(neg3(to_p), 1e-30f);
+    }
+    const V3 h = norm3(add3(v, l_dir), 1e-30f);
+    const float cos_nl = fmaxf(0.0f, dot3(n, l_dir));
+    const float cos_nh = fmaxf(0.0f, dot3(n, h));
+    const float spec_w = pow_safe(cos_nh, gloss);
+    const V3 spec = scale3(specular, spec_w);
+    total = V3{total.x + inten.x * cos_nl * (diffuse.x + spec.x),
+               total.y + inten.y * cos_nl * (diffuse.y + spec.y),
+               total.z + inten.z * cos_nl * (diffuse.z + spec.z)};
+  }
+  return total;
+}
+
+// Glossy rejection jitter (pallas_pathtrace._glossy_jitter): 4 hemisphere
+// attempts of a 4-attempt quirk ball, first success wins, centre fallback.
+// Attempt (a, i) draws flat elements 8a + 2i and 8a + 2i + 1.
+__device__ V3 glossy_jitter(V3 center, V3 y_axis, float gloss, Key k,
+                            bool want_up, Work& w) {
+  const V3 c = norm3(center, 1e-30f);
+  const float radius = 2.0f * gloss;
+  for (int a = 0; a < 4; ++a) {
+    V3 pick;
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t f = (uint32_t)(a * 8 + i * 2);
+      const float r1 = draw_w(k, f, w) * 2.0f - 1.0f;
+      const float r2 = draw_w(k, f + 1, w) * 2.0f - 1.0f;
+      pick = V3{r1, r2, r2};
+      if (sqrtf(dot3(pick, pick)) <= 1.0f) break;
+    }
+    const V3 cand = norm3(add3(c, clamp_ball(pick, radius)), 1e-30f);
+    const float side = dot3(cand, y_axis);
+    if (want_up ? side >= 0.0f : side <= 0.0f) return cand;
+  }
+  return c;
+}
+
+__device__ __forceinline__ V3 mtl3(const Shared& S, int row, int col) {
+  return load3(S.mtl + row * MTL_COLS + col);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    mega_kernel(const Params P) {
+  extern __shared__ float smem[];
+  Shared S;
+  {
+    float* f = smem;
+    S.prim = f;
+    f += P.num_prims * QR_PRIM_COLS;
+    S.mtl = f;
+    f += P.num_mtls * MTL_COLS;
+    S.light = f;
+    f += P.num_lights * LIGHT_COLS;
+    S.cam = f;
+    f += CAM_COLS;
+    int* q = reinterpret_cast<int*>(f);
+    S.kinds = q;
+    q += P.num_prims;
+    S.prim_mtl = q;
+    q += P.num_prims;
+    S.lkind = q;
+    q += P.num_lights;
+    S.lsoft = q;
+    for (int i = threadIdx.x; i < P.num_prims * QR_PRIM_COLS; i += blockDim.x)
+      S.prim[i] = P.prim[i];
+    for (int i = threadIdx.x; i < P.num_mtls * MTL_COLS; i += blockDim.x)
+      S.mtl[i] = P.mtl[i];
+    for (int i = threadIdx.x; i < P.num_lights * LIGHT_COLS; i += blockDim.x)
+      S.light[i] = P.light[i];
+    for (int i = threadIdx.x; i < CAM_COLS; i += blockDim.x) S.cam[i] = P.cam[i];
+    for (int i = threadIdx.x; i < P.num_prims; i += blockDim.x) {
+      S.kinds[i] = P.kinds[i];
+      S.prim_mtl[i] = P.prim_mtl[i];
+    }
+    for (int i = threadIdx.x; i < P.num_lights; i += blockDim.x) {
+      S.lkind[i] = P.lkind[i];
+      S.lsoft[i] = P.lsoft[i];
+    }
+    __syncthreads();
+  }
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= P.n) return;
+  Work w{0, 0, 0};
+
+  const int px = P.px[lane], py = P.py[lane], sid = P.sid[lane];
+  const uint32_t rid = (uint32_t)py * (uint32_t)P.width + (uint32_t)px;
+  const Key kr =
+      fold_w(Key{P.key0, P.key1}, rid * 65536u + (uint32_t)sid, w);
+
+  // Camera ray (renderer.cpp:302-327; Halton 11/13 sub-pixel jitter).
+  const float tx = (float)px + halton(sid, 11);
+  const float ty = (float)py + halton(sid, 13);
+  const V3 ca = load3(S.cam + CAM_A), cu = load3(S.cam + CAM_U),
+           cv = load3(S.cam + CAM_V);
+  const V3 cpt = V3{ca.x + tx * cu.x + ty * cv.x, ca.y + tx * cu.y + ty * cv.y,
+                    ca.z + tx * cu.z + ty * cv.z};
+  V3 p = load3(S.cam + CAM_POS);
+  if (P.has_dof) {
+    const Key kd = fold_w(kr, P_DOF, w);
+    const float lr = S.cam[CAM_DOF] * sqrtf(draw_w(kd, 0, w));
+    const float lt = TWO_PI * draw_w(kd, 1, w);
+    const float lx = lr * cosf(lt), ly = lr * sinf(lt);
+    const V3 cx = load3(S.cam + CAM_X), cy = load3(S.cam + CAM_Y);
+    p = V3{p.x + lx * cx.x + ly * cy.x, p.y + lx * cx.y + ly * cy.y,
+           p.z + lx * cx.z + ly * cy.z};
+  }
+  V3 d = norm3(sub3(cpt, p));
+
+  V3 radiance = V3{0.0f, 0.0f, 0.0f};
+  V3 beta = V3{1.0f, 1.0f, 1.0f};
+  float t0 = QR_BIGFLOAT;
+  bool has_dh = false;                  // photonmap hasDiffuseHit
+  V3 pend = V3{0.0f, 0.0f, 0.0f};       // parent's absorption
+
+  for (int bounce = 0; bounce <= P.max_bounce; ++bounce) {
+    const Hit hit = closest_hit<false>(S.prim, S.kinds, P.num_prims, p, d);
+    w.tests += P.num_prims;
+    const bool is_hit = hit.t < QR_BIGFLOAT;
+    if (bounce == 0) t0 = is_hit ? hit.t : QR_BIGFLOAT;
+    if (!is_hit) {
+      const V3 mc = load3(S.cam + (bounce == 0 ? CAM_BG : CAM_ENV));
+      radiance = add3(radiance, mul3(beta, mc));
+      break;
+    }
+    ++w.vertices;
+    if (P.photonmap && !hit.front) {
+      // Beer attenuation on back-face continuations with the parent
+      // vertex's absorption over the traveled distance.
+      beta = V3{beta.x * expf(-pend.x * hit.t), beta.y * expf(-pend.y * hit.t),
+                beta.z * expf(-pend.z * hit.t)};
+    }
+    const int row = S.prim_mtl[hit.prim];
+    const V3 diffuse = mtl3(S, row, MT_DIFF), specular = mtl3(S, row, MT_SPEC);
+    const V3 emit = mtl3(S, row, MT_EMIT), t_k = mtl3(S, row, MT_REFR),
+             r_k = mtl3(S, row, MT_REFL);
+    const float* mrow = S.mtl + row * MTL_COLS;
+    const float gloss = mrow[MT_GLOSS], rgloss = mrow[MT_RGLOSS],
+                tgloss = mrow[MT_TGLOSS], ior = mrow[MT_IOR];
+    const V3 hp = add3(p, scale3(d, hit.t));
+    const V3 n = norm3(hit.n, 1e-30f);
+    const bool front = hit.front;
+    const V3 v = neg3(d);
+    const Key kb = fold_w(kr, (uint32_t)(1000 + bounce), w);
+
+    // Fresnel (MtlBlinn_PhotonMap::ComputeFresnel, shared by both models).
+    const float cos_nv = dot3(n, v);
+    const V3 y = cos_nv > 0.0f ? n : neg3(n);
+    const V3 x = norm3(cross3(y, cross3(v, y)), 1e-30f);
+    const float n_ior = front ? 1.0f / ior : ior;
+    const float cos_i = cos_nv;
+    const float sin_i = sqrtf(fmaxf(0.0f, 1.0f - cos_i * cos_i));
+    const float sin_o = fminf(fmaxf(sin_i * n_ior, 0.0f), 1.0f);
+    const float cos_o = sqrtf(fmaxf(0.0f, 1.0f - sin_o * sin_o));
+    const bool total_refl = (n_ior * sin_i) > 1.001f;
+    const float c0 =
+        (n_ior - 1.0f) * (n_ior - 1.0f) / ((n_ior + 1.0f) * (n_ior + 1.0f));
+    const float r_ratio = c0 + (1.0f - c0) * powf(1.0f - fabsf(cos_i), 5.0f);
+    const float t_ratio = 1.0f - r_ratio;
+    const V3 samp_refr =
+        total_refl ? V3{0.0f, 0.0f, 0.0f} : scale3(t_k, t_ratio);
+    const V3 samp_refl =
+        total_refl ? add3(r_k, t_k) : add3(r_k, scale3(t_k, r_ratio));
+    const float select =
+        draw_w(fold_w(kb, P_LOBE_SELECT, w), 0, w);
+
+    // Lobe select.
+    float c_refr = 0.f, c_refl = 0.f, c_spec = 0.f, c_diff = 0.f;
+    bool sel_refr = false, sel_refl = false, sel_spec = false,
+         sel_diff = false;
+    float luma_t = 0.f, luma_r = 0.f, luma_d = 0.f;
+    if (!P.photonmap) {
+      // colorMax roulette with pdf division (MtlBlinn_PathTracing.cpp).
+      const float coef_refr = max3(samp_refr), coef_refl = max3(samp_refl),
+                  coef_spec = max3(specular), coef_diff = max3(diffuse);
+      const float coef_sum =
+          fmaxf(coef_refr + coef_refl + coef_spec + coef_diff, 1e-20f);
+      c_refr = coef_refr / coef_sum;
+      c_refl = coef_refl / coef_sum;
+      c_spec = coef_spec / coef_sum;
+      c_diff = coef_diff / coef_sum;
+      const float sum_refl = c_refr + c_refl;
+      const float sum_spec = sum_refl + c_spec;
+      sel_refr = (select <= c_refr) && (c_refr > 1e-6f);
+      sel_refl = !sel_refr && (select < sum_refl) && (c_refl > 1e-6f);
+      sel_spec = !sel_refr && !sel_refl && (select < sum_spec) &&
+                 (c_spec > 1e-6f);
+      sel_diff = !sel_refr && !sel_refl && !sel_spec && (c_diff > 1e-6f);
+    } else {
+      // Luma roulette with kill = 0.1, probability not divided out
+      // (RandomSelectMtl, MtlBlinn_PhotonMap.cpp:107-150).
+      luma_t = luma3(samp_refr);
+      luma_r = luma3(samp_refl);
+      luma_d = luma3(diffuse);
+      const float coef_t = luma_t;
+      const float coef_r = coef_t + luma_r;
+      const float coef_d = coef_r + luma_d;
+      const float sel_pt = select * (coef_d + 0.1f);
+      sel_refr = (sel_pt < coef_t) && (luma_t > CLT);
+      sel_refl = !sel_refr && (sel_pt < coef_r) && (luma_r > CLT);
+      sel_diff = !sel_refr && !sel_refl && (sel_pt < coef_d) && (luma_d > CLT);
+    }
+
+    // Emission + direct light.
+    const V3 direct = blinn_direct(P, S, hp, n, v, diffuse, specular, gloss,
+                                   kb, w);
+    radiance = add3(radiance, mul3(beta, add3(emit, direct)));
+    if (bounce == P.max_bounce) break;
+
+    const V3 t_dir = V3{-x.x * sin_o - y.x * cos_o, -x.y * sin_o - y.y * cos_o,
+                        -x.z * sin_o - y.z * cos_o};
+    const V3 r_dir = V3{2.0f * n.x * cos_nv - v.x, 2.0f * n.y * cos_nv - v.y,
+                        2.0f * n.z * cos_nv - v.z};
+    V3 new_dir;
+    if (!P.photonmap) {
+      // Continuation (MtlBlinn_PathTracing.cpp:176-297).
+      const bool go_spec = sel_spec && front;
+      const bool go_diff = sel_diff && front;
+      if (!(sel_refr || sel_refl || go_spec || go_diff)) break;
+      const Key kh = fold_w(kb, P_LOBE_SAMPLE, w);
+      const float u0 = draw_w(kh, 0, w), u1 = draw_w(kh, 1, w);
+      const float ct = sqrtf(u0);
+      const float st = sqrtf(fmaxf(0.0f, 1.0f - u0));
+      const float phi = TWO_PI * u1;
+      const V3 hemi = norm3(V3{st * cosf(phi), st * sinf(phi), ct}, 1e-30f);
+      const V3 hemi_world = to_local_frame(y, hemi);
+      V3 bxdf;
+      float pdf;
+      if (sel_refr) {
+        const bool glossy = tgloss > 0.0f;
+        new_dir = glossy ? neg3(hemi_world) : t_dir;
+        bxdf = glossy ? scale3(samp_refr,
+                               pow_safe(fmaxf(0.0f, dot3(v, t_dir)), tgloss))
+                      : samp_refr;
+        pdf = c_refr;
+      } else if (sel_refl) {
+        const bool glossy = rgloss > 0.0f;
+        new_dir = glossy ? hemi_world : r_dir;
+        bxdf = glossy ? scale3(samp_refl,
+                               pow_safe(fmaxf(0.0f, dot3(v, r_dir)), rgloss))
+                      : samp_refl;
+        pdf = c_refl;
+      } else if (go_spec) {
+        const V3 h = norm3(add3(v, norm3(hemi_world, 1e-30f)), 1e-30f);
+        new_dir = hemi_world;
+        bxdf = scale3(specular, pow_safe(fmaxf(0.0f, dot3(n, h)), gloss));
+        pdf = c_spec;
+      } else {
+        new_dir = hemi_world;
+        bxdf = diffuse;
+        pdf = c_diff;
+      }
+      const float inv_pdf = 1.0f / fmaxf(pdf, 1e-20f);
+      beta = V3{beta.x * bxdf.x * inv_pdf, beta.y * bxdf.y * inv_pdf,
+                beta.z * bxdf.z * inv_pdf};
+    } else {
+      // Continuation (MtlBlinn_PhotonMap::Sample*BxDF + ComputeSecondaryRay,
+      // MtlBlinn_PhotonMap.cpp:152-254).
+      const bool go_transmit = sel_refr;
+      const bool go_reflect = sel_refl;
+      const bool go_diffuse = sel_diff && !has_dh && front;
+      if (!(go_reflect || go_transmit || go_diffuse)) break;
+      const Key ks2 = fold_w(kb, P_LOBE_SAMPLE, w);
+      V3 weight;
+      if (go_transmit) {
+        new_dir = (P.has_glossy && tgloss > 0.0f)
+                      ? glossy_jitter(t_dir, y, tgloss, fold_w(ks2, 12, w),
+                                      false, w)
+                      : t_dir;
+        weight = samp_refr;
+      } else if (go_diffuse) {
+        const Key kd2 = fold_w(ks2, 13, w);
+        const float u0 = draw_w(kd2, 0, w), u1 = draw_w(kd2, 1, w);
+        const float ct = sqrtf(u0);
+        const float st = sqrtf(fmaxf(0.0f, 1.0f - u0));
+        const float phi = TWO_PI * u1;
+        new_dir = to_local_frame(n, V3{st * cosf(phi), st * sinf(phi), ct});
+        const V3 h = norm3(add3(v, norm3(new_dir, 1e-30f)), 1e-30f);
+        const float ws = pow_safe(fmaxf(0.0f, dot3(n, h)), gloss);
+        weight = add3(diffuse, scale3(specular, ws));
+      } else {
+        new_dir = (P.has_glossy && rgloss > 0.0f)
+                      ? glossy_jitter(r_dir, y, rgloss, fold_w(ks2, 11, w),
+                                      true, w)
+                      : r_dir;
+        weight = samp_refl;
+      }
+      beta = mul3(beta, weight);
+      has_dh = go_diffuse;
+      pend = mtl3(S, row, MT_ABS);
+    }
+    p = hp;
+    d = norm3(new_dir, 1e-30f);
+  }
+
+  P.r[lane] = radiance.x;
+  P.g[lane] = radiance.y;
+  P.b[lane] = radiance.z;
+  P.t0[lane] = t0;
+  if (P.work) {
+    P.work[3 * lane + 0] = w.tests;
+    P.work[3 * lane + 1] = w.ciphers;
+    P.work[3 * lane + 2] = w.vertices;
+  }
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes): launches on `stream`, returns
+// cudaGetLastError(). n > 0 is the caller's job.
+extern "C" int qr_mega_render(
+    const int* px, const int* py, const int* sid, int n, const float* prim,
+    const int* kinds, const int* prim_mtl, int num_prims, const float* mtl,
+    int num_mtls, const float* light, const int* lkind, const int* lsoft,
+    int num_lights, float light_norm, const float* cam, uint32_t key0,
+    uint32_t key1, int width, int photonmap, int max_bounce, int shadow_spp,
+    int shadow_spp_max, int has_dof, int has_glossy, float* r, float* g,
+    float* b, float* t0, int* work, void* stream) {
+  Params P{px, py, sid, n, prim, kinds, prim_mtl, num_prims, mtl, num_mtls,
+           light, lkind, lsoft, num_lights, light_norm, cam, key0, key1,
+           width, photonmap, max_bounce, shadow_spp, shadow_spp_max, has_dof,
+           has_glossy, r, g, b, t0, work};
+  const size_t smem =
+      4 * ((size_t)num_prims * (QR_PRIM_COLS + 2) + (size_t)num_mtls * MTL_COLS +
+           (size_t)num_lights * (LIGHT_COLS + 2) + CAM_COLS);
+  if (smem > 48 * 1024) {
+    int rc = (int)cudaFuncSetAttribute(
+        mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc) return rc;
+  }
+  mega_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem,
+                (cudaStream_t)stream>>>(P);
+  return (int)cudaGetLastError();
+}

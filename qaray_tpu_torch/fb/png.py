@@ -1,0 +1,48 @@
+"""PNG writing: PIL when present, else a minimal pure-python encoder.
+
+Replaces the reference's vendored lodepng (fb/framebuffer.cpp:109-143).
+"""
+
+import struct
+import zlib
+
+import numpy as np
+
+
+def write_png(filename: str, array: np.ndarray):
+    """array: [H, W] (grey) or [H, W, 3] (RGB) uint8.
+
+    Encoder preference: PIL, then the pure python encoder below.
+    """
+    array = np.ascontiguousarray(array.astype(np.uint8))
+    try:
+        from PIL import Image
+
+        Image.fromarray(array).save(filename)
+        return
+    except ImportError:
+        pass
+    _write_png_native(filename, array)
+
+
+def _write_png_native(filename: str, array: np.ndarray):
+    h, w = array.shape[:2]
+    color_type = 0 if array.ndim == 2 else 2
+    raw = array.reshape(h, -1)
+    # Filter byte 0 per scanline.
+    scanlines = b"".join(b"\x00" + raw[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (
+            struct.pack(">I", len(data))
+            + tag
+            + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+        )
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    with open(filename, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", ihdr))
+        f.write(chunk(b"IDAT", zlib.compress(scanlines, 6)))
+        f.write(chunk(b"IEND", b""))

@@ -1,0 +1,114 @@
+"""Batched analytic primitive intersection (unit sphere / unit plane).
+
+Counterpart of the analytic part of qaray_tpu/ops/intersect.py
+(reference objects/objects.cpp:55-208): B rays against all P primitives as
+one [B, P] computation. Bias 0.005 rejects self-hits; spheres take the
+smaller root above the bias; planes are the [-1,1]^2 square at z=0 with a
+1e-7 parallel guard. These are also the plain versions of the analytic
+kernels (ops/analytic.py); the object-space transform is written out in the
+kernels' order so both round alike.
+"""
+
+import math
+
+import torch
+
+from qaray_tpu_torch.core.constants import BIAS, BIGFLOAT, PLANE_EPS
+from qaray_tpu_torch.core.vecmath import normalize
+from qaray_tpu_torch.scene.arrays import KIND_SPHERE, AnalyticPrims
+
+
+def _apply(m, v):
+    """m [..., 3, 3] @ v [..., 3], each row summed left to right."""
+    return torch.stack(
+        [m[..., i, 0] * v[..., 0] + m[..., i, 1] * v[..., 1]
+         + m[..., i, 2] * v[..., 2] for i in range(3)],
+        dim=-1,
+    )
+
+
+def _apply_t(m, v):
+    """m^T @ v for m [..., 3, 3], v [..., 3]."""
+    return torch.stack(
+        [m[..., 0, i] * v[..., 0] + m[..., 1, i] * v[..., 1]
+         + m[..., 2, i] * v[..., 2] for i in range(3)],
+        dim=-1,
+    )
+
+
+def _dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def intersect_analytic_t(p, d, prims: AnalyticPrims):
+    """Distance-only pass. Returns t [B, P] (BIGFLOAT where missed)."""
+    rel = p[:, None, :] - prims.t_o2w[None, :, :]
+    p_obj = _apply(prims.m_w2o[None], rel)
+    d_obj = _apply(prims.m_w2o[None], d[:, None, :])
+
+    # Sphere: a t^2 + b t + c = 0 (objects.cpp:55-85).
+    a = _dot(d_obj, d_obj)
+    b = 2.0 * _dot(p_obj, d_obj)
+    c = _dot(p_obj, p_obj) - 1.0
+    delta = b * b - 4.0 * a * c
+    sq = torch.sqrt(torch.clamp_min(delta, 0.0))
+    rcp2a = 0.5 / a
+    t1 = (-b - sq) * rcp2a
+    t2 = (-b + sq) * rcp2a
+    big = torch.full_like(t1, BIGFLOAT)
+    t_sph = torch.where(t1 > BIAS, t1, torch.where(t2 > BIAS, t2, big))
+    t_sph = torch.where(delta >= 0.0, t_sph, big)
+
+    # Plane: z=0, |x|,|y| <= 1 (objects.cpp:149-161).
+    dz = d_obj[..., 2]
+    t_pl = -p_obj[..., 2] / torch.where(torch.abs(dz) < PLANE_EPS,
+                                        torch.full_like(dz, math.inf), dz)
+    hit_xy = (
+        (torch.abs(p_obj[..., 0] + t_pl * d_obj[..., 0]) <= 1.0)
+        & (torch.abs(p_obj[..., 1] + t_pl * d_obj[..., 1]) <= 1.0)
+    )
+    t_pl = torch.where((t_pl > BIAS) & hit_xy, t_pl, big)
+
+    is_sphere = (prims.kind == KIND_SPHERE)[None, :]
+    return torch.where(is_sphere, t_sph, t_pl)
+
+
+def closest_analytic(p, d, prims: AnalyticPrims):
+    """(t [B], prim_idx [B] int32) of the closest analytic hit; ties and
+    all-miss lanes take the first index, as jnp.argmin does."""
+    t = intersect_analytic_t(p, d, prims)
+    idx = torch.argmin(t, dim=-1)
+    return torch.gather(t, 1, idx[:, None])[:, 0], idx.to(torch.int32)
+
+
+def analytic_hit_attrs(p, d, t, prim_idx, prims: AnalyticPrims):
+    """Hit attributes of the winning primitive only: p (world), n (world,
+    unit), uvw, front, mtl, has_texture. Texture coordinates follow
+    Sphere_TexCoord / Plane_TexCoord (objects.cpp:48-53, 144-147)."""
+    idx = prim_idx.long()
+    m = prims.m_w2o[idx]
+    p_obj = _apply(m, p - prims.t_o2w[idx])
+    d_obj = _apply(m, d)
+    hp = p_obj + t[:, None] * d_obj
+    zero = torch.zeros_like(t)
+
+    n_sph = normalize(hp, eps=1e-30)
+    uv_sph = torch.stack([
+        0.5 - torch.atan2(hp[..., 0], hp[..., 1]) / (2.0 * math.pi),
+        0.5 + torch.asin(torch.clamp(n_sph[..., 2], -1.0, 1.0)) / math.pi,
+        zero,
+    ], dim=-1)
+    n_pl = torch.stack([zero, zero, torch.ones_like(t)], dim=-1)
+    uv_pl = torch.stack(
+        [(hp[..., 0] + 1.0) * 0.5, (hp[..., 1] + 1.0) * 0.5, zero], dim=-1
+    )
+    is_sphere = (prims.kind[idx] == KIND_SPHERE)[:, None]
+    n_obj = torch.where(is_sphere, n_sph, n_pl)
+    return {
+        "p": p + t[:, None] * d,
+        "n": normalize(_apply_t(m, n_obj), eps=1e-30),
+        "uvw": torch.where(is_sphere, uv_sph, uv_pl),
+        "front": _dot(n_obj, d_obj) <= 0.0,
+        "mtl": prims.mtl[idx],
+        "has_texture": torch.ones_like(t, dtype=torch.bool),
+    }

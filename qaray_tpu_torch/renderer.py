@@ -1,0 +1,223 @@
+"""Renderer: the adaptive-supersampling loop over sample rounds.
+
+Counterpart of qaray_tpu/renderer.py on one device. All active pixels
+advance one sample per dispatch; adaptive sampling is host-side
+active-pixel compaction between rounds, with SuperSamplerHalton's stopping
+rule (scene/scene.cpp:92-98: stop when s >= sppMin and every channel's std
+is under its threshold, hard stop at sppMax). Phase 1 packs several sample
+indices into one dispatch when the image underfills the batch; phase 2
+renders only the unconverged pixels. The accumulation planes stay on the
+device (fb/device_accum.py).
+
+Photon maps, multi-device rendering, checkpoints and rank-debug planes
+arrive with their slices of the port and raise NotImplementedError here.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from qaray_tpu_torch.core.constants import SPP_THRESHOLD
+from qaray_tpu_torch.fb import device_accum
+from qaray_tpu_torch.fb.framebuffer import FrameBuffer
+from qaray_tpu_torch.integrators.engine import IntegratorConfig, render_batch
+from qaray_tpu_torch.scene.compiler import compile_scene
+
+
+@dataclasses.dataclass
+class RendererParam:
+    """The reference RendererParam defaults (renderer.h:47-68)."""
+
+    use_srgb: bool = True
+    spp_max: int = 8
+    spp_min: int = 4
+    max_bounce: int = 5
+    integrator: str = "photonmap"
+    use_photon_map: bool = False
+    shadow_spp: int = 16  # GenLight::shadow_spp_min (lights.cpp:16)
+    shadow_spp_max: int = 64  # GenLight::shadow_spp_max (lights.cpp:17)
+    threshold: tuple = SPP_THRESHOLD
+    seed: int = 0
+    # Key kind, as in qaray_tpu: 'rbg' (the default) or 'threefry2x32'.
+    rng_impl: str = "rbg"
+    round_spp: int = 1  # samples per adaptive round after spp_min
+    batch_pixels: int = 1 << 20  # max pixel lanes per dispatch
+    num_devices: int = 0
+    progressive_every: int = 0  # save colorBuffer every N spp (0 = off)
+    progressive_prefix: str = ""
+    rank_debug: bool = False
+    checkpoint_every: int = 0
+
+
+def key_words(rng_impl: str, seed: int):
+    """Key data of jax.random.key(seed, impl=rng_impl) as words.
+
+    threefry2x32 -> [seed >> 32, seed & 0xFFFFFFFF]; rbg -> [0, s, 0, s].
+    The four rbg words xor-fold to (0, 0) for every seed on the way into the
+    draws (core.rng.fold_words), so an rbg render does not depend on the
+    seed: this matches the reference's megakernel path on purpose."""
+    hi, lo = (seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF
+    if rng_impl == "threefry2x32":
+        return (hi, lo)
+    if rng_impl == "rbg":
+        return (0, lo, 0, lo)
+    raise ValueError(f"unknown rng_impl {rng_impl!r}")
+
+
+class Renderer:
+    def __init__(self, param: Optional[RendererParam] = None,
+                 device="cuda"):
+        self.param = param or RendererParam()
+        p = self.param
+        for flag, what in ((p.use_photon_map, "photon maps"),
+                           (p.num_devices > 1, "multi-device rendering"),
+                           (p.rank_debug, "rank-debug planes"),
+                           (p.checkpoint_every, "checkpoints")):
+            if flag:
+                raise NotImplementedError(
+                    f"{what} come with a later slice of the port")
+        self.device = torch.device(device)
+        self.stop_flag = False
+        self.scene_arrays = None
+        self.meta = None
+        self.fb: Optional[FrameBuffer] = None
+        self._progress_cb: Optional[Callable] = None
+        self._accum = None
+
+    def compute_scene(self, scene_desc):
+        self.scene_arrays, self.meta = compile_scene(scene_desc,
+                                                     device=self.device)
+        self.fb = FrameBuffer(self.meta.img_width, self.meta.img_height)
+        return self.scene_arrays, self.meta
+
+    def signal_stop(self):
+        self.stop_flag = True
+
+    def set_progress_callback(self, cb):
+        self._progress_cb = cb
+
+    def integrator_config(self) -> IntegratorConfig:
+        p = self.param
+        return IntegratorConfig(
+            integrator=p.integrator,
+            max_bounce=p.max_bounce,
+            shadow_spp=p.shadow_spp,
+            shadow_spp_max=p.shadow_spp_max,
+            inverse_square_falloff=p.integrator in ("photonmap", "pathtrace",
+                                                    "mcgi"),
+            use_photon_map=p.use_photon_map,
+        )
+
+    # -- render loop -----------------------------------------------------
+
+    def render(self) -> FrameBuffer:
+        assert self.scene_arrays is not None, "call compute_scene() first"
+        p = self.param
+        cfg = self.integrator_config()
+        fb = self.fb
+        num_pixels = self.meta.img_width * self.meta.img_height
+        words = key_words(p.rng_impl, p.seed)
+        self._accum = device_accum.init_state(fb, self.device)
+        all_ids = np.arange(num_pixels, dtype=np.int32)
+        start = time.time()
+
+        # Phase 1: spp_min samples for every pixel, several sample indices
+        # per dispatch when the image alone underfills the batch.
+        s = int(fb.count.min())
+        pack = max(1, p.batch_pixels // max(num_pixels, 1))
+        while s < p.spp_min:
+            if self.stop_flag:
+                return self.sync_fb()
+            if num_pixels <= p.batch_pixels:
+                k = min(pack, p.spp_min - s)
+                self._render_packed(cfg, all_ids, list(range(s, s + k)),
+                                    words, record_depth=(s == 0))
+            else:
+                k = 1
+                self._render_round(cfg, all_ids, s, words,
+                                   record_depth=(s == 0))
+            s += k
+            self._report(s)
+
+        # Phase 2: adaptive refinement of the unconverged pixels.
+        s = p.spp_min
+        while s < p.spp_max:
+            active = device_accum.unconverged_ids(self._accum, p.threshold, s)
+            if active.size == 0 or self.stop_flag:
+                break
+            for _ in range(min(p.round_spp, p.spp_max - s)):
+                self._render_round(cfg, active, s, words, record_depth=False)
+                s += 1
+            self._report(s)
+
+        self.sync_fb()
+        self._last_elapsed = time.time() - start
+        fb.finalize(p.use_srgb, p.spp_max)
+        return fb
+
+    def sync_fb(self):
+        """Mirror the device accumulator into the host FrameBuffer."""
+        if self._accum is not None:
+            device_accum.sync_to_fb(self._accum, self.fb)
+        return self.fb
+
+    def _lanes(self, pixel_ids: np.ndarray, sample_ids: np.ndarray):
+        w = self.meta.img_width
+        ids = torch.as_tensor(pixel_ids, device=self.device)
+        return (ids % w, ids // w,
+                torch.as_tensor(sample_ids, device=self.device))
+
+    def _render_packed(self, cfg, pixel_ids, sample_indices, words,
+                       record_depth: bool):
+        """len(sample_indices) samples per pixel in one dispatch, folded
+        into the accumulator in sample order (the recurrence is
+        order-sensitive; the order matches the reference loop)."""
+        n = pixel_ids.size
+        ids = np.tile(pixel_ids, len(sample_indices))
+        sids = np.repeat(np.asarray(sample_indices, np.int32), n)
+        px, py, sid = self._lanes(ids, sids)
+        radiance, depth = render_batch(self.scene_arrays, self.meta, cfg, px,
+                                       py, sid, words)
+        for k in range(len(sample_indices)):
+            self._fold(pixel_ids, radiance[k * n:(k + 1) * n])
+        if record_depth:
+            self.fb.set_depth(pixel_ids, depth[:n].cpu().numpy())
+
+    def _render_round(self, cfg, pixel_ids, sample_idx: int, words,
+                      record_depth: bool):
+        """One sample for each pixel id, chunked to the batch size."""
+        chunk = self.param.batch_pixels
+        for lo in range(0, pixel_ids.size, chunk):
+            ids = pixel_ids[lo:lo + chunk]
+            px, py, sid = self._lanes(
+                ids, np.full(ids.size, sample_idx, np.int32))
+            radiance, depth = render_batch(self.scene_arrays, self.meta, cfg,
+                                           px, py, sid, words)
+            self._fold(ids, radiance)
+            if record_depth:
+                self.fb.set_depth(ids, depth.cpu().numpy())
+
+    def _fold(self, pixel_ids: np.ndarray, radiance):
+        if pixel_ids.size and np.all(np.diff(pixel_ids) == 1):
+            device_accum.accumulate_contig(self._accum, int(pixel_ids[0]),
+                                           radiance)
+        else:
+            device_accum.accumulate_round(
+                self._accum, torch.as_tensor(pixel_ids, device=self.device),
+                radiance)
+
+    def _report(self, spp_done: int):
+        if self._progress_cb is not None:
+            self._progress_cb(spp_done, self.param.spp_max)
+        pe = self.param.progressive_every
+        if pe and spp_done % pe == 0 and spp_done < self.param.spp_max:
+            snapshot = copy.deepcopy(self.sync_fb())
+            snapshot.finalize(self.param.use_srgb, self.param.spp_max)
+            snapshot.save_image(f"{self.param.progressive_prefix}"
+                                f"colorBuffer_{spp_done:04d}spp.png")

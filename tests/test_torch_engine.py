@@ -1,0 +1,136 @@
+"""The port's wavefront engine against qaray_tpu's render_batch_xla.
+
+Under a threefry2x32 key both draw the same random numbers, so the bar is
+per-lane parity, as tests/test_megakernel.py::_compare holds the megakernel
+to the XLA engine: primary depth to rtol 1e-4 / atol 1e-3; fewer than 0.2 %
+of lanes above 1e-3 relative radiance error (lanes where float rounding
+flips a roulette comparison); median relative error < 1e-6; image-mean
+error < 2e-3.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qaray_tpu.integrators.engine import IntegratorConfig as JaxConfig
+from qaray_tpu.integrators.engine import render_batch_xla
+from qaray_tpu.scene.compiler import compile_scene
+from qaray_tpu.scene.xml_parser import load_scene
+from qaray_tpu_torch.fb import device_accum
+from qaray_tpu_torch.integrators import engine
+from qaray_tpu_torch.scene.convert import from_numpy_arrays
+
+RES = (32, 24)
+SPP = 2
+
+
+def lanes(res=RES, spp=SPP):
+    w, h = res
+    ids = np.arange(w * h * spp, dtype=np.int32)
+    return ids % w, (ids // w) % h, ids // (w * h)
+
+
+def scenes(name, res=RES):
+    scene = load_scene(f"tests/assets/{name}_scene.xml")
+    scene.camera.img_width, scene.camera.img_height = res
+    arrays, meta = compile_scene(scene)
+    tarr, tmeta = from_numpy_arrays(jax.tree.map(np.asarray, arrays), meta,
+                                    "cpu")
+    return arrays, meta, tarr, tmeta
+
+
+def compare(rad_ref, t0_ref, rad, t0, outlier_frac=2e-3):
+    """tests/test_megakernel.py::_compare's bars."""
+    assert np.allclose(t0_ref, t0, rtol=1e-4, atol=1e-3), (
+        np.abs(t0_ref - t0).max())
+    rel = (np.abs(rad_ref - rad).max(axis=-1)
+           / (1.0 + np.abs(rad_ref).max(axis=-1)))
+    assert (rel > 1e-3).mean() < outlier_frac
+    assert np.median(rel) < 1e-6
+    assert np.abs(rad_ref.mean(axis=0) - rad.mean(axis=0)).max() < 2e-3
+
+
+@pytest.mark.parametrize("integrator", ["pathtrace", "photonmap"])
+@pytest.mark.parametrize("name", ["spot", "softdof"])
+def test_engine_matches_jax(name, integrator):
+    arrays, meta, tarr, tmeta = scenes(name)
+    kw = dict(integrator=integrator, max_bounce=3, shadow_spp=4,
+              shadow_spp_max=8)
+    px, py, sid = lanes()
+    key = jax.random.key(3, impl="threefry2x32")
+    rad_x, t0_x = render_batch_xla(arrays, meta, JaxConfig(**kw),
+                                   jnp.asarray(px), jnp.asarray(py),
+                                   jnp.asarray(sid), key)
+    words = tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+    # render_batch routes this scene to the megakernel, whose CPU version
+    # is the wavefront engine.
+    assert engine.use_pathtrace_mega(tmeta, engine.IntegratorConfig(**kw))
+    rad, t0 = engine.render_batch(tarr, tmeta, engine.IntegratorConfig(**kw),
+                                  torch.tensor(px), torch.tensor(py),
+                                  torch.tensor(sid), words)
+    compare(np.asarray(rad_x), np.asarray(t0_x), rad.numpy(), t0.numpy())
+
+
+def test_engine_matches_jax_past_int32_fold():
+    """The right 32 columns of an 800x600 image, every 25th row: lanes
+    whose fold datum rid * 65536 + sid lies past 2^31 and 2^32 and wraps
+    on both sides."""
+    arrays, meta, tarr, tmeta = scenes("softdof", res=(800, 600))
+    kw = dict(integrator="photonmap", max_bounce=3, shadow_spp=4,
+              shadow_spp_max=8)
+    px, py, sid = lanes()
+    px, py, sid = px + 768, py * 25 + 17, sid + 5
+    key = jax.random.key(3, impl="threefry2x32")
+    rad_x, t0_x = render_batch_xla(arrays, meta, JaxConfig(**kw),
+                                   jnp.asarray(px), jnp.asarray(py),
+                                   jnp.asarray(sid), key)
+    words = tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+    rad, t0 = engine.render_batch_wavefront(
+        tarr, tmeta, engine.IntegratorConfig(**kw), torch.tensor(px),
+        torch.tensor(py), torch.tensor(sid), words)
+    compare(np.asarray(rad_x), np.asarray(t0_x), rad.numpy(), t0.numpy())
+
+
+def test_fold_datum_wraps_like_int32():
+    """rid * 65536 + sid at 800x600 passes 2^31 and wraps as int32 does."""
+    px = torch.tensor([0, 799, 5], dtype=torch.int32)
+    py = torch.tensor([0, 599, 40000 // 800], dtype=torch.int32)
+    sid = torch.tensor([0, 7, 3], dtype=torch.int32)
+    got = engine.lane_fold_data(px, py, sid, 800)
+    rid = np.asarray(py, np.int32) * np.int32(800) + np.asarray(px, np.int32)
+    with np.errstate(over="ignore"):
+        want = (rid * np.int32(65536) + np.asarray(sid, np.int32))
+    assert np.array_equal(got.numpy(), want.view(np.uint32).astype(np.int64))
+
+
+def test_accumulator_matches_jax():
+    """Device Welford planes == qaray_tpu.fb.device_accum on the same
+    samples, for scattered and contiguous updates."""
+    from qaray_tpu.fb import device_accum as jacc
+    from qaray_tpu.fb.framebuffer import FrameBuffer as JaxFB
+    from qaray_tpu_torch.fb.framebuffer import FrameBuffer
+
+    rs = np.random.RandomState(0)
+    w, h = 8, 4
+    jstate = jacc.init_state(JaxFB(w, h))
+    tstate = device_accum.init_state(FrameBuffer(w, h), "cpu")
+    for s in range(5):
+        ids = rs.permutation(w * h)[: w * h - s].astype(np.int32)
+        colors = rs.uniform(size=(ids.size, 3)).astype(np.float32)
+        jstate, _ = jacc.accumulate_round(jstate, jnp.asarray(ids),
+                                          jnp.asarray(colors))
+        device_accum.accumulate_round(tstate, torch.tensor(ids),
+                                      torch.tensor(colors))
+    colors = rs.uniform(size=(10, 3)).astype(np.float32)
+    jstate, _ = jacc.accumulate_contig(jstate, 3, jnp.asarray(colors))
+    device_accum.accumulate_contig(tstate, 3, torch.tensor(colors))
+    for k in ("mean", "std", "count"):
+        np.testing.assert_allclose(tstate[k].numpy(),
+                                   np.asarray(jstate[k])[:-1], rtol=1e-6,
+                                   atol=1e-7, err_msg=k)
+    for spp in (4, 5):
+        th = (0.005, 0.001, 0.005)
+        assert np.array_equal(device_accum.unconverged_ids(tstate, th, spp),
+                              jacc.unconverged_ids(jstate, th, spp))
