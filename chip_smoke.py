@@ -4,28 +4,47 @@
 
 Phases, each fatal on failure:
   1. build every kernel from csrc/ (one nvcc per source, in parallel);
-  2. K2a, K2b, K2c against their plain versions on 1M random rays against
-     the primitives of tests/assets/softdof_scene.xml (tests/test_pallas.py
-     bars);
-  3. K1a against the wavefront engine (which runs on K2b/K2c), with the
+  2. kernels against their plain versions:
+       a. K2a, K2b, K2c on 1M random rays against the primitives of
+          tests/assets/softdof_scene.xml (tests/test_pallas.py bars);
+       b. K3 (ico5, 20,480 triangles) against stream_closest and
+          stream_any_hit, K4a/K4b (ico6, 81,920 triangles) against
+          tiled_sweep, and the two-phase K4a march against the single-phase
+          one, on 1M random rays and the 480,000 camera rays of
+          tests/assets/mesh_scene.xml at 800x600 (and their shadow rays for
+          K4b), with the tests/test_pallas_tiles.py bars;
+  3. the megakernel against the wavefront engine, with the
      tests/test_megakernel.py bars:
-       a. softdof_scene.xml at 200x150, 2 samples per pixel, max_bounce 4,
-          threefry keys, for pathtrace and photonmap;
-       b. the main path's shapes at 800x600, max_bounce 5, where the fold
-          datum rid * 65536 + sid wraps past 2^31: the Renderer's first
+       a. K1a: softdof_scene.xml at 200x150, 2 samples per pixel,
+          max_bounce 4, threefry keys, for pathtrace and photonmap;
+       b. K1a at the main path's shapes at 800x600, max_bounce 5, where the
+          fold datum rid * 65536 + sid wraps past 2^31: the Renderer's first
           packed photonmap dispatch (960,000 lanes, rbg key words), the
           pathtrace render_batch of phase 4a (480,000 lanes, rbg) and a
           phase-2 photonmap round (480,000 lanes, sample 5, threefry);
+       c. K1c: mesh_scene.xml (320 triangles), its ico5 (20,480) and
+          mirror_scene.xml (a mirrored icosphere alone) at 200x150 x 2 spp,
+          threefry, max_bounce 3, pathtrace and photonmap (the
+          test_mega_parity_mesh and test_mega_streamed_mesh_parity bars),
+          and the first two at 800x600 with the Renderer's photonmap
+          settings and rbg words;
   4. the main path at 800x600 with every launch count set to 0 before each
-     route and read after it:
+     route and read after it, and every plain version of a kernel made to
+     raise if it is called:
        a. Renderer defaults (photonmap, spp 4..8, max_bounce 5, shadows
-          16->64, rbg) writing its PNGs, then render_batch with pathtrace
-          on 480,000 lanes: K1a only, no lane on the wavefront engine;
+          16->64, rbg) on softdof writing its PNGs, then render_batch with
+          pathtrace on 480,000 lanes: K1a only, no lane on the wavefront
+          engine;
        b. the wavefront route render_batch takes for scenes the megakernel
           does not serve (forced with QARAY_NO_MEGAKERNEL, 65,536-pixel
           batches): K2b and K2c;
-  5. each kernel's time at the path's shapes beside its bound and its
-     plain version's time.
+       c. Renderer defaults on mesh_scene.xml: K1a with K1c's mesh sweep;
+       d. the same with the ico5 icosphere: K1a/K1c;
+       e. the same with the ico6 icosphere, 1 spp: above 65,536 triangles
+          the wavefront route, K4a (two-phase) and K4b with K2b/K2c;
+       f. mesh_scene.xml under QARAY_NO_MEGAKERNEL, 1 spp: K3 with K2b/K2c;
+  5. each kernel's time at the path's shapes beside its bound, its launches
+     on the main path and its plain version's time.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers and, last, {"ok": true, "device": {...}}. Exits non-zero without
 those lines when there is no CUDA device or no package beside it.
@@ -56,6 +75,13 @@ PEAK_OPS = 67e12
 # arithmetic between them is not counted, so the bound stays a lower bound.
 OPS_PER_TEST = 45
 OPS_PER_CIPHER = 120
+# A triangle test (csrc/mesh.cuh tri_hit) is at least 40: six 3-term dot
+# products (30), t (2), the barycentric weights a, b (6) and c (2).
+OPS_PER_TRI = 40
+MESH_SCENE = os.path.join(HERE, "tests", "assets", "mesh_scene.xml")
+MIRROR_SCENE = os.path.join(HERE, "tests", "assets", "mirror_scene.xml")
+ICO_CENTRE, ICO_RADIUS = (0.0, 50.0, 5.1), 8.0  # mesh_scene's icosphere
+BIG = 1e30
 
 
 def card_line():
@@ -153,22 +179,115 @@ def compare_render(rad_ref, t0_ref, rad, t0, what):
     return (rad_ref - rad).abs().max().item()
 
 
+def compare_mesh_render(rad_ref, t0_ref, rad, t0, what, bars):
+    """tests/test_megakernel.py's mesh bars (t0 lanes off by > 1e-3,
+    radiance lanes above 1e-3 relative, channel means): the engine re-tests
+    each sweep winner with the exact reference formula while K1c shades the
+    sweep's own t and weights, so near-edge lanes may differ."""
+    t_bar, rad_bar, mean_bar = bars
+    rad_ref, rad = rad_ref.double(), rad.double()
+    t_frac = ((t0_ref - t0).abs() > 1e-3).double().mean().item()
+    rel = ((rad_ref - rad).abs().amax(-1)
+           / (1.0 + rad_ref.abs().amax(-1)))
+    frac = (rel > 1e-3).double().mean().item()
+    mean_err = (rad_ref.mean(0) - rad.mean(0)).abs().max().item()
+    check(t_frac < t_bar, f"{what}: t0 lanes off by > 1e-3 {t_frac:.3g} < "
+          f"{t_bar}")
+    check(frac < rad_bar, f"{what}: lanes above 1e-3 relative {frac:.3g} < "
+          f"{rad_bar}")
+    check(mean_err < mean_bar, f"{what}: channel-mean error {mean_err:.3g} "
+          f"< {mean_bar}")
+    return (rad_ref - rad).abs().max().item()
+
+
+def row_bars(want, got, what):
+    """tests/test_pallas_tiles.py:43-49 on (t, row, row2): rows equal on >
+    99.9 % of rays, t to rtol/atol 1e-5 where they agree on a hit, runner-ups
+    equal on > 99 % of the rays where both agree and report one. Returns
+    the largest t difference on the agreeing hits."""
+    t_x, r_x, r2_x = want[:3]
+    t_k, r_k, r2_k = got[:3]
+    same = (r_x == r_k).double().mean().item()
+    hit = (r_x >= 0) & (r_x == r_k)
+    close = torch.allclose(t_k[hit], t_x[hit], rtol=1e-5, atol=1e-5)
+    agree = (r_x == r_k) & (r2_x >= 0) & (r2_k >= 0)
+    same2 = (r2_x[agree] == r2_k[agree]).double().mean().item()
+    check(same > 0.999, f"{what}: rows equal on {same:.6f} > 0.999")
+    check(close, f"{what}: t within rtol/atol 1e-5 on agreeing hits")
+    check(same2 > 0.99, f"{what}: runner-ups equal on {same2:.6f} > 0.99")
+    return (t_k - t_x)[hit].abs().max().item() if hit.any() else 0.0
+
+
+def mesh_rays(n, seed):
+    """Rays around mesh_scene's icosphere: origins uniform in a box three
+    radii wide, half the directions aimed at the centre (jittered), half
+    uniform; budgets uniform in [1, 41)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.tensor(ICO_CENTRE, device="cuda")
+    p = c + (torch.rand((n, 3), device="cuda", generator=gen) * 2.0 - 1.0
+             ) * (3.0 * ICO_RADIUS)
+    d = torch.randn((n, 3), device="cuda", generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    aim = (c - p) / (c - p).norm(dim=1, keepdim=True)
+    d = torch.where((torch.arange(n, device="cuda") % 2 == 0)[:, None],
+                    aim + 0.05 * d, d)
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.rand(n, device="cuda", generator=gen) * 40.0 + 1.0
+    return p.contiguous(), d.contiguous(), t_max
+
+
+class ForbidPlain:
+    """Within the block, every plain version a kernel wrapper could take
+    raises: a main-path run that finishes ran only kernels."""
+
+    def __init__(self, *targets):
+        self.targets = targets  # (module, attribute name)
+        self.saved = []
+
+    def __enter__(self):
+        for mod, name in self.targets:
+            self.saved.append((mod, name, getattr(mod, name)))
+
+            def refuse(*_args, _name=f"{mod.__name__}.{name}", **_kw):
+                raise AssertionError(f"plain version {_name} ran on the "
+                                     "main path")
+
+            setattr(mod, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        self.saved = []
+        return False
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels run only on a GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from qaray_tpu_torch.core.constants import BIAS
     from qaray_tpu_torch.integrators import engine
     from qaray_tpu_torch.integrators.engine import (
         IntegratorConfig,
         render_batch,
         render_batch_wavefront,
     )
-    from qaray_tpu_torch.ops import _build, analytic, megakernel
+    from qaray_tpu_torch.ops import _build, analytic, megakernel, mesh_sweep
     from qaray_tpu_torch.ops import intersect as I
+    from qaray_tpu_torch.ops import tiles
+    from qaray_tpu_torch.ops.mesh_stream import (
+        StreamTris,
+        stream_any_hit,
+        stream_closest,
+    )
+    from qaray_tpu_torch.ops.mesh_tiles import TiledMesh, tiled_sweep
     from qaray_tpu_torch.renderer import Renderer, RendererParam, key_words
+    from qaray_tpu_torch.scene import bvh as bvh_mod
     from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.procedural import icosphere, with_mesh
     from qaray_tpu_torch.scene.xml_parser import load_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -188,12 +307,12 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    _build.load("analytic")
-    _build.load("megakernel")
+    for name in _build.SOURCES:
+        _build.load(name)
     numbers = {}
 
-    # -- 2. K2 against the plain versions ------------------------------------
-    print("phase 2: analytic kernels vs plain, 1M random rays", flush=True)
+    # -- 2. kernels against their plain versions -----------------------------
+    print("phase 2a: analytic kernels vs plain, 1M random rays", flush=True)
     arr, meta = compile_scene(load_scene(SCENE), device="cuda")
     prims = arr.analytic
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -225,7 +344,91 @@ def main():
     numbers["K2c"] = {"max_abs_err": float(dis > 0), "disagree_frac": dis}
     torch.cuda.synchronize()
 
-    # -- 3. K1a against the engine -------------------------------------------
+    print("phase 2b: mesh kernels vs plain: ico5 (K3) and ico6 (K4a/K4b), "
+          "1M random rays and 480,000 camera rays at 800x600", flush=True)
+    mesh_base = load_scene(MESH_SCENE)
+    mesh_base.camera.img_width, mesh_base.camera.img_height = 800, 600
+    ico5 = with_mesh(mesh_base, *icosphere(5), name="ico5")
+    ico6 = with_mesh(mesh_base, *icosphere(6), name="ico6")
+    t = time.time()
+    a5, m5 = compile_scene(ico5, device="cuda")
+    t5 = time.time() - t
+    t = time.time()
+    a6, m6 = compile_scene(ico6, device="cuda")
+    t6 = time.time() - t
+    # The world BVH is built at compile for tables equal to the JAX
+    # package's; no route of the port walks it yet. Its share of compile:
+    wv6 = a6.mesh.tri_v.cpu().numpy()
+    t = time.time()
+    b6 = bvh_mod.build_bvh(wv6, m6.max_leaf)
+    bvh_mod.pack_bvh(b6.bounds, b6.left, b6.right, b6.count, b6.elems, wv6)
+    tb6 = time.time() - t
+    print(f"  compiled ico5 in {t5:.3f} s, ico6 in {t6:.3f} s; ico6's BVH "
+          f"build and pack alone {tb6:.3f} s", flush=True)
+    check(m5.num_tris == 20480 and m5.mesh_stream and m5.mesh_mega,
+          "ico5: dense-sweep (K3) and megakernel (K1c) tables")
+    check(m6.num_tris == 81920 and m6.mesh_tiled and not m6.mesh_mega,
+          "ico6: tiled (K4a/K4b) tables, above the megakernel's limit")
+    c16 = a5.mesh.stream_c16
+    plain5 = StreamTris(a5.mesh.stream_coeff, a5.mesh.stream_const)
+    m6t = a6.mesh
+    tm6 = TiledMesh(m6t.tile_coeff, m6t.tile_const, m6t.tile_gid,
+                    m6t.tile_cbounds)
+    rp, rd, rt = mesh_rays(1 << 20, 7)
+    cpx, cpy, csid = lanes(800, 600, 1)
+    cp, cd = engine.generate_camera_rays(a5, m5, cpx, cpy, csid, None)
+    cp, cd = cp.contiguous(), cd.contiguous()
+    light = -torch.tensor([1.0, 0.5, -1.0], device="cuda")
+    light = light / light.norm()
+    mesh_err = {"K3": 0.0, "K4a": 0.0, "K4b": 0.0}
+    for what, p_, d_, tmax_ in (("random", rp, rd, rt),
+                                ("camera", cp, cd, rt[: cp.shape[0]])):
+        t_cur = torch.full_like(tmax_, BIG)
+        got = mesh_sweep.sweep_closest(p_, d_, t_cur, c16)
+        want = stream_closest(p_, d_, t_cur, plain5)
+        mesh_err["K3"] = max(mesh_err["K3"],
+                             row_bars(want, got, f"K3 ico5 {what}"))
+        occ_k = mesh_sweep.sweep_occluded(p_, d_, tmax_, c16)
+        occ_p = stream_any_hit(p_, d_, tmax_, plain5)
+        check(torch.equal(occ_k, occ_p), f"K3 any hit ico5 {what}: every "
+              "ray equal")
+        del got, want
+        got = tiles.tiled_sweep_kernel(p_, d_, t_cur, tm6, m6t.tile_c16T)
+        want = tiled_sweep(p_, d_, t_cur, tm6)
+        mesh_err["K4a"] = max(mesh_err["K4a"],
+                              row_bars(want, got, f"K4a ico6 {what}"))
+        if what == "camera":
+            # Shadow rays toward mesh_scene's direct light from the camera
+            # rays' hits; misses get budget 0, as the engine gives them.
+            hit = want[1] >= 0
+            sp = (p_ + torch.where(hit, want[0], 0.0)[:, None] * d_)
+            tmax_ = torch.where(hit, BIG, 0.0)
+            d_ = light.expand_as(sp).contiguous()
+            p_ = sp.contiguous()
+            shadow6 = (p_, d_, tmax_)
+        occ_k = tiles.tiled_sweep_kernel(p_, d_, tmax_, tm6, m6t.tile_c16T,
+                                         any_hit=True)
+        occ_p = tiled_sweep(p_, d_, tmax_, tm6, any_hit=True)
+        check(torch.equal(occ_k, occ_p), f"K4b ico6 {what}: every ray equal "
+              f"({occ_k.double().mean().item():.4f} occluded)")
+        del got, want
+    for what, p_, d_ in (("random", rp, rd), ("camera", cp, cd)):
+        # Two-phase against single-phase, both on the coherence-sorted rays.
+        # Rows may differ only where two triangles tie exactly in t (a ray
+        # through an edge both share): the repacked phase-2 packets visit
+        # the clusters in another order.
+        t_cur = torch.full((p_.shape[0],), BIG, device="cuda")
+        t0, r0, _ = tiles.tiled_closest_twophase(p_, d_, t_cur, tm6,
+                                                 m6t.tile_c16T, budget=0)
+        t1, r1, _ = tiles.tiled_closest_twophase(p_, d_, t_cur, tm6,
+                                                 m6t.tile_c16T, budget=12)
+        ties = int(((r0 != r1) & (t0 == t1)).sum().item())
+        check(bool(((r0 == r1) | (t0 == t1)).all()),
+              f"K4a two-phase vs single-phase ico6 {what}: rows identical "
+              f"but for {ties} exact ties in t")
+    torch.cuda.synchronize()
+
+    # -- 3. the megakernel against the engine --------------------------------
     print("phase 3a: K1a vs the wavefront engine, softdof 200x150 x 2 spp",
           flush=True)
     small = load_scene(SCENE)
@@ -284,26 +487,102 @@ def main():
     numbers["K1a"] = {"max_abs_err": k1a_err}
     torch.cuda.synchronize()
 
+    print("phase 3c: K1c vs the wavefront engine (which runs on K3), "
+          "mesh_scene, its ico5 and mirror_scene", flush=True)
+    k1c_err = 0.0
+    mesh_bars = {"mesh": (2e-3, 5e-3, 2e-3), "ico5": (5e-3, 1e-2, 2e-3),
+                 "mirror": (2e-3, 5e-3, 2e-3)}
+    for what in ("mesh", "ico5", "mirror"):
+        # mirror_scene: a mirror-instanced icosphere and no analytic
+        # primitive at all.
+        small = load_scene(MIRROR_SCENE if what == "mirror" else MESH_SCENE)
+        if what == "ico5":
+            small = with_mesh(small, *icosphere(5), name="ico5")
+        small.camera.img_width, small.camera.img_height = 200, 150
+        k_arr, k_meta = compile_scene(small, device="cuda")
+        check(k_meta.mesh_mega, f"{what}: megakernel mesh tables")
+        spx, spy, ssid = lanes(200, 150, 2)
+        for integ in ("pathtrace", "photonmap"):
+            cfg = IntegratorConfig(integrator=integ, max_bounce=3)
+            rad_k, t0_k = megakernel.mega_render(k_arr, k_meta, cfg, spx, spy,
+                                                 ssid, (0, 5))
+            rad_p, t0_p = render_batch_wavefront(k_arr, k_meta, cfg, spx, spy,
+                                                 ssid, (0, 5))
+            k1c_err = max(k1c_err, compare_mesh_render(
+                rad_p, t0_p, rad_k, t0_k, f"K1c {what} 200x150 {integ}",
+                mesh_bars[what]))
+    mesh_arr = {}
+    for what, desc in (("mesh", mesh_base), ("ico5", ico5)):
+        k_arr, k_meta = compile_scene(desc, device="cuda")
+        mesh_arr[what] = (k_arr, k_meta)
+        rad_k, t0_k = megakernel.mega_render(k_arr, k_meta, cfg_pm, bpx, bpy,
+                                             bsid, rbg)
+        rad_p, t0_p = render_batch_wavefront(k_arr, k_meta, cfg_pm, bpx, bpy,
+                                             bsid, rbg)
+        k1c_err = max(k1c_err, compare_mesh_render(
+            rad_p, t0_p, rad_k, t0_k,
+            f"K1c {what} 800x600 photonmap max_bounce 5 rbg", mesh_bars[what]))
+        del rad_k, t0_k, rad_p, t0_p
+    numbers["K1c"] = {"max_abs_err": k1c_err}
+    torch.cuda.synchronize()
+
     # -- 4. the main path ----------------------------------------------------
+    counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
+                tiles.launches)
+    forbid = ForbidPlain(
+        (analytic, "closest_plain"), (analytic, "closest_full_plain"),
+        (analytic, "shadow_plain"), (mesh_sweep, "stream_closest"),
+        (mesh_sweep, "stream_any_hit"), (tiles, "march_plain"))
+
     def reset_counts():
-        for counts in (analytic.launches, megakernel.launches):
+        for counts in counters:
             for k in counts:
                 counts[k] = 0
         engine.wavefront_lanes = 0
 
     def read_counts():
-        return {**megakernel.launches, **analytic.launches,
-                "wavefront_lanes": engine.wavefront_lanes}
+        out = {}
+        for counts in counters:
+            out.update(counts)
+        out["wavefront_lanes"] = engine.wavefront_lanes
+        return out
+
+    def render_main(what, desc, param, no_mega=False):
+        """One Renderer.render() on the main path: counts set to 0 just
+        before and read just after, plain versions refused. Returns
+        (frame buffer, wall seconds, counts, renderer)."""
+        reset_counts()
+        if no_mega:
+            os.environ["QARAY_NO_MEGAKERNEL"] = "1"
+        try:
+            with forbid:
+                r = Renderer(param, device="cuda")
+                r.compute_scene(desc)
+                torch.cuda.synchronize()
+                t = time.time()
+                fb = r.render()
+                torch.cuda.synchronize()
+                wall = time.time() - t
+        finally:
+            os.environ.pop("QARAY_NO_MEGAKERNEL", None)
+        counts = read_counts()
+        rays = int(fb.count.sum())
+        print(f"  {what}: Renderer wall {wall:.4f} s, {rays} primary rays, "
+              f"{rays / wall:.4e} primary rays/s, spp per pixel "
+              f"{fb.count.min()}..{fb.count.max()} "
+              f"(mean {fb.count.mean():.3f})", flush=True)
+        print(f"  launch counts: {json.dumps(counts)}", flush=True)
+        check(fb.img.shape == (800 * 600, 3), "colour buffer is 800x600x3")
+        check(bool(np.isfinite(fb.mean).all()), "radiance finite")
+        check(0.0 < float(fb.mean.mean()) < 10.0,
+              f"mean radiance {float(fb.mean.mean()):.4f} plausible")
+        check(param.spp_min <= fb.count.min()
+              and fb.count.max() <= param.spp_max,
+              f"spp within {param.spp_min}..{param.spp_max}")
+        return fb, wall, counts, r
 
     print("phase 4a: Renderer, softdof 800x600, defaults", flush=True)
-    reset_counts()
-    renderer = Renderer(RendererParam(), device="cuda")
-    renderer.compute_scene(scene)
-    torch.cuda.synchronize()
-    t = time.time()
-    fb = renderer.render()
-    torch.cuda.synchronize()
-    wall = time.time() - t
+    fb, wall, _, renderer = render_main("softdof", scene, RendererParam())
     with tempfile.TemporaryDirectory() as out_dir:
         prefix = os.path.join(out_dir, "smoke_")
         fb.save_image(prefix + "colorBuffer.png")
@@ -311,24 +590,15 @@ def main():
         fb.save_sample_count_image(prefix + "sampleBuffer.png")
         sizes = [os.path.getsize(prefix + f) for f in (
             "colorBuffer.png", "depthBuffer.png", "sampleBuffer.png")]
-    rays = int(fb.count.sum())
-    print(f"  Renderer wall {wall:.4f} s, {rays} primary rays, "
-          f"{rays / wall:.4e} primary rays/s, spp per pixel "
-          f"{fb.count.min()}..{fb.count.max()} (mean {fb.count.mean():.3f})",
-          flush=True)
-    check(fb.img.shape == (800 * 600, 3), "colour buffer is 800x600x3")
-    check(bool(np.isfinite(fb.mean).all()), "radiance finite")
-    check(0.0 < float(fb.mean.mean()) < 10.0,
-          f"mean radiance {float(fb.mean.mean()):.4f} plausible")
-    check(4 <= fb.count.min() and fb.count.max() <= 8, "spp within 4..8")
     check(min(sizes) > 100, f"PNGs written ({sizes} bytes)")
-
     s_arr, s_meta = renderer.scene_arrays, renderer.meta
     torch.cuda.synchronize()
-    t = time.time()
-    rad_b, t0_b = render_batch(s_arr, s_meta, cfg_pt, bpx, bpy, bsid, rbg)
-    torch.cuda.synchronize()
-    wall_b = time.time() - t
+    with forbid:
+        t = time.time()
+        rad_b, t0_b = render_batch(s_arr, s_meta, cfg_pt, bpx, bpy, bsid,
+                                   rbg)
+        torch.cuda.synchronize()
+        wall_b = time.time() - t
     check(rad_b.shape == (480000, 3) and bool(rad_b.isfinite().all()),
           "render_batch radiance [480000, 3] finite")
     print(f"  render_batch pathtrace 480000 lanes: wall {wall_b:.4f} s, "
@@ -340,42 +610,109 @@ def main():
 
     print("phase 4b: wavefront route (QARAY_NO_MEGAKERNEL), 800x600 x 1 spp",
           flush=True)
-    reset_counts()
-    os.environ["QARAY_NO_MEGAKERNEL"] = "1"
-    wf = Renderer(RendererParam(spp_min=1, spp_max=1, batch_pixels=1 << 16),
-                  device="cuda")
-    wf.compute_scene(scene)
-    torch.cuda.synchronize()
-    t = time.time()
-    fb_wf = wf.render()
-    torch.cuda.synchronize()
-    wall_wf = time.time() - t
-    del os.environ["QARAY_NO_MEGAKERNEL"]
-    counts_b = read_counts()
-    print(f"  wavefront Renderer wall {wall_wf:.4f} s, "
-          f"{480000 / wall_wf:.4e} primary rays/s", flush=True)
-    print(f"  launch counts: {json.dumps(counts_b)}", flush=True)
-    check(bool(np.isfinite(fb_wf.mean).all()), "wavefront radiance finite")
+    fb_wf, _, counts_b, _ = render_main(
+        "softdof wavefront", scene,
+        RendererParam(spp_min=1, spp_max=1, batch_pixels=1 << 16),
+        no_mega=True)
     check(counts_b["K2b"] > 0 and counts_b["K2c"] > 0,
           "K2b and K2c launched on the wavefront route")
     check(counts_b["K1a"] == 0, "no K1a launch on the wavefront route")
-    launches = {k: counts_a[k] + counts_b[k] for k in ("K1a", "K2a", "K2b",
-                                                       "K2c")}
+
+    print("phase 4c: Renderer, mesh_scene 800x600 (320 triangles), defaults",
+          flush=True)
+    _, _, counts_c, _ = render_main("mesh_scene", mesh_base, RendererParam())
+    check(counts_c["K1c"] > 0 and counts_c["K1c"] == counts_c["K1a"],
+          f"K1a launched {counts_c['K1a']} times, all with the mesh sweep")
+    check(counts_c["wavefront_lanes"] == 0, "no lane on the wavefront engine")
+
+    print("phase 4d: Renderer, mesh_scene with ico5 (20,480 triangles) "
+          "800x600, defaults", flush=True)
+    _, _, counts_d, _ = render_main("ico5", ico5, RendererParam())
+    check(counts_d["K1c"] > 0 and counts_d["K1c"] == counts_d["K1a"],
+          f"K1a launched {counts_d['K1a']} times, all with the mesh sweep")
+    check(counts_d["wavefront_lanes"] == 0, "no lane on the wavefront engine")
+
+    print("phase 4e: Renderer, mesh_scene with ico6 (81,920 triangles) "
+          "800x600 x 1 spp: the wavefront route", flush=True)
+    _, _, counts_e, _ = render_main("ico6", ico6,
+                                    RendererParam(spp_min=1, spp_max=1))
+    check(counts_e["K4a"] > 0 and counts_e["K4b"] > 0,
+          f"K4a launched {counts_e['K4a']} times, K4b {counts_e['K4b']}")
+    check(counts_e["K1a"] == 0 and counts_e["K3"] == 0,
+          "no K1a or K3 launch above 65,536 triangles")
+
+    print("phase 4f: Renderer, mesh_scene 800x600 x 1 spp under "
+          "QARAY_NO_MEGAKERNEL: the dense sweep", flush=True)
+    _, _, counts_f, _ = render_main("mesh_scene wavefront", mesh_base,
+                                    RendererParam(spp_min=1, spp_max=1),
+                                    no_mega=True)
+    check(counts_f["K3"] > 0, f"K3 launched {counts_f['K3']} times")
+    check(counts_f["K1a"] == 0 and counts_f["K4a"] == 0,
+          "no K1a or K4a launch on the dense route")
+    launches = {k: sum(c[k] for c in (counts_a, counts_b, counts_c, counts_d,
+                                       counts_e, counts_f))
+                for k in ("K1a", "K1c", "K2a", "K2b", "K2c", "K3", "K4a",
+                          "K4b")}
+    print(f"  launches on the main path (4a-4f): {json.dumps(launches)}",
+          flush=True)
 
     # -- 5. timings at the path's shapes -------------------------------------
     print("phase 5: kernel times at the path's shapes", flush=True)
     ms, src = kernel_ms(lambda: megakernel.mega_render(
         s_arr, s_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
-    work = torch.zeros((480000, 3), dtype=torch.int32, device="cuda")
-    megakernel.mega_render(s_arr, s_meta, cfg_pt, bpx, bpy, bsid, rbg,
-                           work=work)
-    wsum = work.sum(0, dtype=torch.int64).tolist()
-    ops = wsum[0] * OPS_PER_TEST + wsum[1] * OPS_PER_CIPHER
-    b_ms, b_by = bound(480000 * (12 + 16), ops)
+
+    def mega_work(arr, meta_):
+        """Per-lane work counters of one K1a launch, summed: (primitive
+        tests, threefry ciphers, shaded vertices, triangle tests)."""
+        work = torch.zeros((480000, 4), dtype=torch.int32, device="cuda")
+        megakernel.mega_render(arr, meta_, cfg_pt, bpx, bpy, bsid, rbg,
+                               work=work)
+        return work.sum(0, dtype=torch.int64).tolist()
+
+    def mega_ops(wsum):
+        return (wsum[0] * OPS_PER_TEST + wsum[1] * OPS_PER_CIPHER
+                + wsum[3] * OPS_PER_TRI)
+
+    wsum = mega_work(s_arr, s_meta)
+    b_ms, b_by = bound(480000 * (12 + 16), mega_ops(wsum))
     numbers["K1a"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=None, timed_by=src,
                           lanes=480000, prim_tests=wsum[0], ciphers=wsum[1],
                           vertices=wsum[2])
+
+    # K1c: the same launch on mesh_scene (320 triangles) and its ico5
+    # (20,480); its plain version is the wavefront engine on the same lanes.
+    for what in ("mesh", "ico5"):
+        k_arr, k_meta = mesh_arr[what]
+        ms, src = kernel_ms(lambda: megakernel.mega_render(
+            k_arr, k_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
+        wsum = mega_work(k_arr, k_meta)
+        tab = k_arr.kernel
+        nbytes = (480000 * (12 + 16) + 4 * (tab.mesh_rows.numel()
+                                            + tab.mesh_attr.numel()
+                                            + tab.mesh_cb.numel()))
+        b_ms, b_by = bound(nbytes, mega_ops(wsum))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for lo in range(0, 480000, 65536):
+            render_batch_wavefront(k_arr, k_meta, cfg_pt, bpx[lo:lo + 65536],
+                                   bpy[lo:lo + 65536], bsid[lo:lo + 65536],
+                                   rbg)
+        end.record()
+        end.synchronize()
+        row = dict(ms=ms, plain_ms=start.elapsed_time(end), bound_ms=b_ms,
+                   bound_by=b_by, timed_by=src, prim_tests=wsum[0],
+                   ciphers=wsum[1], vertices=wsum[2], tri_tests=wsum[3])
+        if what == "mesh":
+            numbers["K1c"].update(library_ms=None, lanes=480000,
+                                  triangles=k_meta.num_tris, **row)
+        else:
+            numbers["K1c"].update({f"ico5_{k}": v for k, v in row.items()})
+        print(f"  K1c {what} ({k_meta.num_tris} triangles), pathtrace 480000 "
+              f"lanes: {ms:.4f} ms by {src}, bound {b_ms:.5f} ms by {b_by}, "
+              f"engine {row['plain_ms']:.3f} ms, {wsum[3]} triangle tests",
+              flush=True)
 
     n2 = 1 << 16  # one wavefront batch of primary rays
     n_sh = 1 << 20  # its first 16 soft-shadow rays per lane
@@ -409,34 +746,120 @@ def main():
                              rays=n, prim_tests=tests)
     torch.cuda.synchronize()
 
-    # Device busy share of one Renderer.render() at the 4a settings.
-    prof_r = Renderer(RendererParam(), device="cuda")
-    prof_r.compute_scene(scene)
+    # K3 on ico5 and K4a/K4b on ico6 at the 480,000 camera rays of
+    # mesh_scene at 800x600 (and, for K4b, their shadow rays). The tiled
+    # route sorts rays by coherence_order before each march, so the kernels
+    # are timed on sorted rays; the two-phase K4a is also timed whole.
+    n_cam = cp.shape[0]
+    t_big = torch.full((n_cam,), BIG, device="cuda")
+    fp5 = c16.shape[0]
+    tests = n_cam * fp5
+    b_ms, b_by = bound(n_cam * (24 + 4 + 12) + fp5 * 64, tests * OPS_PER_TRI)
+    k_ms, src = kernel_ms(
+        lambda: mesh_sweep.sweep_closest(cp, cd, t_big, c16), "sweep_kernel",
+        10)
+    numbers["K3"] = dict(
+        max_abs_err=mesh_err["K3"], ms=k_ms,
+        plain_ms=cuda_ms(lambda: stream_closest(cp, cd, t_big, plain5), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, timed_by=src,
+        wrapper_ms=cuda_ms(
+            lambda: mesh_sweep.sweep_closest(cp, cd, t_big, c16), 10),
+        rays=n_cam, triangles=m5.num_tris, tri_tests=tests)
+
+    lo6 = m6t.tile_cbounds[:, :3].amin(0)
+    hi6 = m6t.tile_cbounds[:, 3:6].amax(0)
+    packet = tiles.PACKET_ROWS * tiles.LANES
+    fp6 = m6t.tile_c16T.shape[0] * 8
+    n_cl = m6t.tile_cbounds.shape[0]
+    for name, (p_, d_, t_) in (("K4a", (cp, cd, t_big)), ("K4b", shadow6)):
+        any_hit = name == "K4b"
+        perm = tiles.coherence_order(p_, d_, lo6, hi6)
+        ps, ds, ts = (x[perm].contiguous() for x in (p_, d_, t_))
+        n = ps.shape[0]
+        g = (n + packet - 1) // packet
+        # The bound counts the triangle tests each ray needed (its own
+        # reach against each visited cluster's entry bound), not every lane
+        # of every visited cluster.
+        steps = torch.zeros(g, dtype=torch.int32, device="cuda")
+        work = torch.zeros(n, dtype=torch.int32, device="cuda")
+        out = tiles.tiled_sweep_kernel(ps, ds, ts, tm6, m6t.tile_c16T,
+                                       any_hit=any_hit, steps=steps,
+                                       work=work)
+        per_packet = torch.clamp(
+            n - packet * torch.arange(g, device="cuda"), max=packet)
+        upper = int((steps.long() * per_packet).sum().item()) * 256
+        tests = int(work.sum(dtype=torch.int64).item())
+        check(bool((work % 256 == 0).all()) and tests <= upper,
+              f"{name} per-ray tests {tests} within the packets' {upper}")
+        if any_hit:
+            check(bool((work[ts <= BIAS] == 0).all()),
+                  "K4b: no test counted for a ray without budget")
+        else:
+            check(bool((work[out[1] >= 0] > 0).all()),
+                  "K4a: every ray with a hit needed a test")
+        nbytes = n * (24 + 4 + 4 + 13) + fp6 * 64 + g * n_cl * 8
+        b_ms, b_by = bound(nbytes, tests * OPS_PER_TRI)
+        kname = "march_kernel<true>" if any_hit else "march_kernel<false>"
+        k_ms, src = kernel_ms(lambda: tiles.tiled_sweep_kernel(
+            ps, ds, ts, tm6, m6t.tile_c16T, any_hit=any_hit), kname, 10)
+        numbers[name] = dict(
+            max_abs_err=mesh_err[name], ms=k_ms,
+            plain_ms=cuda_ms(lambda: tiled_sweep(ps, ds, ts, tm6,
+                                                 any_hit=any_hit), 1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, timed_by=src,
+            wrapper_ms=cuda_ms(lambda: tiles.tiled_sweep_kernel(
+                ps, ds, ts, tm6, m6t.tile_c16T, any_hit=any_hit), 10),
+            rays=n, triangles=m6.num_tris, packets=g,
+            clusters_visited=int(steps.sum().item()),
+            max_packet_clusters=int(steps.max().item()), tri_tests=tests,
+            packet_tri_tests=upper)
+    numbers["K4a"]["twophase_wrapper_ms"] = cuda_ms(
+        lambda: tiles.tiled_closest_twophase(cp, cd, t_big, tm6,
+                                             m6t.tile_c16T), 10)
     torch.cuda.synchronize()
-    reset_counts()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t = time.time()
-        prof_r.render()
+
+    # Device busy share of one Renderer.render() at the 4a, 4c and 4e
+    # settings.
+    def profile_render(what, desc, param):
+        r = Renderer(param, device="cuda")
+        r.compute_scene(desc)
         torch.cuda.synchronize()
-        wall_p = (time.time() - t) * 1e3
-    busy = {}
-    for evt in prof.key_averages():
-        dt = device_us(evt)
-        if dt > 0:
-            busy[evt.key] = dt / 1e3
-    total_busy = sum(busy.values())
-    top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
-    print(f"  Renderer under the profiler: wall {wall_p:.3f} ms, device busy "
-          f"{total_busy:.3f} ms, idle share "
-          f"{1.0 - total_busy / wall_p:.4f}, K1a launches "
-          f"{megakernel.launches['K1a']}", flush=True)
-    for key, val in top:
-        print(f"    {val:.3f} ms  {key[:90]}")
+        reset_counts()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            r.render()
+            torch.cuda.synchronize()
+            wall_p = (time.time() - t) * 1e3
+        busy = {}
+        for evt in prof.key_averages():
+            dt = device_us(evt)
+            if dt > 0:
+                busy[evt.key] = dt / 1e3
+        total_busy = sum(busy.values())
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+        print(f"  {what} Renderer under the profiler: wall {wall_p:.3f} ms, "
+              f"device busy {total_busy:.3f} ms, idle share "
+              f"{1.0 - total_busy / wall_p:.4f}, launches "
+              f"{json.dumps(read_counts())}", flush=True)
+        for key, val in top:
+            print(f"    {val:.3f} ms  {key[:90]}")
+
+    profile_render("softdof defaults", scene, RendererParam())
+    profile_render("mesh_scene defaults", mesh_base, RendererParam())
+    profile_render("ico6 1 spp", ico6, RendererParam(spp_min=1, spp_max=1))
 
     meta_k = {
         "K1a": ("qaray_tpu_torch/csrc/megakernel.cu",
                 "qaray_tpu/ops/pallas_pathtrace.py:1614"),
+        "K1c": ("qaray_tpu_torch/csrc/megakernel.cu",
+                "qaray_tpu/ops/pallas_pathtrace.py:1614"),
+        "K3": ("qaray_tpu_torch/csrc/mesh.cu",
+               "qaray_tpu/ops/pallas_mesh.py:143"),
+        "K4a": ("qaray_tpu_torch/csrc/tiles.cu",
+                "qaray_tpu/ops/pallas_tiles.py:385"),
+        "K4b": ("qaray_tpu_torch/csrc/tiles.cu",
+                "qaray_tpu/ops/pallas_tiles.py:374"),
         "K2a": ("qaray_tpu_torch/csrc/analytic.cu",
                 "qaray_tpu/ops/pallas_analytic.py:212"),
         "K2b": ("qaray_tpu_torch/csrc/analytic.cu",
@@ -445,7 +868,7 @@ def main():
                 "qaray_tpu/ops/pallas_analytic.py:174"),
     }
     kernels = []
-    for name in ("K1a", "K2a", "K2b", "K2c"):
+    for name in ("K1a", "K1c", "K2a", "K2b", "K2c", "K3", "K4a", "K4b"):
         src, rep = meta_k[name]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches[name]}

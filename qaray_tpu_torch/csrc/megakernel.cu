@@ -4,8 +4,9 @@
 // Replaces the Pallas TPU kernel qaray_tpu/ops/pallas_pathtrace.py
 // ::_make_kernel (dispatched by _mega_raw), with its helpers _closest_hit,
 // _shadow_occluded, _illuminate, _blinn_direct, _glossy_jitter, _halton and
-// the in-kernel threefry of core/krng.py. The analytic, untextured,
-// mesh-free, gather-free configuration only (K1b-K1d come later).
+// the in-kernel threefry of core/krng.py (K1a), and its world-mesh sweep
+// _mesh_tri_test / _cluster_overlaps / _bundle_bounds (K1c). Untextured and
+// gather-free only (K1b and K1d come later).
 //
 // What bounds it on the H100: operations. A lane reads 12 bytes and
 // writes 16, but does per bounce a closest-hit sweep over the primitives,
@@ -22,6 +23,19 @@
 // per-primitive and per-light kind tables read at run time, uniform across
 // a warp; the sum over lights keeps blinn_direct's order.
 //
+// K1c, the mesh sweep: world-baked triangles in Morton order, 256 to a
+// cluster with an AABB each (scene/compiler.py, build_mega_mesh). Inside
+// the bounce loop each thread walks the clusters in order, culls each one
+// against its own ray (mesh.cuh's widened slab test; the Pallas kernel
+// bounds a whole ray block instead) below its current best t, and sweeps
+// the survivors' rows with the predicate K3 uses, folding t, the smooth
+// normal a*n0 + b*n1 + c*n2 from the attribute table, the front flag and
+// the material row. Shadow rays stop at the first occluder. The tables
+// stay in global memory, read through the read-only path: a lane's rows
+// are the same as its warp neighbours' (coherent rays cull alike), so they
+// come from L1. Bounded by operations too: about 40 per triangle test,
+// counted per lane in `work`.
+//
 // Random draws are bit-exact with jax.random (threefry2x32 key words):
 // the per-lane key is fold(base, rid * 65536 + sid) in wrapping 32-bit
 // arithmetic, then fold(1000 + bounce) and a purpose tag per decision, as
@@ -30,6 +44,7 @@
 #include <stdint.h>
 
 #include "analytic.cuh"
+#include "mesh.cuh"
 #include "threefry.cuh"
 
 namespace {
@@ -75,11 +90,15 @@ struct Params {
   int max_bounce;
   int shadow_spp, shadow_spp_max;
   int has_dof, has_glossy;
+  const float4* mrows;  // [Fp, 16] mesh sweep coefficients (Morton order)
+  const float4* mattr;  // [Fp, 16] corner normals (0-8), material row (9)
+  const float* mcb;     // [C, 8] cluster AABBs
+  int n_clusters;       // 0: no mesh
   float* r;
   float* g;
   float* b;
   float* t0;
-  int* work;  // optional [n, 3]: prim tests, threefry ciphers, vertices
+  int* work;  // optional [n, 4]: prim tests, ciphers, vertices, tri tests
 };
 
 struct Shared {
@@ -94,7 +113,7 @@ struct Shared {
 };
 
 struct Work {
-  int tests, ciphers, vertices;
+  int tests, ciphers, vertices, tri_tests;
 };
 
 __device__ __forceinline__ float luma3(V3 c) {
@@ -139,9 +158,54 @@ __device__ __forceinline__ V3 to_local_frame(V3 n, V3 s) {
             u.x * x.z + u.y * y.z + u.z * n.z};
 }
 
+// Any hit on the world mesh with BIAS < t < t_max (K1c).
+__device__ bool mesh_occluded(const Params& P, V3 p, V3 d, float t_max,
+                              Work& w) {
+  const RaySlab s = ray_slab(p, d);
+  for (int c = 0; c < P.n_clusters; ++c) {
+    if (!box_may_hit(P.mcb + 8 * c, s, t_max)) continue;
+    for (int j = 0; j < QR_CLUSTER; ++j) {
+      float t, a, b, dn;
+      ++w.tri_tests;
+      if (tri_hit(load_row_ldg(P.mrows, c * QR_CLUSTER + j), p, d, t, a, b,
+                  dn) &&
+          t < t_max)
+        return true;
+    }
+  }
+  return false;
+}
+
+// Closest world-mesh hit below h.t folded into h (K1c): t, the unnormalized
+// smooth normal, the front flag; *mrow gets the winner's material row.
+__device__ void mesh_closest(const Params& P, V3 p, V3 d, Hit& h, int* mrow,
+                             Work& w) {
+  const RaySlab s = ray_slab(p, d);
+  for (int c = 0; c < P.n_clusters; ++c) {
+    if (!box_may_hit(P.mcb + 8 * c, s, h.t)) continue;
+    for (int j = 0; j < QR_CLUSTER; ++j) {
+      const int row = c * QR_CLUSTER + j;
+      float t, a, b, dn;
+      ++w.tri_tests;
+      if (!tri_hit(load_row_ldg(P.mrows, row), p, d, t, a, b, dn) ||
+          !(t < h.t))
+        continue;
+      const TriRow at = load_row_ldg(P.mattr, row);
+      const float cc = 1.0f - a - b;
+      h.t = t;
+      h.n = V3{a * at.q0.x + b * at.q0.w + cc * at.q1.z,
+               a * at.q0.y + b * at.q1.x + cc * at.q1.w,
+               a * at.q0.z + b * at.q1.y + cc * at.q2.x};
+      h.front = dn <= 0.0f;
+      *mrow = (int)at.q2.y;
+    }
+  }
+}
+
 __device__ __forceinline__ bool shadow(const Params& P, const Shared& S,
                                        V3 p, V3 d, float t_max, Work& w) {
-  return occluded(S.prim, S.kinds, P.num_prims, p, d, t_max, &w.tests);
+  return occluded(S.prim, S.kinds, P.num_prims, p, d, t_max, &w.tests) ||
+         (P.n_clusters > 0 && mesh_occluded(P, p, d, t_max, w));
 }
 
 // UniformBall quirk point from attempts (r1, r2, r2): `pick` already chosen,
@@ -326,7 +390,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= P.n) return;
-  Work w{0, 0, 0};
+  Work w{0, 0, 0, 0};
 
   const int px = P.px[lane], py = P.py[lane], sid = P.sid[lane];
   const uint32_t rid = (uint32_t)py * (uint32_t)P.width + (uint32_t)px;
@@ -359,8 +423,10 @@ __global__ void __launch_bounds__(kThreads)
   V3 pend = V3{0.0f, 0.0f, 0.0f};       // parent's absorption
 
   for (int bounce = 0; bounce <= P.max_bounce; ++bounce) {
-    const Hit hit = closest_hit<false>(S.prim, S.kinds, P.num_prims, p, d);
+    Hit hit = closest_hit<false>(S.prim, S.kinds, P.num_prims, p, d);
     w.tests += P.num_prims;
+    int mesh_row = -1;
+    if (P.n_clusters > 0) mesh_closest(P, p, d, hit, &mesh_row, w);
     const bool is_hit = hit.t < QR_BIGFLOAT;
     if (bounce == 0) t0 = is_hit ? hit.t : QR_BIGFLOAT;
     if (!is_hit) {
@@ -375,7 +441,7 @@ __global__ void __launch_bounds__(kThreads)
       beta = V3{beta.x * expf(-pend.x * hit.t), beta.y * expf(-pend.y * hit.t),
                 beta.z * expf(-pend.z * hit.t)};
     }
-    const int row = S.prim_mtl[hit.prim];
+    const int row = mesh_row >= 0 ? mesh_row : S.prim_mtl[hit.prim];
     const V3 diffuse = mtl3(S, row, MT_DIFF), specular = mtl3(S, row, MT_SPEC);
     const V3 emit = mtl3(S, row, MT_EMIT), t_k = mtl3(S, row, MT_REFR),
              r_k = mtl3(S, row, MT_REFL);
@@ -543,9 +609,10 @@ __global__ void __launch_bounds__(kThreads)
   P.b[lane] = radiance.z;
   P.t0[lane] = t0;
   if (P.work) {
-    P.work[3 * lane + 0] = w.tests;
-    P.work[3 * lane + 1] = w.ciphers;
-    P.work[3 * lane + 2] = w.vertices;
+    P.work[4 * lane + 0] = w.tests;
+    P.work[4 * lane + 1] = w.ciphers;
+    P.work[4 * lane + 2] = w.vertices;
+    P.work[4 * lane + 3] = w.tri_tests;
   }
 }
 
@@ -559,12 +626,15 @@ extern "C" int qr_mega_render(
     int num_mtls, const float* light, const int* lkind, const int* lsoft,
     int num_lights, float light_norm, const float* cam, uint32_t key0,
     uint32_t key1, int width, int photonmap, int max_bounce, int shadow_spp,
-    int shadow_spp_max, int has_dof, int has_glossy, float* r, float* g,
+    int shadow_spp_max, int has_dof, int has_glossy, const float* mrows,
+    const float* mattr, const float* mcb, int n_clusters, float* r, float* g,
     float* b, float* t0, int* work, void* stream) {
   Params P{px, py, sid, n, prim, kinds, prim_mtl, num_prims, mtl, num_mtls,
            light, lkind, lsoft, num_lights, light_norm, cam, key0, key1,
            width, photonmap, max_bounce, shadow_spp, shadow_spp_max, has_dof,
-           has_glossy, r, g, b, t0, work};
+           has_glossy, reinterpret_cast<const float4*>(mrows),
+           reinterpret_cast<const float4*>(mattr), mcb, n_clusters, r, g, b,
+           t0, work};
   const size_t smem =
       4 * ((size_t)num_prims * (QR_PRIM_COLS + 2) + (size_t)num_mtls * MTL_COLS +
            (size_t)num_lights * (LIGHT_COLS + 2) + CAM_COLS);

@@ -20,8 +20,9 @@ reference's Material::Shade becomes a loop carrying the path throughput
 Bounce-0 misses shade with the background colour, deeper misses with the
 environment colour (renderer.cpp:335-339).
 
-render_batch routes analytic, untextured scenes to the path-trace
-megakernel (ops/megakernel.py, kernel K1a); this engine is that kernel's
+render_batch routes untextured scenes of analytic primitives and world
+meshes up to 65,536 triangles to the path-trace megakernel
+(ops/megakernel.py, kernels K1a and K1c); this engine is that kernel's
 plain version and the route for everything else. With threefry key words
 both compute the same function draw for draw.
 """
@@ -358,15 +359,16 @@ def render_batch_wavefront(scene: SceneArrays, meta: SceneMeta,
 
 def use_pathtrace_mega(meta: SceneMeta, cfg: IntegratorConfig) -> bool:
     """Gate of the path-trace megakernel: pathtrace or photonmap (without
-    photon gathering) on analytic-only, untextured scenes.
+    photon gathering) on untextured scenes whose meshes, if any, carry the
+    megakernel's mesh tables (meta.mesh_mega).
     QARAY_NO_MEGAKERNEL set sends everything to the wavefront engine."""
     if os.environ.get("QARAY_NO_MEGAKERNEL"):
         return False
     return (
         cfg.integrator in ("pathtrace", "photonmap")
         and not cfg.use_photon_map
-        and meta.num_mesh_instances == 0
-        and meta.num_analytic > 0
+        and (meta.num_mesh_instances == 0 or meta.mesh_mega)
+        and (meta.num_analytic > 0 or meta.mesh_mega)
         and len(meta.analytic_kinds) == meta.num_analytic
         and len(meta.analytic_mtls) == meta.num_analytic
         and not meta.has_mtl_textures

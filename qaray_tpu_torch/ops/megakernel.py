@@ -1,11 +1,13 @@
-"""Path-trace megakernel dispatch (kernel K1a, csrc/megakernel.cu).
+"""Path-trace megakernel dispatch (kernels K1a and K1c, csrc/megakernel.cu).
 
 Counterpart of qaray_tpu/ops/pallas_pathtrace.py: _fold_words
-(core.rng.fold_words here), _mega_raw and mega_render, forward only (the
-backward comes with the gradient slice). _pack_tables is
-scene.arrays.with_kernel_tables, run once when a scene is compiled. One launch renders one
-pathtrace or photonmap sample per lane: camera ray, every bounce's closest
-hit, shading, next-event shadow rays and all threefry draws.
+(core.rng.fold_words here), build_mega_mesh, _mega_raw and mega_render,
+forward only (the backward comes with the gradient slice). _pack_tables is
+scene.arrays.with_kernel_tables, run once when a scene is compiled. One
+launch renders one pathtrace or photonmap sample per lane: camera ray,
+every bounce's closest hit, shading, next-event shadow rays and all
+threefry draws. With a world mesh (meta.mesh_mega) the same launch sweeps
+its triangles in-kernel (K1c): `launches["K1c"]` counts those launches.
 
 The plain version of K1a is the wavefront engine
 (integrators/engine.render_batch_wavefront), which draws the same random
@@ -14,12 +16,15 @@ for CUDA tensors, never falling back from one to the other. `launches`
 counts kernel launches.
 """
 
+import numpy as np
 import torch
 
 from qaray_tpu_torch.core.rng import fold_words
 from qaray_tpu_torch.scene.arrays import SceneArrays, SceneMeta
 
-launches = {"K1a": 0}
+launches = {"K1a": 0, "K1c": 0}
+
+MEGA_CLUSTER = 256  # triangles per cull cluster
 
 _fn = []
 
@@ -30,8 +35,45 @@ def _kernel():
 
         lib = _build.load("megakernel")
         _fn.append(_build.bind(lib, "qr_mega_render",
-                               "pppipppipipppifpuuiiiiiiipppppp"))
+                               "pppipppipipppifpuuiiiiiiipppipppppp"))
     return _fn[0]
+
+
+def build_mega_mesh(tri_v, tri_n, tri_mtl, cluster: int = MEGA_CLUSTER):
+    """World-baked triangles -> (coeff16 [Fp,16], attr16 [Fp,16],
+    cbounds [C,8]) for the megakernel's mesh sweep (K1c).
+
+    Rows are Morton-ordered by centroid (tight cluster boxes); coeff16 is
+    the pack_coeff16 layout; attr16 cols 0-8 hold the three (unnormalized,
+    world) corner normals and col 9 the material table row. Padding rows
+    never hit (all-zero coefficients)."""
+    from qaray_tpu_torch.ops.mesh_stream import build_stream
+    from qaray_tpu_torch.ops.mesh_sweep import pack_coeff16
+    from qaray_tpu_torch.ops.mesh_tiles import _morton3
+
+    tri_v = np.asarray(tri_v, np.float32)
+    num = tri_v.shape[0]
+    order = np.argsort(_morton3(tri_v.mean(axis=1)), kind="stable")
+    sv = tri_v[order]
+    sn = np.asarray(tri_n, np.float32)[order]
+    sm = np.asarray(tri_mtl, np.int32)[order]
+    stream = build_stream(sv, chunk=cluster)
+    c16 = pack_coeff16(stream.coeff, stream.const)[: stream.coeff.shape[0]]
+    fp = c16.shape[0]
+    attr = np.zeros((fp, 16), np.float32)
+    attr[:num, 0:9] = sn.reshape(num, 9)
+    attr[:num, 9] = sm.astype(np.float32)
+    nc = fp // cluster
+    cb = np.zeros((nc, 8), np.float32)
+    for c in range(nc):
+        rows = sv[c * cluster:(c + 1) * cluster]
+        if rows.size == 0:
+            cb[c, 0:3] = 1.0
+            cb[c, 3:6] = -1.0  # empty box: never hit
+        else:
+            cb[c, 0:3] = rows.reshape(-1, 3).min(axis=0)
+            cb[c, 3:6] = rows.reshape(-1, 3).max(axis=0)
+    return c16, attr, cb
 
 
 def _check_lanes(px, py, sample_ids):
@@ -49,8 +91,9 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
 
     key_words: 2 threefry words, or the 4 words of a jax 'rbg' key, which
     fold to (0, 0) as in the reference (core.rng.fold_words). work: optional
-    int32 [B, 3] tensor the kernel fills with each lane's primitive tests,
-    threefry ciphers and shaded vertices (CUDA only; for roofline bounds).
+    int32 [B, 4] tensor the kernel fills with each lane's primitive tests,
+    threefry ciphers, shaded vertices and triangle tests (CUDA only; for
+    roofline bounds).
     """
     _check_lanes(px, py, sample_ids)
     if px.device.type == "cpu":
@@ -85,10 +128,25 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
     r, g, b, t0 = (torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in range(4))
     if work is not None and (work.device != dev or work.dtype != torch.int32
-                             or work.shape != (n, 3)
+                             or work.shape != (n, 4)
                              or not work.is_contiguous()):
-        raise ValueError("work must be a contiguous int32 [B, 3] tensor on "
+        raise ValueError("work must be a contiguous int32 [B, 4] tensor on "
                          "the lanes' device")
+    mesh = (tabs.mesh_rows, tabs.mesh_attr, tabs.mesh_cb)
+    if meta.mesh_mega != (tabs.mesh_rows is not None):
+        raise ValueError("the kernel tables do not match meta.mesh_mega "
+                         "(scene.arrays.with_kernel_tables)")
+    n_clusters = 0
+    if meta.mesh_mega:
+        n_clusters = tabs.mesh_rows.shape[0] // MEGA_CLUSTER
+        for t, shape in zip(mesh, ((n_clusters * MEGA_CLUSTER, 16),
+                                   (n_clusters * MEGA_CLUSTER, 16),
+                                   (n_clusters, 8))):
+            if (t.device != dev or t.dtype != torch.float32
+                    or t.shape != shape or not t.is_contiguous()):
+                raise ValueError(f"mesh table {tuple(t.shape)} on {t.device}"
+                                 f": the kernel needs contiguous float32 "
+                                 f"{shape} on {dev}")
     if n:
         norm_power = 2 if cfg.integrator == "pathtrace" else 1
         light_norm = ((1.0 / meta.num_lights) ** norm_power
@@ -105,10 +163,14 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
             tabs.cam.data_ptr(), k0, k1, meta.img_width,
             int(cfg.integrator == "photonmap"), cfg.max_bounce,
             cfg.shadow_spp, cfg.shadow_spp_max, int(meta.has_dof),
-            int(meta.has_glossy), r.data_ptr(), g.data_ptr(), b.data_ptr(),
+            int(meta.has_glossy),
+            *(t.data_ptr() if n_clusters else None for t in mesh), n_clusters,
+            r.data_ptr(), g.data_ptr(), b.data_ptr(),
             t0.data_ptr(), work.data_ptr() if work is not None else None,
             torch.cuda.current_stream().cuda_stream,
         )
         _build.check(rc, "K1a megakernel")
         launches["K1a"] += 1
+        if n_clusters:
+            launches["K1c"] += 1
     return torch.stack([r, g, b], dim=-1), t0

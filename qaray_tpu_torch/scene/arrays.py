@@ -1,10 +1,11 @@
 """Flattened scene tables as tensors.
 
 Counterpart of qaray_tpu/scene/arrays.py. NamedTuples of tensors stand in
-for the JAX pytrees; SceneMeta is the same static, hashable tuple. This
-slice of the port carries analytic primitives, untextured materials,
-lights, camera and the background/environment colours; the mesh, instance
-and texture tables arrive with the mesh and texture slices.
+for the JAX pytrees; SceneMeta is the same static, hashable tuple. The port
+carries analytic primitives, world-baked triangle meshes, untextured
+materials, lights, camera and the background/environment colours; the
+texture tables arrive with the texture slice. A scene without meshes has
+`mesh` and `instances` None.
 """
 
 from __future__ import annotations
@@ -43,6 +44,53 @@ def analytic_prims(kind, mtl, m_w2o, t_o2w) -> AnalyticPrims:
     table = torch.cat([m_w2o.reshape(-1, 9), t_o2w], dim=1)
     return AnalyticPrims(kind, mtl, m_w2o, t_o2w,
                          table.to(torch.float32).contiguous())
+
+
+class MeshArrays(NamedTuple):
+    """All meshes concatenated; triangle vertex data pre-gathered per face.
+    The optional tables are those of the mesh routes the compiler chose."""
+
+    tri_v: torch.Tensor  # [F, 3, 3] vertex positions
+    tri_n: torch.Tensor  # [F, 3, 3] shading normals per corner
+    tri_uv: torch.Tensor  # [F, 3, 2] texture coords per corner
+    tri_has_uv: torch.Tensor  # [F] bool
+    tri_mtl: torch.Tensor  # [F] int32 sub-material id (-1 if none)
+    # Flattened BVH over all triangles (scene/bvh.py).
+    bvh_bounds: torch.Tensor  # [N, 6]
+    bvh_left: torch.Tensor  # [N] (-1 => leaf)
+    bvh_right: torch.Tensor  # [N] (child index, or elem offset for leaf)
+    bvh_count: torch.Tensor  # [N]
+    bvh_elems: torch.Tensor  # [F] triangle ids in leaf order
+    # Packed fat-node layout of the BVH (scene/bvh.pack_bvh).
+    pnodes: Optional[torch.Tensor] = None  # [Ni, 16] float32
+    ltri: Optional[torch.Tensor] = None  # [F, 12] float32
+    # Dense sweep route (ops/mesh_stream.py; K3 reads stream_c16).
+    stream_coeff: Optional[torch.Tensor] = None  # [Fp, 3, 3] n, A, B
+    stream_const: Optional[torch.Tensor] = None  # [Fp, 4] k, A0, B0, |n|
+    stream_c16: Optional[torch.Tensor] = None  # [Fp16, 16] (pack_coeff16)
+    # Tiled cluster route (ops/mesh_tiles.py; K4a/K4b read tile_c16T).
+    tile_coeff: Optional[torch.Tensor] = None  # [Fp, 3, 3] Morton order
+    tile_const: Optional[torch.Tensor] = None  # [Fp, 4]
+    tile_gid: Optional[torch.Tensor] = None  # [Fp] original triangle id
+    tile_cbounds: Optional[torch.Tensor] = None  # [C, 6] cluster AABBs
+    tile_c16T: Optional[torch.Tensor] = None  # [Fp/8, 128] (pack_coeffT)
+    # Megakernel mesh tables (K1c; ops/megakernel.build_mega_mesh), Morton
+    # order: [Fp, 16] (or the same memory as [Fp/8, 128] above 16,384
+    # triangles, the JAX package's streamed layout).
+    mega_c16: Optional[torch.Tensor] = None  # pack_coeff16 rows
+    mega_attr: Optional[torch.Tensor] = None  # n0/n1/n2 xyz + mtl row
+    mega_cbounds: Optional[torch.Tensor] = None  # [C, 8] AABB (6) + pad
+
+
+class MeshInstances(NamedTuple):
+    root: torch.Tensor  # [I] int32 BVH root node per instance
+    mtl: torch.Tensor  # [I] int32 single material (-1 => per-face table)
+    mtl_base: torch.Tensor  # [I] int32 base offset for per-face materials
+    num_sub_mtl: torch.Tensor  # [I] int32 number of sub-materials
+    m_w2o: torch.Tensor  # [I, 3, 3]
+    t_o2w: torch.Tensor  # [I, 3]
+    obj_bbox: torch.Tensor  # [I, 6] object-space bound box
+    proot: Optional[torch.Tensor] = None  # [I] int32 packed root ref
 
 
 class MaterialTable(NamedTuple):
@@ -95,6 +143,11 @@ class KernelTables(NamedTuple):
     cam: torch.Tensor  # [25] float32: camera, background, environment
     light_kind: torch.Tensor  # [max(L, 1)] int32
     light_soft: torch.Tensor  # [max(L, 1)] int32
+    # K1c's mesh tables as [Fp, 16] rows and [C, 8] boxes (views of
+    # MeshArrays.mega_*), None without a megakernel mesh.
+    mesh_rows: Optional[torch.Tensor] = None
+    mesh_attr: Optional[torch.Tensor] = None
+    mesh_cb: Optional[torch.Tensor] = None
 
 
 class SceneArrays(NamedTuple):
@@ -105,6 +158,8 @@ class SceneArrays(NamedTuple):
     environment: EnvColor
     camera: CameraArrays
     kernel: Optional[KernelTables] = None
+    mesh: Optional[MeshArrays] = None
+    instances: Optional[MeshInstances] = None
 
 
 class SceneMeta(NamedTuple):
@@ -167,8 +222,14 @@ def with_kernel_tables(arrays: SceneArrays, meta: SceneMeta) -> SceneArrays:
         return torch.tensor(values or (0,), dtype=torch.int32,
                             device=cam.pos.device)
 
+    mesh = {}
+    if meta.mesh_mega:
+        m = arrays.mesh
+        mesh = dict(mesh_rows=m.mega_c16.reshape(-1, 16),
+                    mesh_attr=m.mega_attr.reshape(-1, 16),
+                    mesh_cb=m.mega_cbounds)
     return arrays._replace(kernel=KernelTables(
         mtl=f32(mtl), light=f32(light), cam=f32(cam_tab),
         light_kind=ints(meta.light_kinds),
-        light_soft=ints(tuple(int(s) for s in meta.light_soft)),
+        light_soft=ints(tuple(int(s) for s in meta.light_soft)), **mesh,
     ))

@@ -1,20 +1,28 @@
 """Scene compilation: host SceneDesc -> device SceneArrays.
 
-Counterpart of qaray_tpu/scene/compiler.py for the analytic part of a
-scene. Each leaf object's composed affine is baked once on the host, in
-numpy (p_obj = M_w2o @ (p_world - t_o2w), M_w2o = inv(M_o2w)); the finished
-tables then move to the device in one step. Mesh nodes and live textures
-raise NotImplementedError: they arrive with the mesh and texture slices of
-the port.
+Counterpart of qaray_tpu/scene/compiler.py. Each analytic object's
+composed affine is baked once on the host, in numpy (p_obj = M_w2o @
+(p_world - t_o2w), M_w2o = inv(M_o2w)); mesh instances are baked to world
+space into one merged triangle set (_build_world_mesh_arrays) with the
+tables of the mesh route its size selects. The finished tables then move
+to the device in one step.
+
+Live textures raise NotImplementedError (texture slice of the port), and so
+do the per-instance object-space meshes that the JAX package builds with
+world_bvh=False, QARAY_NO_WORLD_BVH or above 8M world triangles: they are
+traced by the BVH walks, which come with the BVH-walk slice.
 """
 
 from __future__ import annotations
+
+import os
 
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from qaray_tpu_torch.scene import bvh as bvh_mod
 from qaray_tpu_torch.scene import desc as D
 from qaray_tpu_torch.scene.arrays import (
     KIND_PLANE,
@@ -27,6 +35,8 @@ from qaray_tpu_torch.scene.arrays import (
     EnvColor,
     LightTable,
     MaterialTable,
+    MeshArrays,
+    MeshInstances,
     SceneArrays,
     SceneMeta,
     analytic_prims,
@@ -51,28 +61,82 @@ def _default_material() -> D.MaterialDesc:
     return D.MaterialDesc(name="__default__")
 
 
+def _stream_max_tris() -> int:
+    """Triangle budget of the dense sweep route (K3); above it the compiler
+    builds the tiled cluster route (K4a/K4b). QARAY_STREAM_MAX_TRIS
+    overrides, as in the JAX package."""
+    from qaray_tpu_torch.ops.mesh_sweep import PALLAS_MESH_MAX_TRIS
+
+    return int(os.environ.get("QARAY_STREAM_MAX_TRIS", PALLAS_MESH_MAX_TRIS))
+
+
+def _mega_stream_max_tris() -> int:
+    """Triangle budget of the megakernel mesh sweep (K1c);
+    QARAY_MEGA_STREAM_MAX_TRIS overrides."""
+    return int(os.environ.get("QARAY_MEGA_STREAM_MAX_TRIS", 65536))
+
+
+def _mega_mesh_max_tris() -> int:
+    """Above this many triangles the JAX package streams the megakernel's
+    mesh tables from HBM (meta.mesh_mega_stream, a [Fp/8, 128] layout of the
+    same rows); K1c reads either the same way. QARAY_MEGA_MESH_MAX_TRIS
+    overrides."""
+    return int(os.environ.get("QARAY_MEGA_MESH_MAX_TRIS", 16384))
+
+
+def _to_numpy32(a) -> np.ndarray:
+    """64-bit numbers narrowed to 32 bits, as JAX stores them."""
+    a = np.array(a)
+    if a.dtype == np.float64:
+        return a.astype(np.float32)
+    if a.dtype == np.int64:
+        return a.astype(np.int32)
+    return a
+
+
+# Triangles per BVH leaf (the JAX compiler's default), and the world
+# triangle count above which the JAX package keeps meshes per instance.
+MAX_LEAF = 4
+WORLD_BVH_MAX_TRIS = 8_000_000
+
+
 class SceneCompiler:
-    def __init__(self, scene: D.SceneDesc):
+    def __init__(self, scene: D.SceneDesc, world_bvh: bool = True):
         self.scene = scene
+        self.world_bvh = world_bvh and not os.environ.get("QARAY_NO_WORLD_BVH")
         self.mtl_index: Dict[int, int] = {}  # id(MaterialDesc) -> table row
+        self.mtl_multi_base: Dict[int, Tuple[int, int]] = {}  # -> base, count
         self.materials: List[D.MaterialDesc] = []
         self.kinds: List[int] = []
         self.prim_mtl: List[int] = []
         self.m_w2o: List[np.ndarray] = []
         self.t_o2w: List[np.ndarray] = []
+        # Mesh instances: (mesh, single, base, num_sub), world (M_o2w, t),
+        # M_w2o.
+        self.inst_mesh: List[tuple] = []
+        self.inst_world: List[tuple] = []
+        self.inst_m: List[np.ndarray] = []
+        self.mega_mtls: tuple = ()
+        self.mega_stream = False
 
-    def _intern_material(self, mtl) -> int:
+    def _intern_material(self, mtl) -> Tuple[int, int, int]:
+        """(single, multi_base, num_sub): single >= 0 for a plain material;
+        a multi-material gives single = -1 and its sub-materials at rows
+        [multi_base, multi_base + num_sub)."""
         if mtl is None:
             mtl = _default_material()
-        if mtl.sub_materials is not None:
-            raise NotImplementedError(
-                "multi-materials bind to mesh faces: mesh slice of the port"
-            )
         key = id(mtl)
+        if mtl.sub_materials is not None:
+            if key not in self.mtl_multi_base:
+                base = len(self.materials)
+                self.materials.extend(mtl.sub_materials)
+                self.mtl_multi_base[key] = (base, len(mtl.sub_materials))
+            base, count = self.mtl_multi_base[key]
+            return -1, base, count
         if key not in self.mtl_index:
             self.mtl_index[key] = len(self.materials)
             self.materials.append(mtl)
-        return self.mtl_index[key]
+        return self.mtl_index[key], 0, 0
 
     def _flatten(self, node: D.NodeDesc, parent: D.Affine):
         world = parent.compose(node.xform)
@@ -82,16 +146,145 @@ class SceneCompiler:
             self.kinds.append(
                 KIND_SPHERE if node.obj_type == "sphere" else KIND_PLANE
             )
-            self.prim_mtl.append(self._intern_material(mtl))
+            self.prim_mtl.append(self._intern_material(mtl)[0])
             self.m_w2o.append(np.linalg.inv(world.m))
             self.t_o2w.append(world.t)
         elif node.obj_type == "mesh" and node.mesh is not None:
-            raise NotImplementedError(
-                f"mesh node {node.name!r}: meshes come with the mesh slice "
-                "of the port"
-            )
+            mtl = (self.scene.find_material(node.mtl_name)
+                   if node.mtl_name else None)
+            self.inst_mesh.append((node.mesh, *self._intern_material(mtl)))
+            self.inst_m.append(np.linalg.inv(world.m))
+            self.inst_world.append((world.m, world.t))
         for child in node.children:
             self._flatten(child, world)
+
+    # -- meshes --------------------------------------------------------------
+
+    @staticmethod
+    def _mesh_face_data(mesh: D.MeshDesc):
+        """Per-face object-space (v [F,3,3], n [F,3,3], uv [F,3,2],
+        has_uv [F], face_mtl [F])."""
+        v = mesh.vertices[mesh.faces]  # [F,3,3]
+        flat = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+        flat = flat / np.maximum(np.linalg.norm(flat, axis=1, keepdims=True),
+                                 1e-20)
+        if mesh.normals is not None and mesh.face_normals is not None:
+            fn = np.where(mesh.face_normals < 0, 0, mesh.face_normals)
+            n = mesh.normals[fn]
+            missing = (mesh.face_normals < 0).any(axis=1)
+            n = np.where(missing[:, None, None], flat[:, None, :], n)
+        else:
+            n = np.repeat(flat[:, None, :], 3, axis=1)
+        if mesh.texcoords is not None and mesh.face_texcoords is not None:
+            ft = np.where(mesh.face_texcoords < 0, 0, mesh.face_texcoords)
+            uv = mesh.texcoords[ft]
+            has_uv = ~(mesh.face_texcoords < 0).any(axis=1)
+        else:
+            uv = np.zeros((v.shape[0], 3, 2), np.float32)
+            has_uv = np.zeros((v.shape[0],), bool)
+        fm = (mesh.face_materials if mesh.face_materials is not None
+              else -np.ones((v.shape[0],), np.int32))
+        return v, n, uv, has_uv, fm
+
+    def _build_world_mesh_arrays(self):
+        """World-space instance baking: every instance's triangles move to
+        world space on the host and one merged set covers them all, so
+        tracing needs no per-instance transforms
+        (qaray_tpu/scene/compiler.py::_build_world_mesh_arrays).
+
+        - t: world-space triangles give the reference's node-space t, since
+          it intersects with an unnormalized transformed direction.
+        - normals: corner normals are pre-multiplied by M_w2o^T,
+          unnormalized; interpolation commutes with the linear map.
+        - front face: mirror instances (negative determinant) swap corners
+          1 and 2, so the geometric normal keeps its orientation.
+        - materials: per-face sub-material ids resolve to table rows here.
+
+        Returns (MeshArrays tables as numpy, instance tables, bvh depth)."""
+        wv_l, wn_l, uv_l, huv_l, mtl_l = [], [], [], [], []
+        for i, (mesh, single, base, nsub) in enumerate(self.inst_mesh):
+            v, n, uv, has_uv, fm = self._mesh_face_data(mesh)
+            m_o2w, t = self.inst_world[i]
+            wv = v @ m_o2w.T + t
+            wn = n @ self.inst_m[i]  # row form of M_w2o^T @ n
+            if np.linalg.det(m_o2w) < 0.0:
+                wv = wv[:, [0, 2, 1]]
+                wn = wn[:, [0, 2, 1]]
+                uv = uv[:, [0, 2, 1]]
+            if single >= 0:
+                mtl = np.full((v.shape[0],), single, np.int32)
+            else:
+                mtl = base + np.clip(fm, 0, max(nsub - 1, 0))
+            wv_l.append(wv.astype(np.float32))
+            wn_l.append(wn.astype(np.float32))
+            uv_l.append(uv.astype(np.float32))
+            huv_l.append(has_uv)
+            mtl_l.append(mtl.astype(np.int32))
+
+        from qaray_tpu_torch.ops.mesh_stream import build_stream
+        from qaray_tpu_torch.ops.mesh_sweep import (
+            PALLAS_MESH_MAX_TRIS,
+            pack_coeff16,
+        )
+
+        wv = np.concatenate(wv_l)
+        wn = np.concatenate(wn_l)
+        mtl_all = np.concatenate(mtl_l)
+        num = wv.shape[0]
+        bvh = bvh_mod.build_bvh(wv, MAX_LEAF)
+        pnodes, ltri, node_ref = bvh_mod.pack_bvh(
+            bvh.bounds, bvh.left, bvh.right, bvh.count, bvh.elems, wv)
+        tables = {}
+        # The dense sweep under the stream budget, the tiled clusters above
+        # it: only the selected route's tables are built.
+        if num <= _stream_max_tris():
+            stream = build_stream(wv)
+            tables.update(stream_coeff=stream.coeff,
+                          stream_const=stream.const)
+            if num <= PALLAS_MESH_MAX_TRIS:
+                tables["stream_c16"] = pack_coeff16(stream.coeff,
+                                                    stream.const)
+        else:
+            from qaray_tpu_torch.ops.mesh_tiles import build_tiles
+            from qaray_tpu_torch.ops.tiles import pack_coeffT
+
+            tiles = build_tiles(wv)
+            tables.update(tile_coeff=tiles.coeff, tile_const=tiles.const,
+                          tile_gid=tiles.gid, tile_cbounds=tiles.cbounds,
+                          tile_c16T=pack_coeffT(tiles.coeff, tiles.const))
+        # The megakernel's mesh tables (K1c), beside either route.
+        if 0 < num <= _mega_stream_max_tris():
+            distinct = tuple(sorted(int(m) for m in np.unique(mtl_all)))
+            if len(distinct) <= 8:
+                from qaray_tpu_torch.ops.megakernel import build_mega_mesh
+
+                c16, attr, cb = build_mega_mesh(wv, wn, mtl_all)
+                if num > _mega_mesh_max_tris():
+                    c16, attr = c16.reshape(-1, 128), attr.reshape(-1, 128)
+                    self.mega_stream = True
+                tables.update(mega_c16=c16, mega_attr=attr, mega_cbounds=cb)
+                self.mega_mtls = distinct
+        mesh = dict(
+            tri_v=wv, tri_n=wn, tri_uv=np.concatenate(uv_l),
+            tri_has_uv=np.concatenate(huv_l), tri_mtl=mtl_all,
+            bvh_bounds=bvh.bounds, bvh_left=bvh.left, bvh_right=bvh.right,
+            bvh_count=bvh.count, bvh_elems=bvh.elems, pnodes=pnodes,
+            ltri=ltri, **tables,
+        )
+        bbox = np.concatenate([wv.reshape(-1, 3).min(0),
+                               wv.reshape(-1, 3).max(0)])
+        instances = dict(
+            root=np.zeros(1, np.int32),
+            mtl=-np.ones(1, np.int32),  # resolve through the face table
+            mtl_base=np.zeros(1, np.int32),
+            # tri_mtl holds final rows; the clip must keep them all.
+            num_sub_mtl=np.full(1, max(len(self.materials), 1), np.int32),
+            m_w2o=np.eye(3, dtype=np.float32)[None],
+            t_o2w=np.zeros((1, 3), np.float32),
+            obj_bbox=bbox.astype(np.float32)[None],
+            proot=np.asarray([node_ref[0]], np.int32),
+        )
+        return mesh, instances, bvh_mod.bvh_depth(bvh)
 
     def _material_table(self) -> Dict[str, np.ndarray]:
         mats = self.materials or [_default_material()]
@@ -189,6 +382,17 @@ class SceneCompiler:
     def compile(self, device) -> Tuple[SceneArrays, SceneMeta]:
         for child in self.scene.root.children:
             self._flatten(child, D.Affine())
+        mesh_tabs = inst_tabs = None
+        depth = 1
+        if self.inst_mesh:
+            total = sum(m.faces.shape[0] for m, *_ in self.inst_mesh)
+            if not self.world_bvh or total > WORLD_BVH_MAX_TRIS:
+                raise NotImplementedError(
+                    "per-instance object-space meshes (world_bvh=False, "
+                    "QARAY_NO_WORLD_BVH, or above "
+                    f"{WORLD_BVH_MAX_TRIS} world triangles) are traced "
+                    "by the BVH walks: BVH-walk slice of the port")
+            mesh_tabs, inst_tabs, depth = self._build_world_mesh_arrays()
         background = self._env_color(self.scene.background, "background")
         environment = self._env_color(self.scene.environment, "environment")
         n_analytic = len(self.kinds)
@@ -208,10 +412,13 @@ class SceneCompiler:
         mtl_table = self._material_table()
 
         def dev(a):
-            return torch.as_tensor(np.array(a), device=device)
+            return torch.as_tensor(_to_numpy32(a), device=device)
 
         def group(cls, tables):
             return cls(**{k: dev(v) for k, v in tables.items()})
+
+        world = mesh_tabs is not None
+        num_tris = int(mesh_tabs["tri_v"].shape[0]) if world else 0
 
         arrays = SceneArrays(
             analytic=analytic_prims(**{k: dev(v) for k, v in prims.items()}),
@@ -220,18 +427,20 @@ class SceneCompiler:
             background=EnvColor(dev(background)),
             environment=EnvColor(dev(environment)),
             camera=group(CameraArrays, self._camera()),
+            mesh=group(MeshArrays, mesh_tabs) if world else None,
+            instances=group(MeshInstances, inst_tabs) if world else None,
         )
         lights = self.scene.lights
         meta = SceneMeta(
             img_width=self.scene.camera.img_width,
             img_height=self.scene.camera.img_height,
             num_analytic=n_analytic,
-            num_mesh_instances=0,
-            num_tris=0,
+            num_mesh_instances=int(world),
+            num_tris=num_tris,
             num_lights=len(lights),
             num_materials=len(self.materials),
             has_dof=self.scene.camera.depth_of_field > 0.1,
-            bvh_depth=1,
+            bvh_depth=depth,
             has_ambient=any(light.kind == "ambient" for light in lights),
             light_kinds=tuple(_LIGHT_KIND[light.kind] for light in lights),
             light_soft=tuple(bool(light.size > 0.01) for light in lights),
@@ -245,10 +454,21 @@ class SceneCompiler:
             has_mtl_textures=False,
             has_bg_texture=False,
             has_env_texture=False,
+            world_bvh=world,
+            mesh_stream=world and "stream_coeff" in mesh_tabs
+            and num_tris <= _stream_max_tris(),
+            mesh_tiled=world and "tile_coeff" in mesh_tabs,
+            mesh_mega=world and "mega_c16" in mesh_tabs,
+            mesh_mega_mtls=self.mega_mtls,
+            mesh_mega_stream=self.mega_stream,
+            max_leaf=MAX_LEAF,
         )
         return with_kernel_tables(arrays, meta), meta
 
 
-def compile_scene(scene: D.SceneDesc, device="cuda"):
-    """Compile a parsed SceneDesc into (SceneArrays on `device`, SceneMeta)."""
-    return SceneCompiler(scene).compile(device)
+def compile_scene(scene: D.SceneDesc, device="cuda", world_bvh: bool = True):
+    """Compile a parsed SceneDesc into (SceneArrays on `device`, SceneMeta).
+
+    Meshes are baked to world space (world_bvh=True, the default);
+    world_bvh=False raises NotImplementedError (BVH-walk slice)."""
+    return SceneCompiler(scene, world_bvh=world_bvh).compile(device)

@@ -14,6 +14,8 @@ from qaray_tpu_torch.scene.arrays import (
     EnvColor,
     LightTable,
     MaterialTable,
+    MeshArrays,
+    MeshInstances,
     SceneArrays,
     SceneMeta,
     analytic_prims,
@@ -25,19 +27,30 @@ def from_numpy_arrays(tree, meta, device="cuda"):
     """(qaray_tpu SceneArrays with numpy leaves, its SceneMeta) ->
     (the port's SceneArrays on `device`, the port's SceneMeta).
 
-    Raises NotImplementedError for scenes this slice of the port does not
-    carry (meshes, textures)."""
+    Mesh and instance leaves come across field by field (None where the
+    JAX compiler left an optional table out); a scene without mesh
+    instances gets None for both, as the port's compiler gives it. Raises
+    NotImplementedError for scenes the port does not carry yet: textures
+    (texture slice) and per-instance object-space meshes (BVH-walk
+    slice)."""
     meta = SceneMeta(**meta._asdict())
-    if meta.num_mesh_instances:
-        raise NotImplementedError("meshes come with the mesh slice")
     if meta.has_mtl_textures or meta.has_bg_texture or meta.has_env_texture:
         raise NotImplementedError("textures come with the texture slice")
+    if meta.num_mesh_instances and not meta.world_bvh:
+        raise NotImplementedError("per-instance object-space meshes come "
+                                  "with the BVH-walk slice")
 
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)
 
     def group(cls, src):
-        return cls(**{f: dev(getattr(src, f)) for f in cls._fields})
+        return cls(**{f: None if getattr(src, f) is None
+                      else dev(getattr(src, f)) for f in cls._fields})
+
+    mesh = instances = None
+    if meta.num_mesh_instances:
+        mesh = group(MeshArrays, tree.mesh)
+        instances = group(MeshInstances, tree.instances)
 
     arrays = SceneArrays(
         analytic=analytic_prims(**{f: dev(getattr(tree.analytic, f))
@@ -48,5 +61,7 @@ def from_numpy_arrays(tree, meta, device="cuda"):
         background=EnvColor(dev(tree.background.color)),
         environment=EnvColor(dev(tree.environment.color)),
         camera=group(CameraArrays, tree.camera),
+        mesh=mesh,
+        instances=instances,
     )
     return with_kernel_tables(arrays, meta), meta

@@ -1,0 +1,71 @@
+"""Procedural meshes for tests and the GPU smoke run.
+
+icosphere(subdiv) is the subdivided icosahedron of the mesh-scale
+measurements (20 * 4**subdiv triangles: ico5 = 20,480, ico6 = 81,920);
+with_mesh puts such a mesh in place of the first OBJ node of a parsed
+scene, keeping its transform and material.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+
+
+def icosphere(subdiv: int = 2):
+    """Unit icosphere: (vertices [V, 3] float32, faces [F, 3] int32)."""
+    t = (1.0 + 5**0.5) / 2.0
+    verts = [
+        (-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
+        (0, -1, t), (0, 1, t), (0, -1, -t), (0, 1, -t),
+        (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1),
+    ]
+    faces = [
+        (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+        (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+        (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+        (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
+    ]
+    verts = [np.array(v, float) / np.linalg.norm(v) for v in verts]
+    cache = {}
+
+    def midpoint(i, j):
+        key = (min(i, j), max(i, j))
+        if key not in cache:
+            m = verts[i] + verts[j]
+            verts.append(m / np.linalg.norm(m))
+            cache[key] = len(verts) - 1
+        return cache[key]
+
+    for _ in range(subdiv):
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [(a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca)]
+        faces = new_faces
+    return (np.asarray(verts, np.float32), np.asarray(faces, np.int32))
+
+
+def with_mesh(scene, verts, faces, name: str = "procedural"):
+    """A copy of `scene` whose first OBJ node holds the mesh (verts, faces)."""
+    scene = copy.deepcopy(scene)
+
+    def find(node):
+        if node.mesh is not None:
+            return node
+        for child in node.children:
+            found = find(child)
+            if found is not None:
+                return found
+        return None
+
+    node = find(scene.root)
+    if node is None:
+        raise ValueError("the scene has no OBJ node to replace")
+    # The node's own MeshDesc class, so that a scene parsed by another
+    # package with the same fields gets a mesh of its own kind.
+    node.mesh = type(node.mesh)(name=name,
+                                vertices=np.asarray(verts, np.float32),
+                                faces=np.asarray(faces, np.int32))
+    return scene

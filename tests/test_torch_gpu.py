@@ -7,7 +7,9 @@ is absent:
 
 Every case carries the `gpu` marker and skips without a CUDA device.
 Bars: tests/test_pallas.py for K2a-K2c, tests/test_megakernel.py::_compare
-for K1a against the wavefront engine (which itself runs on K2b/K2c).
+for K1a against the wavefront engine (which itself runs on K2b/K2c);
+tests/test_pallas_tiles.py for K3 and K4a/K4b against their plain versions,
+and tests/test_megakernel.py's mesh bars for K1c against the engine.
 """
 
 import numpy as np
@@ -18,8 +20,15 @@ from qaray_tpu_torch.integrators.engine import (
     IntegratorConfig,
     render_batch_wavefront,
 )
-from qaray_tpu_torch.ops import analytic, megakernel
+from qaray_tpu_torch.ops import analytic, megakernel, mesh_sweep, tiles
+from qaray_tpu_torch.ops.mesh_stream import (
+    StreamTris,
+    stream_any_hit,
+    stream_closest,
+)
+from qaray_tpu_torch.ops.mesh_tiles import TiledMesh, tiled_sweep
 from qaray_tpu_torch.scene.compiler import compile_scene
+from qaray_tpu_torch.scene.procedural import icosphere, with_mesh
 from qaray_tpu_torch.scene.xml_parser import load_scene
 
 SCENES = ["tests/assets/spot_scene.xml", "tests/assets/softdof_scene.xml"]
@@ -106,3 +115,118 @@ def test_megakernel_matches_engine_at_800x600(cuda, integrator, words):
     index. Past pixel 32768 the fold datum rid * 65536 + sid wraps in 32
     bits; a kernel that wrapped otherwise would draw other numbers."""
     _render_both((800, 600), 1, 5, integrator, 5, words)
+
+
+# -- mesh kernels ------------------------------------------------------------
+
+MESH_SCENE = "tests/assets/mesh_scene.xml"
+
+
+def _ico_scene(subdiv):
+    scene = load_scene(MESH_SCENE)
+    if subdiv is not None:
+        scene = with_mesh(scene, *icosphere(subdiv))
+    return scene
+
+
+def _mesh_rays(n, seed):
+    """Rays around mesh_scene's icosphere (radius 8 at (0, 50, 5.1)): random
+    origins in a box three radii wide, half of them aimed at the centre."""
+    rs = np.random.RandomState(seed)
+    c = np.array([0.0, 50.0, 5.1], np.float32)
+    p = (c + rs.uniform(-24, 24, (n, 3))).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    aim = c - p
+    aim /= np.linalg.norm(aim, axis=1, keepdims=True)
+    d = np.where((np.arange(n) % 2 == 0)[:, None], aim + 0.05 * d, d)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = rs.uniform(1, 40, n).astype(np.float32)
+    return (torch.tensor(a, device="cuda") for a in (p, d, t_max))
+
+
+def _row_bars(want, got):
+    """tests/test_pallas_tiles.py:43-49 on (t, row, row2)."""
+    t_x, r_x, r2_x = want[:3]
+    t_k, r_k, r2_k = got[:3]
+    assert (r_x == r_k).float().mean().item() > 0.999
+    hit = (r_x >= 0) & (r_x == r_k)
+    assert torch.allclose(t_k[hit], t_x[hit], rtol=1e-5, atol=1e-5)
+    agree = (r_x == r_k) & (r2_x >= 0) & (r2_k >= 0)
+    assert (r2_x[agree] == r2_k[agree]).float().mean().item() > 0.99
+
+
+def test_k3_matches_plain(cuda):
+    arr, meta = compile_scene(_ico_scene(5), device="cuda")
+    assert meta.mesh_stream
+    m = arr.mesh
+    p, d, t_max = _mesh_rays(1 << 16, 5)
+    t_cur = torch.full_like(t_max, 1e30)
+    plain = StreamTris(m.stream_coeff, m.stream_const)
+    before = mesh_sweep.launches["K3"]
+    got = mesh_sweep.sweep_closest(p, d, t_cur, m.stream_c16)
+    _row_bars(stream_closest(p, d, t_cur, plain), got)
+    occ = mesh_sweep.sweep_occluded(p, d, t_max, m.stream_c16)
+    assert torch.equal(occ, stream_any_hit(p, d, t_max, plain))
+    assert mesh_sweep.launches["K3"] == before + 2
+
+
+def test_k4_matches_plain(cuda):
+    arr, meta = compile_scene(_ico_scene(6), device="cuda")
+    assert meta.mesh_tiled
+    m = arr.mesh
+    tm = TiledMesh(m.tile_coeff, m.tile_const, m.tile_gid, m.tile_cbounds)
+    p, d, t_max = _mesh_rays(1 << 16, 6)
+    t_cur = torch.full_like(t_max, 1e30)
+    work = torch.zeros_like(t_cur, dtype=torch.int32)
+    single = tiles.tiled_sweep_kernel(p, d, t_cur, tm, m.tile_c16T, work=work)
+    _row_bars(tiled_sweep(p, d, t_cur, tm), single)
+    # Per-ray work: whole clusters, and at least the winner's for a hit.
+    assert bool((work % 256 == 0).all())
+    assert bool((work[single[1] >= 0] > 0).all())
+    t_max[::4] = 0.0  # rays without budget need no test
+    occ = tiles.tiled_sweep_kernel(p, d, t_max, tm, m.tile_c16T,
+                                   any_hit=True, work=work)
+    assert torch.equal(occ, tiled_sweep(p, d, t_max, tm, any_hit=True))
+    assert bool((work[::4] == 0).all()) and bool((work[occ] > 0).all())
+    # Two-phase (budget 12) against single-phase (budget 0), both on the
+    # coherence-sorted rays: the same winners. Rows may differ only where
+    # two triangles tie exactly in t (an edge shared by both), because the
+    # repacked phase-2 packets visit clusters in another order.
+    t0, r0, _ = tiles.tiled_closest_twophase(p, d, t_cur, tm, m.tile_c16T,
+                                             budget=0)
+    t1, r1, _ = tiles.tiled_closest_twophase(p, d, t_cur, tm, m.tile_c16T)
+    assert bool(((r0 == r1) | (t0 == t1)).all())
+    assert (r0 == r1).float().mean().item() > 0.9999
+
+
+@pytest.mark.parametrize("path,subdiv,bars", [
+    (MESH_SCENE, None, (2e-3, 5e-3, 2e-3)),
+    (MESH_SCENE, 5, (5e-3, 1e-2, 2e-3)),
+    ("tests/assets/mirror_scene.xml", None, (2e-3, 5e-3, 2e-3)),
+], ids=["mesh", "ico5", "mirror"])
+@pytest.mark.parametrize("integrator", ["pathtrace", "photonmap"])
+def test_k1c_matches_engine(cuda, integrator, path, subdiv, bars):
+    """mesh_scene.xml (320 triangles), its ico5 (20,480) and mirror_scene.xml
+    (a mirrored icosphere, no analytic primitive) at 200x150 x 2 spp,
+    threefry words, max_bounce 3: tests/test_megakernel.py's
+    test_mega_parity_mesh and test_mega_streamed_mesh_parity bars (t0 lanes
+    off by > 1e-3, radiance lanes above 1e-3 relative, channel means)."""
+    scene = load_scene(path)
+    if subdiv is not None:
+        scene = with_mesh(scene, *icosphere(subdiv))
+    scene.camera.img_width, scene.camera.img_height = 200, 150
+    arr, meta = compile_scene(scene, device="cuda")
+    assert meta.mesh_mega
+    ids = torch.arange(200 * 150 * 2, device="cuda", dtype=torch.int32)
+    px, py, sid = ids % 200, (ids // 200) % 150, ids // (200 * 150)
+    cfg = IntegratorConfig(integrator=integrator, max_bounce=3)
+    before = megakernel.launches["K1c"]
+    rad_k, t0_k = megakernel.mega_render(arr, meta, cfg, px, py, sid, (0, 5))
+    assert megakernel.launches["K1c"] == before + 1
+    rad_p, t0_p = render_batch_wavefront(arr, meta, cfg, px, py, sid, (0, 5))
+    t_bar, rad_bar, mean_bar = bars
+    assert ((t0_p - t0_k).abs() > 1e-3).float().mean().item() < t_bar
+    rad_p, rad_k = rad_p.double(), rad_k.double()
+    rel = (rad_p - rad_k).abs().amax(-1) / (1.0 + rad_p.abs().amax(-1))
+    assert (rel > 1e-3).double().mean().item() < rad_bar
+    assert (rad_p.mean(0) - rad_k.mean(0)).abs().max().item() < mean_bar

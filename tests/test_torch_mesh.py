@@ -1,0 +1,305 @@
+"""The port's mesh path against qaray_tpu's, on the CPU.
+
+- the host builds (sweep coefficients, Morton tiles, the packed tables the
+  kernels read, the megakernel's mesh tables) are bit-equal;
+- the plain versions of the mesh kernels (stream_closest, stream_any_hit,
+  exact_winner, tiled_sweep, coherence_order) and the CPU side of the
+  kernel wrappers (sweep_closest, tiled_sweep_kernel,
+  tiled_closest_twophase) agree with qaray_tpu's functions, whose Pallas
+  kernels run in interpret mode, with the bars of
+  tests/test_pallas_tiles.py: rows equal on > 99.9 % of rays, t to
+  rtol/atol 1e-5 where they agree, runner-ups equal on > 99 % of agreeing
+  rays, occlusion equal on every ray;
+- the wavefront engine matches render_batch_xla on the mesh scenes with
+  the TPU's mesh routes forced on the JAX side (QARAY_MESH_PATH), with
+  tests/test_megakernel.py::_compare's bars.
+
+Inputs are made with numpy from fixed seeds.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qaray_tpu.integrators.engine import IntegratorConfig as JaxConfig
+from qaray_tpu.integrators.engine import render_batch_xla
+from qaray_tpu.ops import mesh_stream as jms
+from qaray_tpu.ops import mesh_tiles as jmt
+from qaray_tpu.ops.pallas_mesh import pack_coeff16 as jax_pack16
+from qaray_tpu.ops.pallas_mesh import pallas_sweep_closest
+from qaray_tpu.ops.pallas_pathtrace import build_mega_mesh as jax_mega_mesh
+from qaray_tpu.ops.pallas_tiles import pack_coeffT as jax_packT
+from qaray_tpu.ops.pallas_tiles import pallas_tiled_sweep
+from qaray_tpu.ops.pallas_tiles import \
+    tiled_closest_twophase as jax_twophase
+from qaray_tpu.scene.compiler import compile_scene as jax_compile
+from qaray_tpu.scene.xml_parser import load_scene as jax_load
+from qaray_tpu_torch.integrators import engine
+from qaray_tpu_torch.ops import megakernel, mesh_stream, mesh_sweep, tiles
+from qaray_tpu_torch.ops.mesh_tiles import (
+    TiledMesh,
+    build_tiles,
+    coherence_order,
+    tiled_sweep,
+)
+from qaray_tpu_torch.scene.convert import from_numpy_arrays
+from qaray_tpu_torch.scene.procedural import icosphere, with_mesh
+
+BIG = 1e30
+
+
+def _soup(num_tris=3000, num_rays=2048, seed=1):
+    """A triangle cloud and rays from above aimed at it
+    (tests/test_pallas_tiles.py::_scene at a smaller size)."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-10, 10, (num_tris, 3)).astype(np.float32)
+    v = c[:, None, :] + rng.uniform(-0.5, 0.5, (num_tris, 3, 3)).astype(
+        np.float32)
+    p = np.tile(np.array([[0.0, 0.0, 30.0]], np.float32), (num_rays, 1))
+    p += rng.uniform(-2, 2, (num_rays, 3)).astype(np.float32)
+    d = rng.normal(size=(num_rays, 3)).astype(np.float32)
+    d[:, 2] -= 1.5
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = rng.uniform(5, 60, num_rays).astype(np.float32)
+    return v, p, d, t_max
+
+
+def _rows_bars(want, got):
+    """(t, row, row2) of the reference vs the port."""
+    t_x, r_x, r2_x = (np.asarray(a) for a in want)
+    t_p, r_p, r2_p = (np.asarray(a) for a in got)
+    assert (r_x == r_p).mean() > 0.999, (r_x != r_p).mean()
+    hit = (r_x >= 0) & (r_x == r_p)
+    np.testing.assert_allclose(t_p[hit], t_x[hit], rtol=1e-5, atol=1e-5)
+    agree = (r_x == r_p) & (r2_x >= 0) & (r2_p >= 0)
+    assert (r2_x[agree] == r2_p[agree]).mean() > 0.99
+
+
+def _tiled(tri_v):
+    want = jmt.build_tiles(tri_v)
+    got = build_tiles(tri_v)
+    return want, got
+
+
+def test_host_tables_match_jax():
+    v, *_ = _soup(num_tris=1000)
+    rng = np.random.default_rng(2)
+    n = rng.normal(size=v.shape).astype(np.float32)
+    mtl = rng.integers(0, 3, v.shape[0]).astype(np.int32)
+    js, ts = jms.build_stream(v), mesh_stream.build_stream(v)
+    for a, b in zip(js, ts):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    assert np.array_equal(jax_pack16(js.coeff, js.const),
+                          mesh_sweep.pack_coeff16(ts.coeff, ts.const))
+    jt, tt = _tiled(v)
+    for f, a, b in zip(TiledMesh._fields, jt, tt):
+        assert np.array_equal(np.asarray(a), b.numpy()), f
+    assert np.array_equal(jax_packT(jt.coeff, jt.const),
+                          tiles.pack_coeffT(tt.coeff, tt.const))
+    for a, b in zip(jax_mega_mesh(v, n, mtl),
+                    megakernel.build_mega_mesh(v, n, mtl)):
+        assert np.array_equal(a, b)
+
+
+def test_stream_plain_matches_jax():
+    v, p, d, t_max = _soup()
+    js, ts = jms.build_stream(v), mesh_stream.build_stream(v)
+    tp, td = torch.tensor(p), torch.tensor(d)
+    t_cur = np.full(p.shape[0], BIG, np.float32)
+    want = jms.stream_closest(jnp.asarray(p), jnp.asarray(d),
+                              jnp.asarray(t_cur), js)
+    got = mesh_stream.stream_closest(tp, td, torch.tensor(t_cur), ts)
+    _rows_bars(want, got)
+    occ_x = np.asarray(jms.stream_any_hit(jnp.asarray(p), jnp.asarray(d),
+                                          jnp.asarray(t_max), js))
+    occ_p = mesh_stream.stream_any_hit(tp, td, torch.tensor(t_max), ts)
+    assert np.array_equal(occ_x, occ_p.numpy())
+    gid = np.asarray(want[1])
+    ew_x = jms.exact_winner(jnp.asarray(p), jnp.asarray(d), jnp.asarray(gid),
+                            jnp.asarray(v))
+    ew_p = mesh_stream.exact_winner(tp, td, torch.tensor(gid),
+                                    torch.tensor(v))
+    assert np.array_equal(np.asarray(ew_x[3]), ew_p[3].numpy())
+    ok = ew_p[3].numpy()
+    np.testing.assert_allclose(ew_p[0].numpy()[ok], np.asarray(ew_x[0])[ok],
+                               rtol=1e-5)
+    # Barycentrics are ratios of small 2D areas, rounded differently by
+    # XLA's fused CPU code: absolute 1e-4 of a weight in [0, 1].
+    np.testing.assert_allclose(ew_p[1].numpy()[ok], np.asarray(ew_x[1])[ok],
+                               atol=1e-4)
+    assert np.array_equal(ew_p[2].numpy()[ok], np.asarray(ew_x[2])[ok])
+
+
+def test_k3_wrapper_matches_pallas_interpret():
+    """sweep_closest / sweep_occluded on CPU tensors (the plain versions on
+    the packed table) against the Pallas kernel in interpret mode."""
+    v, p, d, t_max = _soup(num_tris=600)
+    js = jms.build_stream(v)
+    c16 = jax_pack16(js.coeff, js.const)
+    t_cur = np.full(p.shape[0], BIG, np.float32)
+    want = pallas_sweep_closest(jnp.asarray(p), jnp.asarray(d),
+                                jnp.asarray(t_cur), jnp.asarray(c16),
+                                interpret=True)
+    tc16 = torch.tensor(c16)
+    got = mesh_sweep.sweep_closest(torch.tensor(p), torch.tensor(d),
+                                   torch.tensor(t_cur), tc16)
+    _rows_bars(want, got)
+    _, row, _ = pallas_sweep_closest(jnp.asarray(p), jnp.asarray(d),
+                                     jnp.asarray(t_max), jnp.asarray(c16),
+                                     interpret=True)
+    occ = mesh_sweep.sweep_occluded(torch.tensor(p), torch.tensor(d),
+                                    torch.tensor(t_max), tc16)
+    assert np.array_equal(np.asarray(row) >= 0, occ.numpy())
+
+
+def test_tiled_plain_matches_jax():
+    v, p, d, t_max = _soup()
+    jt, tt = _tiled(v)
+    tp, td = torch.tensor(p), torch.tensor(d)
+    t_cur = np.full(p.shape[0], BIG, np.float32)
+    kw = dict(packet=512)
+    want = jmt.tiled_sweep(jnp.asarray(p), jnp.asarray(d), jnp.asarray(t_cur),
+                           jt, **kw)
+    got = tiled_sweep(tp, td, torch.tensor(t_cur), tt, **kw)
+    _rows_bars(want, got)
+    occ_x = jmt.tiled_sweep(jnp.asarray(p), jnp.asarray(d),
+                            jnp.asarray(t_max), jt, any_hit=True, **kw)
+    occ_p = tiled_sweep(tp, td, torch.tensor(t_max), tt, any_hit=True, **kw)
+    assert np.array_equal(np.asarray(occ_x), occ_p.numpy())
+    lo, hi = v.reshape(-1, 3).min(0), v.reshape(-1, 3).max(0)
+    perm_x = jmt.coherence_order(jnp.asarray(p), jnp.asarray(d),
+                                 jnp.asarray(lo), jnp.asarray(hi))
+    perm_p = coherence_order(tp, td, torch.tensor(lo), torch.tensor(hi))
+    assert np.array_equal(np.asarray(perm_x), perm_p.numpy())
+
+
+def test_k4_wrapper_matches_pallas_interpret(monkeypatch):
+    """tiled_sweep_kernel's CPU side (march_plain: the kernels' march) and
+    tiled_closest_twophase against the Pallas kernels in interpret mode,
+    packets of 512 rays."""
+    monkeypatch.setattr(tiles, "PACKET_ROWS", 4)
+    v, p, d, t_max = _soup()
+    jt, tt = _tiled(v)
+    cT = jax_packT(jt.coeff, jt.const)
+    jp, jd, tp, td = jnp.asarray(p), jnp.asarray(d), torch.tensor(p), \
+        torch.tensor(d)
+    tcT = torch.tensor(cT)
+    t_cur = np.full(p.shape[0], BIG, np.float32)
+    t_x, r_x, r2_x, res_x = pallas_tiled_sweep(
+        jp, jd, jnp.asarray(t_cur), jt, jnp.asarray(cT), interpret=True,
+        packet_rows=4)
+    t_p, r_p, r2_p, res_p = tiles.tiled_sweep_kernel(
+        tp, td, torch.tensor(t_cur), tt, tcT)
+    _rows_bars((t_x, r_x, r2_x), (t_p, r_p, r2_p))
+    assert (np.asarray(res_x) > 0.5).mean() == 1.0 == res_p.numpy().mean()
+    occ_x = pallas_tiled_sweep(jp, jd, jnp.asarray(t_max), jt,
+                               jnp.asarray(cT), any_hit=True, interpret=True,
+                               packet_rows=4)
+    occ_p = tiles.tiled_sweep_kernel(tp, td, torch.tensor(t_max), tt, tcT,
+                                     any_hit=True)
+    assert np.array_equal(np.asarray(occ_x), occ_p.numpy())
+    # Budgeted march: the same resolved lanes where no padding is involved.
+    _, r_b, _, res_b = tiles.tiled_sweep_kernel(
+        tp, td, torch.tensor(t_cur), tt, tcT, max_steps=2)
+    _, r_bx, _, res_bx = pallas_tiled_sweep(
+        jp, jd, jnp.asarray(t_cur), jt, jnp.asarray(cT), interpret=True,
+        packet_rows=4, max_steps=2)
+    assert np.array_equal(np.asarray(res_bx) > 0.5, res_b.numpy())
+    assert np.array_equal(np.asarray(r_bx), r_b.numpy())
+    assert not res_b.numpy().all()  # the budget bites
+    want = jax_twophase(jp, jd, jnp.asarray(t_cur), jt, jnp.asarray(cT),
+                        budget=2, interpret=True)
+    got = tiles.tiled_closest_twophase(tp, td, torch.tensor(t_cur), tt, tcT,
+                                       budget=2)
+    _rows_bars(want, got)
+    single = tiles.tiled_closest_twophase(tp, td, torch.tensor(t_cur), tt,
+                                          tcT, budget=0)
+    assert np.array_equal(single[1].numpy(), got[1].numpy())
+
+
+# -- the engine on the mesh scenes ------------------------------------------
+
+RES = (32, 24)
+SPP = 2
+
+
+def _lanes(res=RES, spp=SPP):
+    w, h = res
+    ids = np.arange(w * h * spp, dtype=np.int32)
+    return ids % w, (ids // w) % h, ids // (w * h)
+
+
+def _compare(rad_ref, t0_ref, rad, t0, outlier_frac=2e-3):
+    """tests/test_megakernel.py::_compare's bars."""
+    assert np.allclose(t0_ref, t0, rtol=1e-4, atol=1e-3), (
+        np.abs(t0_ref - t0).max())
+    rel = (np.abs(rad_ref - rad).max(axis=-1)
+           / (1.0 + np.abs(rad_ref).max(axis=-1)))
+    assert (rel > 1e-3).mean() < outlier_frac
+    assert np.median(rel) < 1e-6
+    assert np.abs(rad_ref.mean(axis=0) - rad.mean(axis=0)).max() < 2e-3
+
+
+@pytest.fixture
+def fresh_jit():
+    """JAX's trace functions are jitted on the meta and read the route
+    variables while tracing: clear its caches around each mode."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _engine_case(name, integrator, subdiv=None):
+    scene = jax_load(f"tests/assets/{name}_scene.xml")
+    if subdiv is not None:
+        scene = with_mesh(scene, *icosphere(subdiv))
+    scene.camera.img_width, scene.camera.img_height = RES
+    arrays, meta = jax_compile(scene)
+    tarr, tmeta = from_numpy_arrays(jax.tree.map(np.asarray, arrays), meta,
+                                    "cpu")
+    kw = dict(integrator=integrator, max_bounce=3, shadow_spp=4,
+              shadow_spp_max=8)
+    px, py, sid = _lanes()
+    key = jax.random.key(3, impl="threefry2x32")
+    rad_x, t0_x = render_batch_xla(arrays, meta, JaxConfig(**kw),
+                                   jnp.asarray(px), jnp.asarray(py),
+                                   jnp.asarray(sid), key)
+    words = tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+    rad, t0 = engine.render_batch_wavefront(
+        tarr, tmeta, engine.IntegratorConfig(**kw), torch.tensor(px),
+        torch.tensor(py), torch.tensor(sid), words)
+    _compare(np.asarray(rad_x), np.asarray(t0_x), rad.numpy(), t0.numpy())
+    return tmeta
+
+
+@pytest.mark.parametrize("integrator", ["pathtrace", "photonmap"])
+@pytest.mark.parametrize("name", ["mesh", "mirror"])
+def test_engine_stream_route_matches_jax(name, integrator, monkeypatch,
+                                         fresh_jit):
+    """The dense-sweep route (K3's plain version on the CPU)."""
+    monkeypatch.setenv("QARAY_MESH_PATH", "stream")
+    meta = _engine_case(name, integrator)
+    assert meta.mesh_stream and not meta.mesh_tiled and meta.mesh_mega
+
+
+def test_mesh_scene_takes_the_megakernel_route():
+    """Renderer defaults send a mesh scene under 64k triangles to K1a/K1c;
+    on CPU tensors mega_render runs the wavefront engine."""
+    from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+
+    scene = load_scene("tests/assets/mesh_scene.xml")
+    scene.camera.img_width, scene.camera.img_height = 8, 6
+    arr, meta = compile_scene(scene, device="cpu")
+    cfg = engine.IntegratorConfig(integrator="photonmap", max_bounce=2)
+    assert engine.use_pathtrace_mega(meta, cfg)
+    assert arr.kernel.mesh_rows.shape == (512, 16)
+    assert arr.kernel.mesh_cb.shape == (2, 8)
+    px, py, sid = (torch.tensor(a) for a in _lanes((8, 6), 1))
+    rad, t0 = engine.render_batch(arr, meta, cfg, px, py, sid, (0, 3))
+    rad_w, t0_w = engine.render_batch_wavefront(arr, meta, cfg, px, py, sid,
+                                                (0, 3))
+    assert torch.equal(rad, rad_w) and torch.equal(t0, t0_w)
+    assert (t0 < 1e29).any()

@@ -45,6 +45,28 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch):
                               _png(tmp_path / f"j_{name}")), name
 
 
+def test_cli_mesh_scene_matches_jax_cli(tmp_path, monkeypatch):
+    """mesh_scene.xml (a 320-triangle icosphere over an analytic ground) on
+    the Renderer's default route, the megakernel with its mesh sweep, on
+    both sides: channel means of the colour buffers within 2e-3."""
+    from qaray_tpu import cli as jax_cli
+    from qaray_tpu_torch import cli
+
+    args = ["tests/assets/mesh_scene.xml"] + ARGS[1:]
+    assert cli.main(args + ["-device", "cpu", "-out",
+                            str(tmp_path / "t_")]) == 0
+    monkeypatch.setenv("QARAY_MEGAKERNEL", "1")
+    monkeypatch.setenv("QARAY_COMPILE_CACHE", "0")
+    assert jax_cli.main(args + ["-platform", "cpu", "-out",
+                                str(tmp_path / "j_")]) == 0
+    got = _png(tmp_path / "t_colorBuffer.png")
+    want = _png(tmp_path / "j_colorBuffer.png")
+    assert got.shape == want.shape == (24, 32, 3)
+    err = np.abs(got.reshape(-1, 3).mean(0) - want.reshape(-1, 3).mean(0))
+    assert (err < 2e-3).all(), err
+    assert got.std() > 0.01  # the icosphere and the ground are in view
+
+
 def test_renderer_adaptive_matches_jax():
     """The adaptive loop (packed phase 1, compacted phase 2, batches smaller
     than the image) with threefry keys: per-pixel sample counts and means
@@ -79,6 +101,8 @@ def test_port_imports_no_jax():
         "import qaray_tpu_torch.cli, qaray_tpu_torch.renderer\n"
         "import qaray_tpu_torch.ops.megakernel, qaray_tpu_torch.ops._build\n"
         "import qaray_tpu_torch.scene.convert\n"
+        "import qaray_tpu_torch.ops.tiles, qaray_tpu_torch.ops.mesh_sweep\n"
+        "import qaray_tpu_torch.scene.procedural\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'qaray_tpu')]\n"
         "assert not bad, bad\n"
