@@ -28,6 +28,13 @@ Phases, each fatal on failure:
           test_mega_parity_mesh and test_mega_streamed_mesh_parity bars),
           and the first two at 800x600 with the Renderer's photonmap
           settings and rbg words;
+       d. K1b: texture_scene.xml (checkers on the floor and the ball) at
+          200x150 x 2 spp, threefry, pathtrace and photonmap, a variant
+          with a second live slot (specular) under a rotated and translated
+          map, and texture_scene at 800x600 with the Renderer's photonmap
+          settings and rbg words (the test_mega_checker_textures_parity
+          bars: under 5e-3 of lanes above 1e-3 relative, channel means
+          within 2e-3);
   4. the main path at 800x600 with every launch count set to 0 before each
      route and read after it, and every plain version of a kernel made to
      raise if it is called:
@@ -43,6 +50,16 @@ Phases, each fatal on failure:
        e. the same with the ico6 icosphere, 1 spp: above 65,536 triangles
           the wavefront route, K4a (two-phase) and K4b with K2b/K2c;
        f. mesh_scene.xml under QARAY_NO_MEGAKERNEL, 1 spp: K3 with K2b/K2c;
+       g. Renderer defaults on texture_scene.xml: K1a with K1b's checker
+          textures, no lane on the wavefront engine;
+       h. texture_scene.xml under QARAY_NO_MEGAKERNEL, 1 spp: the wavefront
+          route with the texture stack (K2b's uv, K2c, ops/texture.py);
+       i. spot_scene.xml with tests/assets/colorBuffer.png bound in code
+          to a material, the background and the environment, 1 spp: the
+          wavefront route, and the same scene at 200x150 against the same
+          render on the CPU;
+       j. the basic, phong and mcgi integrators on spot_scene.xml, 1 spp:
+          the wavefront route (K2b/K2c);
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time.
 Prints the card's name and power limit, one JSON line of per-kernel
@@ -62,6 +79,9 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SCENE = os.path.join(HERE, "tests", "assets", "softdof_scene.xml")
+TEXTURE_SCENE = os.path.join(HERE, "tests", "assets", "texture_scene.xml")
+SPOT_SCENE = os.path.join(HERE, "tests", "assets", "spot_scene.xml")
+IMAGE = os.path.join(HERE, "tests", "assets", "colorBuffer.png")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
 # outside the tensor cores (integer operations are counted at the same
@@ -78,6 +98,10 @@ OPS_PER_CIPHER = 120
 # A triangle test (csrc/mesh.cuh tri_hit) is at least 40: six 3-term dot
 # products (30), t (2), the barycentric weights a, b (6) and c (2).
 OPS_PER_TRI = 40
+# A checker test (csrc/megakernel.cu textured/checker01) is at least 12: the
+# sample position (4 multiplies, 4 adds) and two floors with their
+# subtractions; the compares and the sum are not counted.
+OPS_PER_CHECKER = 12
 MESH_SCENE = os.path.join(HERE, "tests", "assets", "mesh_scene.xml")
 MIRROR_SCENE = os.path.join(HERE, "tests", "assets", "mirror_scene.xml")
 ICO_CENTRE, ICO_RADIUS = (0.0, 50.0, 5.1), 8.0  # mesh_scene's icosphere
@@ -176,6 +200,22 @@ def compare_render(rad_ref, t0_ref, rad, t0, what):
     check(frac < 2e-3, f"{what}: lanes above 1e-3 relative {frac:.3g} < 2e-3")
     check(med < 1e-6, f"{what}: median relative error {med:.3g} < 1e-6")
     check(mean_err < 2e-3, f"{what}: image-mean error {mean_err:.3g} < 2e-3")
+    return (rad_ref - rad).abs().max().item()
+
+
+def compare_tex_render(rad_ref, t0_ref, rad, t0, what):
+    """tests/test_megakernel.py::test_mega_checker_textures_parity's bars,
+    and primary depth as compare_render holds it."""
+    rad_ref, rad = rad_ref.double(), rad.double()
+    check(torch.allclose(t0_ref, t0, rtol=1e-4, atol=1e-3),
+          f"{what}: t0 within rtol 1e-4 atol 1e-3")
+    rel = ((rad_ref - rad).abs().amax(-1)
+           / (1.0 + rad_ref.abs().amax(-1)))
+    frac = (rel > 1e-3).double().mean().item()
+    mean_err = (rad_ref.mean(0) - rad.mean(0)).abs().max().item()
+    check(frac < 5e-3, f"{what}: lanes above 1e-3 relative {frac:.3g} < 5e-3")
+    check(mean_err < 2e-3, f"{what}: channel-mean error {mean_err:.3g} < "
+          "2e-3")
     return (rad_ref - rad).abs().max().item()
 
 
@@ -287,7 +327,12 @@ def main():
     from qaray_tpu_torch.renderer import Renderer, RendererParam, key_words
     from qaray_tpu_torch.scene import bvh as bvh_mod
     from qaray_tpu_torch.scene.compiler import compile_scene
-    from qaray_tpu_torch.scene.procedural import icosphere, with_mesh
+    from qaray_tpu_torch.scene.procedural import (
+        icosphere,
+        with_mesh,
+        with_texture,
+    )
+    from qaray_tpu_torch.scene.textures import load_image
     from qaray_tpu_torch.scene.xml_parser import load_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -376,7 +421,7 @@ def main():
                     m6t.tile_cbounds)
     rp, rd, rt = mesh_rays(1 << 20, 7)
     cpx, cpy, csid = lanes(800, 600, 1)
-    cp, cd = engine.generate_camera_rays(a5, m5, cpx, cpy, csid, None)
+    cp, cd, *_ = engine.generate_camera_rays(a5, m5, cpx, cpy, csid, None)
     cp, cd = cp.contiguous(), cd.contiguous()
     light = -torch.tensor([1.0, 0.5, -1.0], device="cuda")
     light = light / light.norm()
@@ -526,6 +571,48 @@ def main():
     numbers["K1c"] = {"max_abs_err": k1c_err}
     torch.cuda.synchronize()
 
+    print("phase 3d: K1b vs the wavefront engine with its texture stack, "
+          "texture_scene and a two-slot variant", flush=True)
+    tex_desc = load_scene(TEXTURE_SCENE)
+    two_slot = with_texture(tex_desc, ("ballmtl", "specular"),
+                            checker=((1.0, 0.2, 0.1), (0.1, 0.3, 1.0)),
+                            scale=0.07, angle=30.0,
+                            offset=(0.013, 0.027, 0.0))
+    two_slot = with_texture(two_slot, ("floor", "diffuse"),
+                            checker=((0.1,) * 3, (0.9,) * 3), scale=0.05,
+                            angle=17.0, offset=(0.4, 0.3, 0.0))
+    k1b_err = 0.0
+    spx, spy, ssid = lanes(200, 150, 2)
+    for what, desc in (("texture_scene", tex_desc), ("two-slot", two_slot)):
+        desc.camera.img_width, desc.camera.img_height = 200, 150
+        k_arr, k_meta = compile_scene(desc, device="cuda")
+        check(k_meta.mega_tex_ok and k_arr.kernel.mtl.shape[1] == 102,
+              f"{what}: checker columns in the kernel's material table, "
+              f"slots {k_meta.mega_tex_slots}")
+        for integ in ("pathtrace", "photonmap"):
+            cfg = IntegratorConfig(integrator=integ, max_bounce=4)
+            before = megakernel.launches["K1b"]
+            rad_k, t0_k = megakernel.mega_render(k_arr, k_meta, cfg, spx, spy,
+                                                 ssid, (0, 3))
+            check(megakernel.launches["K1b"] == before + 1,
+                  "the textured kernel was launched")
+            rad_p, t0_p = render_batch_wavefront(k_arr, k_meta, cfg, spx, spy,
+                                                 ssid, (0, 3))
+            k1b_err = max(k1b_err, compare_tex_render(
+                rad_p, t0_p, rad_k, t0_k, f"K1b {what} 200x150 {integ}"))
+    tex_desc.camera.img_width, tex_desc.camera.img_height = 800, 600
+    t_arr, t_meta = compile_scene(tex_desc, device="cuda")
+    rad_k, t0_k = megakernel.mega_render(t_arr, t_meta, cfg_pm, bpx, bpy,
+                                         bsid, rbg)
+    rad_p, t0_p = render_batch_wavefront(t_arr, t_meta, cfg_pm, bpx, bpy,
+                                         bsid, rbg)
+    k1b_err = max(k1b_err, compare_tex_render(
+        rad_p, t0_p, rad_k, t0_k,
+        "K1b texture_scene 800x600 photonmap max_bounce 5 rbg"))
+    del rad_k, t0_k, rad_p, t0_p
+    numbers["K1b"] = {"max_abs_err": k1b_err}
+    torch.cuda.synchronize()
+
     # -- 4. the main path ----------------------------------------------------
     counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
                 tiles.launches)
@@ -547,7 +634,7 @@ def main():
         out["wavefront_lanes"] = engine.wavefront_lanes
         return out
 
-    def render_main(what, desc, param, no_mega=False):
+    def render_main(what, desc, param, no_mega=False, max_mean=10.0):
         """One Renderer.render() on the main path: counts set to 0 just
         before and read just after, plain versions refused. Returns
         (frame buffer, wall seconds, counts, renderer)."""
@@ -574,7 +661,7 @@ def main():
         print(f"  launch counts: {json.dumps(counts)}", flush=True)
         check(fb.img.shape == (800 * 600, 3), "colour buffer is 800x600x3")
         check(bool(np.isfinite(fb.mean).all()), "radiance finite")
-        check(0.0 < float(fb.mean.mean()) < 10.0,
+        check(0.0 < float(fb.mean.mean()) < max_mean,
               f"mean radiance {float(fb.mean.mean()):.4f} plausible")
         check(param.spp_min <= fb.count.min()
               and fb.count.max() <= param.spp_max,
@@ -649,11 +736,85 @@ def main():
     check(counts_f["K3"] > 0, f"K3 launched {counts_f['K3']} times")
     check(counts_f["K1a"] == 0 and counts_f["K4a"] == 0,
           "no K1a or K4a launch on the dense route")
+
+    print("phase 4g: Renderer, texture_scene 800x600, defaults: the "
+          "megakernel with checker textures", flush=True)
+    _, _, counts_g, _ = render_main("texture_scene", tex_desc,
+                                    RendererParam())
+    check(counts_g["K1b"] > 0 and counts_g["K1b"] == counts_g["K1a"],
+          f"K1a launched {counts_g['K1a']} times, all with K1b's textures")
+    check(counts_g["wavefront_lanes"] == 0, "no lane on the wavefront engine")
+
+    # One 480,000-lane batch a bounce (the Renderer's default batch size):
+    # these scenes' hard lights need none of softdof's 64 shadow samples a
+    # lane, which is what phase 4b's smaller batches make room for.
+    wave_1spp = RendererParam(spp_min=1, spp_max=1)
+    print("phase 4h: texture_scene 800x600 x 1 spp under "
+          "QARAY_NO_MEGAKERNEL: the wavefront route with the texture stack",
+          flush=True)
+    _, _, counts_h, _ = render_main("texture_scene wavefront", tex_desc,
+                                    wave_1spp, no_mega=True)
+    check(counts_h["K2b"] > 0 and counts_h["K2c"] > 0,
+          f"K2b launched {counts_h['K2b']} times, K2c {counts_h['K2c']}")
+    check(counts_h["K1a"] == 0 and counts_h["K1b"] == 0,
+          "no megakernel launch on the wavefront route")
+
+    print("phase 4i: spot_scene with a file texture on a material, the "
+          "background and the environment, 800x600 x 1 spp", flush=True)
+    image = load_image(IMAGE)
+    file_desc = load_scene(SPOT_SCENE)
+    file_desc = with_texture(file_desc,
+                             (file_desc.materials[0].name, "diffuse"),
+                             image=image, color=(1.0, 1.0, 1.0), scale=0.5)
+    file_desc = with_texture(file_desc, "background", image=image,
+                             color=(1.0, 0.9, 0.8))
+    file_desc = with_texture(file_desc, "environment", image=image,
+                             color=(0.8, 0.9, 1.0), scale=0.5, angle=25.0)
+    file_desc.camera.img_width, file_desc.camera.img_height = 800, 600
+    _, _, counts_i, r_file = render_main("file textures", file_desc,
+                                         wave_1spp)
+    fm = r_file.meta
+    check(fm.has_mtl_textures and fm.has_bg_texture and fm.has_env_texture
+          and not fm.mega_tex_ok, "file textures on a material, the "
+          "background and the environment")
+    check(counts_i["K2b"] > 0 and counts_i["K1a"] == 0,
+          f"K2b launched {counts_i['K2b']} times, no megakernel launch")
+    file_desc.camera.img_width, file_desc.camera.img_height = 200, 150
+    cfg_f = IntegratorConfig(integrator="photonmap", max_bounce=3)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        f_arr, f_meta = compile_scene(file_desc, device=dev)
+        fpx, fpy, fsid = lanes(200, 150, 1, device=dev)
+        rad_f, t0_f = render_batch_wavefront(f_arr, f_meta, cfg_f, fpx, fpy,
+                                             fsid, (0, 3))
+        outs.append((rad_f.cpu(), t0_f.cpu()))
+    compare_render(*outs[1], *outs[0], "file textures 200x150, card vs CPU")
+    miss = outs[0][1] > 1e29
+    check(bool(miss.any()) and outs[0][0][miss].std().item() > 0.02,
+          "the background shows the image")
+
+    print("phase 4j: basic, phong and mcgi on spot_scene 800x600 x 1 spp: "
+          "the wavefront route", flush=True)
+    spot_desc = load_scene(SPOT_SCENE)
+    spot_desc.camera.img_width, spot_desc.camera.img_height = 800, 600
+    counts_j = []
+    for integ in ("basic", "phong", "mcgi"):
+        # Without falloff (basic, phong) the spot's intensity of 400
+        # arrives undimmed: a bright image, as in the reference.
+        _, _, c_j, _ = render_main(
+            integ, spot_desc, RendererParam(
+                integrator=integ, spp_min=1, spp_max=1),
+            max_mean=10.0 if integ == "mcgi" else 1e4)
+        check(c_j["K2b"] > 0 and c_j["K2c"] > 0 and c_j["K1a"] == 0,
+              f"{integ}: K2b launched {c_j['K2b']} times, K2c {c_j['K2c']}, "
+              "no megakernel launch")
+        counts_j.append(c_j)
     launches = {k: sum(c[k] for c in (counts_a, counts_b, counts_c, counts_d,
-                                       counts_e, counts_f))
-                for k in ("K1a", "K1c", "K2a", "K2b", "K2c", "K3", "K4a",
-                          "K4b")}
-    print(f"  launches on the main path (4a-4f): {json.dumps(launches)}",
+                                       counts_e, counts_f, counts_g, counts_h,
+                                       counts_i, *counts_j))
+                for k in ("K1a", "K1b", "K1c", "K2a", "K2b", "K2c", "K3",
+                          "K4a", "K4b")}
+    print(f"  launches on the main path (4a-4j): {json.dumps(launches)}",
           flush=True)
 
     # -- 5. timings at the path's shapes -------------------------------------
@@ -663,15 +824,16 @@ def main():
 
     def mega_work(arr, meta_):
         """Per-lane work counters of one K1a launch, summed: (primitive
-        tests, threefry ciphers, shaded vertices, triangle tests)."""
-        work = torch.zeros((480000, 4), dtype=torch.int32, device="cuda")
+        tests, threefry ciphers, shaded vertices, triangle tests, checker
+        tests)."""
+        work = torch.zeros((480000, 5), dtype=torch.int32, device="cuda")
         megakernel.mega_render(arr, meta_, cfg_pt, bpx, bpy, bsid, rbg,
                                work=work)
         return work.sum(0, dtype=torch.int64).tolist()
 
     def mega_ops(wsum):
         return (wsum[0] * OPS_PER_TEST + wsum[1] * OPS_PER_CIPHER
-                + wsum[3] * OPS_PER_TRI)
+                + wsum[3] * OPS_PER_TRI + wsum[4] * OPS_PER_CHECKER)
 
     wsum = mega_work(s_arr, s_meta)
     b_ms, b_by = bound(480000 * (12 + 16), mega_ops(wsum))
@@ -713,6 +875,31 @@ def main():
               f"lanes: {ms:.4f} ms by {src}, bound {b_ms:.5f} ms by {b_by}, "
               f"engine {row['plain_ms']:.3f} ms, {wsum[3]} triangle tests",
               flush=True)
+
+    # K1b: the textured launch on texture_scene, beside K1a's time on
+    # softdof above; its plain version is the wavefront engine with the
+    # texture stack on the same lanes.
+    ms, src = kernel_ms(lambda: megakernel.mega_render(
+        t_arr, t_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
+    wsum = mega_work(t_arr, t_meta)
+    b_ms, b_by = bound(480000 * (12 + 16), mega_ops(wsum))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for lo in range(0, 480000, 65536):
+        render_batch_wavefront(t_arr, t_meta, cfg_pt, bpx[lo:lo + 65536],
+                               bpy[lo:lo + 65536], bsid[lo:lo + 65536], rbg)
+    end.record()
+    end.synchronize()
+    numbers["K1b"].update(ms=ms, plain_ms=start.elapsed_time(end),
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                          timed_by=src, lanes=480000, prim_tests=wsum[0],
+                          ciphers=wsum[1], vertices=wsum[2],
+                          checker_tests=wsum[4])
+    print(f"  K1a+K1b texture_scene, pathtrace 480000 lanes: {ms:.4f} ms by "
+          f"{src} (K1a on softdof {numbers['K1a']['ms']:.4f} ms), bound "
+          f"{b_ms:.5f} ms by {b_by}, engine {numbers['K1b']['plain_ms']:.3f} "
+          f"ms, {wsum[4]} checker tests on {wsum[2]} vertices", flush=True)
 
     n2 = 1 << 16  # one wavefront batch of primary rays
     n_sh = 1 << 20  # its first 16 soft-shadow rays per lane
@@ -847,10 +1034,13 @@ def main():
 
     profile_render("softdof defaults", scene, RendererParam())
     profile_render("mesh_scene defaults", mesh_base, RendererParam())
+    profile_render("texture_scene defaults", tex_desc, RendererParam())
     profile_render("ico6 1 spp", ico6, RendererParam(spp_min=1, spp_max=1))
 
     meta_k = {
         "K1a": ("qaray_tpu_torch/csrc/megakernel.cu",
+                "qaray_tpu/ops/pallas_pathtrace.py:1614"),
+        "K1b": ("qaray_tpu_torch/csrc/megakernel.cu",
                 "qaray_tpu/ops/pallas_pathtrace.py:1614"),
         "K1c": ("qaray_tpu_torch/csrc/megakernel.cu",
                 "qaray_tpu/ops/pallas_pathtrace.py:1614"),
@@ -868,7 +1058,8 @@ def main():
                 "qaray_tpu/ops/pallas_analytic.py:174"),
     }
     kernels = []
-    for name in ("K1a", "K1c", "K2a", "K2b", "K2c", "K3", "K4a", "K4b"):
+    for name in ("K1a", "K1b", "K1c", "K2a", "K2b", "K2c", "K3", "K4a",
+                 "K4b"):
         src, rep = meta_k[name]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches[name]}

@@ -6,7 +6,7 @@ src/main.cpp:8-61):
     -spp N / -sppMin N / -sppMax N   samples per pixel
     -bounce N                        path depth
     -srgb 0|1                        sRGB output
-    -integrator {photonmap,pathtrace}
+    -integrator {photonmap,pathtrace,basic,whitted,phong,mcgi}
     -seed N                          RNG seed
     -shadow-spp N / -shadow-spp-max N   soft-shadow sample budget
     -progressive N                   save a preview PNG every N spp
@@ -15,9 +15,10 @@ src/main.cpp:8-61):
     -out PREFIX                      output file prefix
     -device cpu                      render on the CPU (default: the GPU)
 
--batch and -threads are accepted for compatibility. Photon maps, several
-devices, multihost runs, the preview server and profiling come with later
-slices of the port and raise NotImplementedError.
+-batch and -threads are accepted for compatibility. Scenes may carry
+checker and file textures on materials, the background and the environment.
+Photon maps, several devices, multihost runs, the preview server and
+profiling come with later slices of the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import sys
 import time
 
+from qaray_tpu_torch.integrators.engine import INTEGRATORS
 from qaray_tpu_torch.renderer import Renderer, RendererParam
 from qaray_tpu_torch.scene.xml_parser import load_scene
 
@@ -70,6 +72,9 @@ def parse_args(argv):
             i += 1
         elif a == "-integrator":
             i += 1
+            if argv[i] not in INTEGRATORS:
+                raise ValueError(f"-integrator {argv[i]}: one of "
+                                 f"{', '.join(INTEGRATORS)}")
             param.integrator = argv[i]
         elif a == "-seed":
             i += 1

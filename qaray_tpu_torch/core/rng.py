@@ -13,12 +13,13 @@ import torch
 
 from qaray_tpu_torch.core.krng import MASK, draw_at, fold2
 
-# Purpose tags (the JAX package's values; its photon, pixel, light-select
-# and glossy-ball tags 4-7 arrive with the slices that use them).
+# Purpose tags (the JAX package's values; its photon, pixel and
+# light-select tags 4-6 arrive with the slices that use them).
 P_LOBE_SELECT = 0
 P_LOBE_SAMPLE = 1
 P_DOF = 2
 P_SHADOW = 3
+P_GLOSSY = 7
 
 
 def fold_words(key_words):

@@ -1,12 +1,13 @@
-// Path-trace megakernel (K1a): one whole pathtrace or photonmap sample per
-// thread, camera ray to radiance, in one launch.
+// Path-trace megakernel (K1a, with K1b and K1c): one whole pathtrace or
+// photonmap sample per thread, camera ray to radiance, in one launch.
 //
 // Replaces the Pallas TPU kernel qaray_tpu/ops/pallas_pathtrace.py
 // ::_make_kernel (dispatched by _mega_raw), with its helpers _closest_hit,
 // _shadow_occluded, _illuminate, _blinn_direct, _glossy_jitter, _halton and
 // the in-kernel threefry of core/krng.py (K1a), and its world-mesh sweep
-// _mesh_tri_test / _cluster_overlaps / _bundle_bounds (K1c). Untextured and
-// gather-free only (K1b and K1d come later).
+// _mesh_tri_test / _cluster_overlaps / _bundle_bounds (K1c), and its checker
+// textures: the winner's uv and primary-hit footprints of _closest_hit and
+// _apply_checker_textures (K1b). Gather-free only (K1d comes later).
 //
 // What bounds it on the H100: operations. A lane reads 12 bytes and
 // writes 16, but does per bounce a closest-hit sweep over the primitives,
@@ -36,6 +37,25 @@
 // come from L1. Bounded by operations too: about 40 per triangle test,
 // counted per lane in `work`.
 //
+// K1b, checker textures: the kernel is compiled twice, mega_kernel<false>
+// for untextured scenes (K1a as it was, no texture code in it) and
+// mega_kernel<true> for scenes whose live material textures are all
+// procedural checkers. There the material rows carry 16 more columns per
+// slot (102 in all, still in shared memory), the closest-hit fold keeps the
+// winner's uv (atan2f/asinf, as K2b and the engine compute it), and at the
+// primary hit two differential camera rays are intersected with the
+// winner's local tangent plane for the footprint duv0, duv1. A textured
+// slot's colour is multiplied by w*color1 + (1-w)*color2, w the checker test
+// at the transformed uv, or at the primary hit the mean of that test over
+// the centre and the 31 elliptic offsets of ops/texture.py, which the
+// wrapper uploads to constant memory. The loop over the offsets stays a
+// loop (registers). The transform and the sample positions keep the plain
+// version's operation order: a checker flips at frac == 0.5, so a last-bit
+// difference would change a whole colour. Mesh winners carry no uv; their
+// rows have no texture (the compiler refuses such scenes for this route).
+// Operations again: 32 checker tests a textured slot at a primary vertex,
+// one at a later vertex, counted in `work`.
+//
 // Random draws are bit-exact with jax.random (threefry2x32 key words):
 // the per-lane key is fold(base, rid * 65536 + sid) in wrapping 32-bit
 // arithmetic, then fold(1000 + bounce) and a purpose tag per decision, as
@@ -47,12 +67,29 @@
 #include "mesh.cuh"
 #include "threefry.cuh"
 
+// The launch and the block's dynamic shared memory go through two macros,
+// so that the CPU tests can compile this source with g++ against
+// csrc/host/cuda_runtime.h, which defines them otherwise, and run it one
+// lane at a time beside the plain version (ops/_build.load_host).
+#ifndef QR_LAUNCH
+#define QR_SHARED_FLOATS(name) extern __shared__ float name[]
+#define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg) \
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(arg)
+#endif
+
 namespace {
 
 // Material table columns (pallas_pathtrace._MT_*).
 constexpr int MT_DIFF = 0, MT_SPEC = 3, MT_EMIT = 6, MT_REFL = 9,
               MT_REFR = 12, MT_GLOSS = 15, MT_RGLOSS = 16, MT_TGLOSS = 17,
               MT_IOR = 18, MT_ABS = 19, MTL_COLS = 22;
+// Checker columns (_MT_TEXBASE layout): 16 per slot from column 22, slots
+// diffuse, specular, emission, reflection, refraction.
+constexpr int MT_TEXBASE = 22, TEX_STRIDE = 16, TEX_HAS = 0, TEX_C1 = 1,
+              TEX_C2 = 4, TEX_M0 = 7, TEX_M1 = 10, TEX_T = 13, NUM_SLOTS = 5;
+constexpr int TEX_OFFSETS = 31;  // TEXTURE_SAMPLE_COUNT - 1
+constexpr float RCP_DIFF = 100.0f;  // RCP_DX = RCP_DY = 1 / 0.01
+constexpr float DIFF_D = 0.01f;     // DIFF_DX = DIFF_DY
 // Light table columns (_LT_*).
 constexpr int LT_INT = 0, LT_POS = 3, LT_DIR = 6, LT_SIZE = 9, LT_INNER = 10,
               LT_OUTER = 11, LIGHT_COLS = 12;
@@ -67,6 +104,11 @@ constexpr float TWO_PI = (float)(2.0 * M_PI);
 constexpr float CLT = 0.00001f;  // COLOR_LUMA_THRESHOLD
 constexpr int kThreads = 128;
 
+// The 31 elliptic footprint offsets (ops/texture.elliptic_offsets_np),
+// uploaded once by qr_mega_set_tex_offsets.
+__constant__ float c_tex_xs[TEX_OFFSETS];
+__constant__ float c_tex_ys[TEX_OFFSETS];
+
 struct Params {
   const int* px;
   const int* py;
@@ -78,6 +120,8 @@ struct Params {
   int num_prims;
   const float* mtl;
   int num_mtls;
+  int mtl_cols;  // 22, or 102 with the checker columns
+  int tex_mask;  // bit s: material slot s carries a live checker somewhere
   const float* light;
   const int* lkind;
   const int* lsoft;
@@ -98,7 +142,8 @@ struct Params {
   float* g;
   float* b;
   float* t0;
-  int* work;  // optional [n, 4]: prim tests, ciphers, vertices, tri tests
+  int* work;  // optional [n, 5]: prim tests, ciphers, vertices, tri tests,
+              // checker tests
 };
 
 struct Shared {
@@ -113,7 +158,7 @@ struct Shared {
 };
 
 struct Work {
-  int tests, ciphers, vertices, tri_tests;
+  int tests, ciphers, vertices, tri_tests, checkers;
 };
 
 __device__ __forceinline__ float luma3(V3 c) {
@@ -345,20 +390,86 @@ __device__ V3 glossy_jitter(V3 center, V3 y_axis, float gloss, Key k,
   return c;
 }
 
-__device__ __forceinline__ V3 mtl3(const Shared& S, int row, int col) {
-  return load3(S.mtl + row * MTL_COLS + col);
+// uv where the differential ray (p, dd) meets the winner's local plane
+// through `anchor` with normal n_loc, in the primitive's object space
+// (ops/intersect.analytic_diff_uv's offset_uv; objects.cpp:107-135,
+// 174-202). Spheres: the asin is corrected by the point's radius.
+__device__ __forceinline__ void offset_uv(const float* pr, int kind, V3 p,
+                                          V3 dd, V3 n_loc, V3 anchor,
+                                          float& uo, float& vo) {
+  V3 po, dobj;
+  obj_ray(pr, p, dd, po, dobj);
+  float den = dot3(dobj, n_loc);
+  if (fabsf(den) < 1e-20f) den = 1e-20f;
+  const float t_off = -dot3(sub3(po, anchor), n_loc) / den;
+  const V3 hpo = add3(po, scale3(dobj, t_off));
+  if (kind == QR_KIND_SPHERE) {
+    const float r = sqrtf(fmaxf(dot3(hpo, hpo), 1e-30f));
+    uo = 0.5f - atan2f(hpo.x, hpo.y) / (float)(2.0 * M_PI);
+    vo = 0.5f + asinf(fminf(fmaxf(hpo.z / r, -1.0f), 1.0f)) / (float)M_PI;
+  } else {
+    uo = (hpo.x + 1.0f) * 0.5f;
+    vo = (hpo.y + 1.0f) * 0.5f;
+  }
 }
 
+// TextureChecker::Sample as a weight: 1 takes color1, 0 color2.
+__device__ __forceinline__ float checker01(float u, float v) {
+  const float ut = u - floorf(u);
+  const float vt = v - floorf(v);
+  return ((ut <= 0.5f) == (vt <= 0.5f)) ? 1.0f : 0.0f;
+}
+
+// TexturedColor::Sample of one material slot (K1b;
+// pallas_pathtrace._apply_checker_textures). tx: the slot's 16 columns;
+// (u, v): the winner's texture coordinates; filter: a primary hit, whose
+// footprint (du0, dv0), (du1, dv1) is averaged over 32 samples unless zero.
+__device__ V3 textured(const float* tx, V3 color, float u, float v,
+                       bool filter, float du0, float dv0, float du1,
+                       float dv1, Work& w) {
+  if (!(tx[TEX_HAS] > 0.5f)) return color;
+  const float* m0 = tx + TEX_M0;
+  const float* m1 = tx + TEX_M1;
+  const float pu = u - tx[TEX_T], pv = v - tx[TEX_T + 1],
+              pw = 0.0f - tx[TEX_T + 2];
+  const float um = m0[0] * pu + m0[1] * pv + m0[2] * pw;
+  const float vm = m1[0] * pu + m1[1] * pv + m1[2] * pw;
+  float w1 = checker01(um, vm);
+  ++w.checkers;
+  if (filter && (du0 * du0 + dv0 * dv0 + du1 * du1 + dv1 * dv1) != 0.0f) {
+    const float d0u = m0[0] * du0 + m0[1] * dv0;
+    const float d0v = m1[0] * du0 + m1[1] * dv0;
+    const float d1u = m0[0] * du1 + m0[1] * dv1;
+    const float d1v = m1[0] * du1 + m1[1] * dv1;
+    float acc = w1;
+#pragma unroll 1
+    for (int i = 0; i < TEX_OFFSETS; ++i) {
+      const float xs = c_tex_xs[i], ys = c_tex_ys[i];
+      acc = acc + checker01(um + xs * d0u + ys * d1u, vm + xs * d0v + ys * d1v);
+    }
+    w1 = acc * (1.0f / 32.0f);
+    w.checkers += TEX_OFFSETS;
+  }
+  const float w2 = 1.0f - w1;
+  return V3{color.x * (w1 * tx[TEX_C1] + w2 * tx[TEX_C2]),
+            color.y * (w1 * tx[TEX_C1 + 1] + w2 * tx[TEX_C2 + 1]),
+            color.z * (w1 * tx[TEX_C1 + 2] + w2 * tx[TEX_C2 + 2])};
+}
+
+// kTex: the scene has checker textures (K1b); material rows are then
+// P.mtl_cols wide, MTL_COLS otherwise.
+template <bool kTex>
 __global__ void __launch_bounds__(kThreads)
     mega_kernel(const Params P) {
-  extern __shared__ float smem[];
+  QR_SHARED_FLOATS(smem);
+  const int mtl_cols = kTex ? P.mtl_cols : MTL_COLS;
   Shared S;
   {
     float* f = smem;
     S.prim = f;
     f += P.num_prims * QR_PRIM_COLS;
     S.mtl = f;
-    f += P.num_mtls * MTL_COLS;
+    f += P.num_mtls * mtl_cols;
     S.light = f;
     f += P.num_lights * LIGHT_COLS;
     S.cam = f;
@@ -373,7 +484,7 @@ __global__ void __launch_bounds__(kThreads)
     S.lsoft = q;
     for (int i = threadIdx.x; i < P.num_prims * QR_PRIM_COLS; i += blockDim.x)
       S.prim[i] = P.prim[i];
-    for (int i = threadIdx.x; i < P.num_mtls * MTL_COLS; i += blockDim.x)
+    for (int i = threadIdx.x; i < P.num_mtls * mtl_cols; i += blockDim.x)
       S.mtl[i] = P.mtl[i];
     for (int i = threadIdx.x; i < P.num_lights * LIGHT_COLS; i += blockDim.x)
       S.light[i] = P.light[i];
@@ -390,7 +501,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= P.n) return;
-  Work w{0, 0, 0, 0};
+  Work w{0, 0, 0, 0, 0};
 
   const int px = P.px[lane], py = P.py[lane], sid = P.sid[lane];
   const uint32_t rid = (uint32_t)py * (uint32_t)P.width + (uint32_t)px;
@@ -415,6 +526,18 @@ __global__ void __launch_bounds__(kThreads)
            p.z + lx * cx.z + ly * cy.z};
   }
   V3 d = norm3(sub3(cpt, p));
+  // Differential camera rays through the screen points DIFF_D pixels right
+  // of and below the sample (DiffRay ctor, renderer.cpp:314-326): they give
+  // the primary hit's texture footprint.
+  V3 dxd = V3{0.0f, 0.0f, 0.0f}, dyd = V3{0.0f, 0.0f, 0.0f};
+  if (kTex) {
+    const V3 xpt = V3{cpt.x + DIFF_D * cu.x, cpt.y + DIFF_D * cu.y,
+                      cpt.z + DIFF_D * cu.z};
+    const V3 ypt = V3{cpt.x + DIFF_D * cv.x, cpt.y + DIFF_D * cv.y,
+                      cpt.z + DIFF_D * cv.z};
+    dxd = norm3(sub3(xpt, p));
+    dyd = norm3(sub3(ypt, p));
+  }
 
   V3 radiance = V3{0.0f, 0.0f, 0.0f};
   V3 beta = V3{1.0f, 1.0f, 1.0f};
@@ -423,7 +546,7 @@ __global__ void __launch_bounds__(kThreads)
   V3 pend = V3{0.0f, 0.0f, 0.0f};       // parent's absorption
 
   for (int bounce = 0; bounce <= P.max_bounce; ++bounce) {
-    Hit hit = closest_hit<false>(S.prim, S.kinds, P.num_prims, p, d);
+    Hit hit = closest_hit<kTex>(S.prim, S.kinds, P.num_prims, p, d);
     w.tests += P.num_prims;
     int mesh_row = -1;
     if (P.n_clusters > 0) mesh_closest(P, p, d, hit, &mesh_row, w);
@@ -442,10 +565,49 @@ __global__ void __launch_bounds__(kThreads)
                 beta.z * expf(-pend.z * hit.t)};
     }
     const int row = mesh_row >= 0 ? mesh_row : S.prim_mtl[hit.prim];
-    const V3 diffuse = mtl3(S, row, MT_DIFF), specular = mtl3(S, row, MT_SPEC);
-    const V3 emit = mtl3(S, row, MT_EMIT), t_k = mtl3(S, row, MT_REFR),
-             r_k = mtl3(S, row, MT_REFL);
-    const float* mrow = S.mtl + row * MTL_COLS;
+    const float* mrow = S.mtl + row * mtl_cols;
+    V3 diffuse = load3(mrow + MT_DIFF), specular = load3(mrow + MT_SPEC);
+    V3 emit = load3(mrow + MT_EMIT), t_k = load3(mrow + MT_REFR),
+       r_k = load3(mrow + MT_REFL);
+    if (kTex) {
+      // K1b: the primary hit's footprint from the differential rays, on an
+      // analytic winner (mesh rows carry no texture), then the slots.
+      const bool primary = bounce == 0;
+      float du0 = 0.0f, dv0 = 0.0f, du1 = 0.0f, dv1 = 0.0f;
+      if (primary && mesh_row < 0) {
+        const float* pr = S.prim + hit.prim * QR_PRIM_COLS;
+        const int kind = S.kinds[hit.prim];
+        V3 po, dobj;
+        obj_ray(pr, p, d, po, dobj);
+        const V3 hpo = add3(po, scale3(dobj, hit.t));
+        const bool sphere = kind == QR_KIND_SPHERE;
+        const V3 n_loc = sphere ? norm3(hpo, 1e-30f) : V3{0.0f, 0.0f, 1.0f};
+        const V3 anchor = sphere ? hpo : V3{0.0f, 0.0f, 0.0f};
+        float uo, vo;
+        offset_uv(pr, kind, p, dxd, n_loc, anchor, uo, vo);
+        du0 = RCP_DIFF * (uo - hit.u);
+        dv0 = RCP_DIFF * (vo - hit.v);
+        offset_uv(pr, kind, p, dyd, n_loc, anchor, uo, vo);
+        du1 = RCP_DIFF * (uo - hit.u);
+        dv1 = RCP_DIFF * (vo - hit.v);
+      }
+      const float* tx = mrow + MT_TEXBASE;
+      if (P.tex_mask & 1)
+        diffuse = textured(tx, diffuse, hit.u, hit.v, primary, du0, dv0, du1,
+                           dv1, w);
+      if (P.tex_mask & 2)
+        specular = textured(tx + TEX_STRIDE, specular, hit.u, hit.v, primary,
+                            du0, dv0, du1, dv1, w);
+      if (P.tex_mask & 4)
+        emit = textured(tx + 2 * TEX_STRIDE, emit, hit.u, hit.v, primary, du0,
+                        dv0, du1, dv1, w);
+      if (P.tex_mask & 8)
+        r_k = textured(tx + 3 * TEX_STRIDE, r_k, hit.u, hit.v, primary, du0,
+                       dv0, du1, dv1, w);
+      if (P.tex_mask & 16)
+        t_k = textured(tx + 4 * TEX_STRIDE, t_k, hit.u, hit.v, primary, du0,
+                       dv0, du1, dv1, w);
+    }
     const float gloss = mrow[MT_GLOSS], rgloss = mrow[MT_RGLOSS],
                 tgloss = mrow[MT_TGLOSS], ior = mrow[MT_IOR];
     const V3 hp = add3(p, scale3(d, hit.t));
@@ -598,7 +760,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       beta = mul3(beta, weight);
       has_dh = go_diffuse;
-      pend = mtl3(S, row, MT_ABS);
+      pend = load3(mrow + MT_ABS);
     }
     p = hp;
     d = norm3(new_dir, 1e-30f);
@@ -609,41 +771,67 @@ __global__ void __launch_bounds__(kThreads)
   P.b[lane] = radiance.z;
   P.t0[lane] = t0;
   if (P.work) {
-    P.work[4 * lane + 0] = w.tests;
-    P.work[4 * lane + 1] = w.ciphers;
-    P.work[4 * lane + 2] = w.vertices;
-    P.work[4 * lane + 3] = w.tri_tests;
+    P.work[5 * lane + 0] = w.tests;
+    P.work[5 * lane + 1] = w.ciphers;
+    P.work[5 * lane + 2] = w.vertices;
+    P.work[5 * lane + 3] = w.tri_tests;
+    P.work[5 * lane + 4] = w.checkers;
   }
 }
 
 }  // namespace
 
+// Uploads the 31 footprint offsets (host pointers) to constant memory.
+extern "C" int qr_mega_set_tex_offsets(const float* xs, const float* ys) {
+  int rc = (int)cudaMemcpyToSymbol(c_tex_xs, xs, sizeof(float) * TEX_OFFSETS);
+  if (rc) return rc;
+  return (int)cudaMemcpyToSymbol(c_tex_ys, ys, sizeof(float) * TEX_OFFSETS);
+}
+
+namespace {
+
+template <bool kTex>
+int launch(const Params& P, size_t smem, void* stream) {
+  if (smem > 48 * 1024) {
+    int rc = (int)cudaFuncSetAttribute(
+        mega_kernel<kTex>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc) return rc;
+  }
+  QR_LAUNCH(mega_kernel<kTex>, (P.n + kThreads - 1) / kThreads, kThreads,
+            smem, stream, P);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // C entry point (bound with ctypes): launches on `stream`, returns
-// cudaGetLastError(). n > 0 is the caller's job.
+// cudaGetLastError(). n > 0 is the caller's job. tex_mask != 0 selects the
+// textured kernel (K1b), whose material rows are mtl_cols wide.
 extern "C" int qr_mega_render(
     const int* px, const int* py, const int* sid, int n, const float* prim,
     const int* kinds, const int* prim_mtl, int num_prims, const float* mtl,
-    int num_mtls, const float* light, const int* lkind, const int* lsoft,
-    int num_lights, float light_norm, const float* cam, uint32_t key0,
-    uint32_t key1, int width, int photonmap, int max_bounce, int shadow_spp,
-    int shadow_spp_max, int has_dof, int has_glossy, const float* mrows,
-    const float* mattr, const float* mcb, int n_clusters, float* r, float* g,
-    float* b, float* t0, int* work, void* stream) {
+    int num_mtls, int mtl_cols, int tex_mask, const float* light,
+    const int* lkind, const int* lsoft, int num_lights, float light_norm,
+    const float* cam, uint32_t key0, uint32_t key1, int width, int photonmap,
+    int max_bounce, int shadow_spp, int shadow_spp_max, int has_dof,
+    int has_glossy, const float* mrows, const float* mattr, const float* mcb,
+    int n_clusters, float* r, float* g, float* b, float* t0, int* work,
+    void* stream) {
+  if (tex_mask ? mtl_cols != MT_TEXBASE + TEX_STRIDE * NUM_SLOTS
+               : mtl_cols != MTL_COLS)
+    return (int)cudaErrorInvalidValue;
   Params P{px, py, sid, n, prim, kinds, prim_mtl, num_prims, mtl, num_mtls,
-           light, lkind, lsoft, num_lights, light_norm, cam, key0, key1,
-           width, photonmap, max_bounce, shadow_spp, shadow_spp_max, has_dof,
-           has_glossy, reinterpret_cast<const float4*>(mrows),
+           mtl_cols, tex_mask, light, lkind, lsoft, num_lights, light_norm,
+           cam, key0, key1, width, photonmap, max_bounce, shadow_spp,
+           shadow_spp_max, has_dof, has_glossy,
+           reinterpret_cast<const float4*>(mrows),
            reinterpret_cast<const float4*>(mattr), mcb, n_clusters, r, g, b,
            t0, work};
   const size_t smem =
-      4 * ((size_t)num_prims * (QR_PRIM_COLS + 2) + (size_t)num_mtls * MTL_COLS +
+      4 * ((size_t)num_prims * (QR_PRIM_COLS + 2) +
+           (size_t)num_mtls * mtl_cols +
            (size_t)num_lights * (LIGHT_COLS + 2) + CAM_COLS);
-  if (smem > 48 * 1024) {
-    int rc = (int)cudaFuncSetAttribute(
-        mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc) return rc;
-  }
-  mega_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem,
-                (cudaStream_t)stream>>>(P);
-  return (int)cudaGetLastError();
+  return tex_mask ? launch<true>(P, smem, stream)
+                  : launch<false>(P, smem, stream);
 }

@@ -16,6 +16,12 @@ the plain PyTorch versions' operations do, which keeps the parity bars
 
 Called only by the kernels' wrappers for CUDA tensors; nothing here runs
 when the package is imported.
+
+load_host is apart from all that: it compiles a kernel source with g++
+against csrc/host/cuda_runtime.h, a stand-in that runs a launch one lane at
+a time on the CPU, so that tests without a card can hold the source's
+arithmetic to the plain version (ops/megakernel.mega_render_host). No entry
+point of the port uses it.
 """
 
 import ctypes
@@ -93,6 +99,31 @@ def load(name: str) -> ctypes.CDLL:
         build((name,))
         _libs[name] = ctypes.CDLL(str(_target(name)))
     return _libs[name]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """`name`'s source compiled for the CPU by g++ (-O1, no FMA contraction,
+    as the card's build has none), loaded; raises RuntimeError without g++
+    or for a source that does not go through csrc/host/cuda_runtime.h's
+    macros (only the megakernel does)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: no host build of the kernels")
+    stub = CSRC / "host"
+    h = hashlib.sha256(_target(name).name.encode())
+    h.update((stub / "cuda_runtime.h").read_bytes())
+    out = BUILD_DIR / f"lib{name}-host-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off",
+               "-shared", "-fPIC", "-Wno-unknown-pragmas", f"-I{stub}",
+               "-o", str(tmp), str(CSRC / SOURCES[name])]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
 
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,

@@ -1,4 +1,5 @@
-"""Path-trace megakernel dispatch (kernels K1a and K1c, csrc/megakernel.cu).
+"""Path-trace megakernel dispatch (kernels K1a, K1b and K1c,
+csrc/megakernel.cu).
 
 Counterpart of qaray_tpu/ops/pallas_pathtrace.py: _fold_words
 (core.rng.fold_words here), build_mega_mesh, _mega_raw and mega_render,
@@ -8,35 +9,53 @@ launch renders one pathtrace or photonmap sample per lane: camera ray,
 every bounce's closest hit, shading, next-event shadow rays and all
 threefry draws. With a world mesh (meta.mesh_mega) the same launch sweeps
 its triangles in-kernel (K1c): `launches["K1c"]` counts those launches.
+On a scene whose live material textures are all checkers
+(scene.arrays.mega_textured) the launch is of the textured kernel, which
+computes the winner's uv, the primary hit's footprint and the checker
+samples itself (K1b): `launches["K1b"]` counts those.
 
-The plain version of K1a is the wavefront engine
-(integrators/engine.render_batch_wavefront), which draws the same random
-numbers; mega_render runs it for tensors on the CPU and launches the kernel
-for CUDA tensors, never falling back from one to the other. `launches`
-counts kernel launches.
+The plain version of K1a, K1b and K1c is the wavefront engine
+(integrators/engine.render_batch_wavefront) with its texture stack
+(ops/texture.py), which draws the same random numbers; mega_render runs it
+for tensors on the CPU and launches the kernel for CUDA tensors, never
+falling back from one to the other. `launches` counts kernel launches.
 """
 
 import numpy as np
 import torch
 
 from qaray_tpu_torch.core.rng import fold_words
-from qaray_tpu_torch.scene.arrays import SceneArrays, SceneMeta
+from qaray_tpu_torch.scene.arrays import (
+    MTL_COLS,
+    MTL_TEX_COLS,
+    SceneArrays,
+    SceneMeta,
+    mega_textured,
+)
 
-launches = {"K1a": 0, "K1c": 0}
+launches = {"K1a": 0, "K1b": 0, "K1c": 0}
 
 MEGA_CLUSTER = 256  # triangles per cull cluster
 
-_fn = []
+_fns = {}
 
 
-def _kernel():
-    if not _fn:
+def _kernel(host: bool = False):
+    """qr_mega_render of the CUDA library, or with host=True of the same
+    source built for the CPU (_build.load_host; tests only)."""
+    if host not in _fns:
         from qaray_tpu_torch.ops import _build
+        from qaray_tpu_torch.ops.texture import elliptic_offsets_np
 
-        lib = _build.load("megakernel")
-        _fn.append(_build.bind(lib, "qr_mega_render",
-                               "pppipppipipppifpuuiiiiiiipppipppppp"))
-    return _fn[0]
+        lib = (_build.load_host if host else _build.load)("megakernel")
+        # K1b reads the footprint offsets the plain version uses.
+        xs, ys = (np.ascontiguousarray(a) for a in elliptic_offsets_np())
+        set_offsets = _build.bind(lib, "qr_mega_set_tex_offsets", "pp")
+        _build.check(set_offsets(xs.ctypes.data, ys.ctypes.data),
+                     "K1b footprint offsets")
+        _fns[host] = _build.bind(lib, "qr_mega_render",
+                                 "pppipppipiiipppifpuuiiiiiiipppipppppp")
+    return _fns[host]
 
 
 def build_mega_mesh(tri_v, tri_n, tri_mtl, cluster: int = MEGA_CLUSTER):
@@ -91,9 +110,9 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
 
     key_words: 2 threefry words, or the 4 words of a jax 'rbg' key, which
     fold to (0, 0) as in the reference (core.rng.fold_words). work: optional
-    int32 [B, 4] tensor the kernel fills with each lane's primitive tests,
-    threefry ciphers, shaded vertices and triangle tests (CUDA only; for
-    roofline bounds).
+    int32 [B, 5] tensor the kernel fills with each lane's primitive tests,
+    threefry ciphers, shaded vertices, triangle tests and checker tests
+    (CUDA only; for roofline bounds).
     """
     _check_lanes(px, py, sample_ids)
     if px.device.type == "cpu":
@@ -101,6 +120,34 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
 
         return render_batch_wavefront(scene, meta, cfg, px, py, sample_ids,
                                       key_words)
+    out = _launch(_kernel(), torch.cuda.current_stream().cuda_stream, scene,
+                  meta, cfg, px, py, sample_ids, key_words, work)
+    if px.shape[0]:
+        launches["K1a"] += 1
+        if mega_textured(meta):
+            launches["K1b"] += 1
+        if meta.mesh_mega:
+            launches["K1c"] += 1
+    return out
+
+
+def mega_render_host(scene: SceneArrays, meta: SceneMeta, cfg, px, py,
+                     sample_ids, key_words, work=None):
+    """mega_render's kernel source run on the CPU, one lane at a time, on CPU
+    tensors (_build.load_host). For tests without a card: it holds the
+    source's arithmetic to the plain version; no entry point calls it and it
+    counts no launch."""
+    _check_lanes(px, py, sample_ids)
+    if px.device.type != "cpu":
+        raise ValueError("mega_render_host takes CPU tensors")
+    return _launch(_kernel(host=True), None, scene, meta, cfg, px, py,
+                   sample_ids, key_words, work)
+
+
+def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
+            work):
+    """Check the tables against what the kernel reads and call
+    qr_mega_render `fn` on `stream`."""
     if cfg.integrator not in ("pathtrace", "photonmap") or cfg.use_photon_map:
         raise NotImplementedError(
             "the megakernel renders pathtrace and photonmap without photon "
@@ -128,14 +175,26 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
     r, g, b, t0 = (torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in range(4))
     if work is not None and (work.device != dev or work.dtype != torch.int32
-                             or work.shape != (n, 4)
+                             or work.shape != (n, 5)
                              or not work.is_contiguous()):
-        raise ValueError("work must be a contiguous int32 [B, 4] tensor on "
+        raise ValueError("work must be a contiguous int32 [B, 5] tensor on "
                          "the lanes' device")
     mesh = (tabs.mesh_rows, tabs.mesh_attr, tabs.mesh_cb)
     if meta.mesh_mega != (tabs.mesh_rows is not None):
         raise ValueError("the kernel tables do not match meta.mesh_mega "
                          "(scene.arrays.with_kernel_tables)")
+    # K1b: one bit per material slot with a live checker somewhere.
+    tex_mask = 0
+    if mega_textured(meta):
+        tex_mask = sum(1 << s for s, live in enumerate(meta.mega_tex_slots)
+                       if live)
+    elif meta.has_mtl_textures:
+        raise NotImplementedError(
+            "the megakernel samples checker textures only, and none on its "
+            "meshes (meta.mega_tex_ok)")
+    if tabs.mtl.shape[1] != (MTL_TEX_COLS if tex_mask else MTL_COLS):
+        raise ValueError("the kernel tables do not match the scene's "
+                         "textures (scene.arrays.with_kernel_tables)")
     n_clusters = 0
     if meta.mesh_mega:
         n_clusters = tabs.mesh_rows.shape[0] // MEGA_CLUSTER
@@ -153,12 +212,12 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
                       if meta.num_lights else 0.0)
         from qaray_tpu_torch.ops import _build
 
-        rc = _kernel()(
+        rc = fn(
             px.data_ptr(), py.data_ptr(), sid.data_ptr(), n,
             prims.table.data_ptr(), prims.kind.data_ptr(),
             prims.mtl.data_ptr(), meta.num_analytic,
-            tabs.mtl.data_ptr(), tabs.mtl.shape[0],
-            tabs.light.data_ptr(), tabs.light_kind.data_ptr(),
+            tabs.mtl.data_ptr(), tabs.mtl.shape[0], tabs.mtl.shape[1],
+            tex_mask, tabs.light.data_ptr(), tabs.light_kind.data_ptr(),
             tabs.light_soft.data_ptr(), meta.num_lights, light_norm,
             tabs.cam.data_ptr(), k0, k1, meta.img_width,
             int(cfg.integrator == "photonmap"), cfg.max_bounce,
@@ -167,10 +226,7 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
             *(t.data_ptr() if n_clusters else None for t in mesh), n_clusters,
             r.data_ptr(), g.data_ptr(), b.data_ptr(),
             t0.data_ptr(), work.data_ptr() if work is not None else None,
-            torch.cuda.current_stream().cuda_stream,
+            stream,
         )
         _build.check(rc, "K1a megakernel")
-        launches["K1a"] += 1
-        if n_clusters:
-            launches["K1c"] += 1
     return torch.stack([r, g, b], dim=-1), t0

@@ -13,9 +13,9 @@ This is the route the JAX package takes on the TPU. On CUDA tensors the
 kernels run, on the CPU their plain versions on the same route. The
 sweeps pick each ray's winning triangle (and a runner-up); the winner's
 attributes come from the exact reference test, falling back to the
-runner-up where the exact test rejects the winner. The BVH walks, the
-per-instance object-space loop and texture footprints raise
-NotImplementedError, naming their slices.
+runner-up where the exact test rejects the winner. The BVH walks and the
+per-instance object-space loop raise NotImplementedError, naming their
+slice.
 
 Hit record (dict of [B]-shaped tensors):
     t         world-space hit distance (BIGFLOAT if miss)
@@ -26,13 +26,15 @@ Hit record (dict of [B]-shaped tensors):
     front     front-face flag
     mtl       material table index
     has_texture
+    duvw0, duvw1  texture footprints d(uvw)/d(pixel), only with `diff`
 """
 
 import torch
 
-from qaray_tpu_torch.core.constants import BIGFLOAT
-from qaray_tpu_torch.core.vecmath import normalize
+from qaray_tpu_torch.core.constants import BIGFLOAT, RCP_DX, RCP_DY
+from qaray_tpu_torch.core.vecmath import cross, dot, normalize
 from qaray_tpu_torch.ops import analytic, mesh_sweep, tiles
+from qaray_tpu_torch.ops import intersect as I
 from qaray_tpu_torch.ops.mesh_stream import exact_winner
 from qaray_tpu_torch.ops.mesh_tiles import (
     TiledMesh,
@@ -150,28 +152,98 @@ def _mesh_hit_attrs(scene: SceneArrays, p, d, t, inst_id, tri_id, bary,
     }
 
 
-def trace_closest(scene: SceneArrays, meta: SceneMeta, p, d):
-    """Closest-hit trace of B world-space rays."""
+def _mesh_diff_uv(scene, p, d, px, dx, py, dy, t, inst_id, tri_id, bary,
+                  uvw):
+    """Triangle diff-hit uv derivatives (TriObj::IntersectTriangle's diff
+    block, objects.cpp:264-290): the offset rays hit the triangle's plane
+    and the barycentric weights there interpolate the corner uvs."""
+    inst, mesh = scene.instances, scene.mesh
+    si = inst_id.clamp_min(0).long()
+    st = tri_id.clamp_min(0).long()
+    m = inst.m_w2o[si]
+    t0 = inst.t_o2w[si]
+    v = mesh.tri_v[st]  # [B,3,3]
+    uvc = mesh.tri_uv[st]  # [B,3,2]
+    v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
+    n = cross(v1 - v0, v2 - v0)
+    abs_n = torch.abs(n)
+    axis0 = (abs_n[..., 0] > abs_n[..., 1]) & (abs_n[..., 0] > abs_n[..., 2])
+    axis1 = ~axis0 & (abs_n[..., 1] > abs_n[..., 2])
+
+    def area(i, j, a, b, c):
+        return ((b[..., i] - a[..., i]) * (c[..., j] - a[..., j])
+                - (c[..., i] - a[..., i]) * (b[..., j] - a[..., j]))
+
+    def bary_at(hp):
+        def for_axes(i, j):
+            s = area(i, j, v0, v1, v2)
+            s = torch.where(torch.abs(s) < 1e-30, torch.full_like(s, 1e-30),
+                            s)
+            return area(i, j, hp, v1, v2) / s, area(i, j, hp, v2, v0) / s
+
+        a0, b0 = for_axes(1, 2)
+        a1, b1 = for_axes(0, 2)
+        a2, b2 = for_axes(0, 1)
+        a = torch.where(axis0, a0, torch.where(axis1, a1, a2))
+        b = torch.where(axis0, b0, torch.where(axis1, b1, b2))
+        return a, b, 1.0 - a - b
+
+    def offset_uv(pw, dw):
+        po = I._apply(m, pw - t0)
+        do = I._apply(m, dw)
+        denom = dot(do, n)
+        denom = torch.where(torch.abs(denom) < 1e-20,
+                            torch.full_like(denom, 1e-20), denom)
+        t_off = -dot(po - v0, n) / denom
+        a, b, c = bary_at(po + t_off[:, None] * do)
+        uv = (a[:, None] * uvc[:, 0] + b[:, None] * uvc[:, 1]
+              + c[:, None] * uvc[:, 2])
+        return torch.cat([uv, torch.zeros_like(uv[:, :1])], dim=-1)
+
+    return (RCP_DX * (offset_uv(px, dx) - uvw),
+            RCP_DY * (offset_uv(py, dy) - uvw))
+
+
+def trace_closest(scene: SceneArrays, meta: SceneMeta, p, d, diff=None):
+    """Closest-hit trace of B world-space rays.
+
+    diff: optional (px, dx, py, dy) differential rays (DiffRay, core/ray.h);
+    the hit record then gains the winner's texture footprints `duvw0` and
+    `duvw1`. The reference computes them for primary camera rays only (the
+    default material's secondary DiffRays carry hasDiffRay=false,
+    MtlBlinn_PhotonMap.cpp:233)."""
     full = analytic.closest_full(p, d, scene.analytic)
     attrs = {k: full[k] for k in _KEYS}
     t = full["t"]
     if meta.num_analytic == 0:  # only the compiler's placeholder primitive
         t = torch.full_like(t, BIGFLOAT)
+    use_mesh = None
     if meta.num_mesh_instances > 0:
         # The mesh pass is pruned against the analytic t: a mesh hit it
         # returns is the closer one.
         t_m, inst, tri, bary, front = _mesh_closest(scene, meta, p, d, t)
         use_mesh = tri >= 0
         t = torch.where(use_mesh, t_m, t)
-        hit = t < BIGFLOAT
-        t_attr = torch.where(hit, t, torch.ones_like(t))
+    hit = t < BIGFLOAT
+    t_attr = torch.where(hit, t, torch.ones_like(t))
+    if use_mesh is not None:
         attrs_m = _mesh_hit_attrs(scene, p, d, t_attr, inst, tri, bary,
                                   front)
         for k in _KEYS:
             sel = use_mesh.reshape((-1,) + (1,) * (attrs[k].ndim - 1))
             attrs[k] = torch.where(sel, attrs_m[k], attrs[k])
+    if diff is not None:
+        d0, d1 = I.analytic_diff_uv(p, d, *diff, t_attr, full["prim_idx"],
+                                    scene.analytic, attrs["uvw"])
+        if use_mesh is not None:
+            d0m, d1m = _mesh_diff_uv(scene, p, d, *diff, t_attr, inst, tri,
+                                     bary, attrs["uvw"])
+            d0 = torch.where(use_mesh[:, None], d0m, d0)
+            d1 = torch.where(use_mesh[:, None], d1m, d1)
+        attrs["duvw0"] = d0
+        attrs["duvw1"] = d1
     attrs["t"] = t
-    attrs["hit"] = t < BIGFLOAT
+    attrs["hit"] = hit
     return attrs
 
 

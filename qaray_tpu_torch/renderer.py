@@ -7,7 +7,9 @@ rule (scene/scene.cpp:92-98: stop when s >= sppMin and every channel's std
 is under its threshold, hard stop at sppMax). Phase 1 packs several sample
 indices into one dispatch when the image underfills the batch; phase 2
 renders only the unconverged pixels. The accumulation planes stay on the
-device (fb/device_accum.py).
+device (fb/device_accum.py). All six integrators and textured scenes render
+(integrators/engine.render_batch picks the megakernel or the wavefront
+engine).
 
 Photon maps, multi-device rendering, checkpoints and rank-debug planes
 arrive with their slices of the port and raise NotImplementedError here.

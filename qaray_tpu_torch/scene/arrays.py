@@ -2,10 +2,10 @@
 
 Counterpart of qaray_tpu/scene/arrays.py. NamedTuples of tensors stand in
 for the JAX pytrees; SceneMeta is the same static, hashable tuple. The port
-carries analytic primitives, world-baked triangle meshes, untextured
-materials, lights, camera and the background/environment colours; the
-texture tables arrive with the texture slice. A scene without meshes has
-`mesh` and `instances` None.
+carries analytic primitives, world-baked triangle meshes, materials with
+their texture slots, lights, camera, the texture atlas and the textured
+background/environment colours. A scene without meshes has `mesh` and
+`instances` None.
 """
 
 from __future__ import annotations
@@ -23,6 +23,26 @@ LIGHT_AMBIENT = 0
 LIGHT_DIRECT = 1
 LIGHT_POINT = 2
 LIGHT_SPOT = 3
+
+# Texture kinds
+TEX_FILE = 0
+TEX_CHECKER = 1
+
+# Texture slots on a material
+SLOT_DIFFUSE = 0
+SLOT_SPECULAR = 1
+SLOT_EMISSION = 2
+SLOT_REFLECTION = 3
+SLOT_REFRACTION = 4
+NUM_SLOTS = 5
+
+# Material table columns of the megakernel (KernelTables.mtl): 22 of
+# parameters, then, for scenes whose checker textures it samples itself,
+# 16 per slot: [has, color1(3), color2(3), tex_m row 0 (3), row 1 (3),
+# tex_t (3)].
+MTL_COLS = 22
+TEX_STRIDE = 16
+MTL_TEX_COLS = MTL_COLS + TEX_STRIDE * NUM_SLOTS
 
 
 class AnalyticPrims(NamedTuple):
@@ -104,6 +124,9 @@ class MaterialTable(NamedTuple):
     reflection_glossiness: torch.Tensor  # [M]
     refraction_glossiness: torch.Tensor  # [M]
     ior: torch.Tensor  # [M]
+    tex_id: torch.Tensor  # [M, NUM_SLOTS] int32 (-1 => no texture)
+    tex_m: torch.Tensor  # [M, NUM_SLOTS, 3, 3] uvw w2t matrices
+    tex_t: torch.Tensor  # [M, NUM_SLOTS, 3] uvw transform origins
 
 
 class LightTable(NamedTuple):
@@ -116,10 +139,23 @@ class LightTable(NamedTuple):
     outer: torch.Tensor  # [L]
 
 
+class TextureAtlas(NamedTuple):
+    texels: torch.Tensor  # [T, 3] flat texel pool
+    offset: torch.Tensor  # [K] int32
+    width: torch.Tensor  # [K] int32
+    height: torch.Tensor  # [K] int32
+    kind: torch.Tensor  # [K] int32 (TEX_FILE | TEX_CHECKER)
+    color1: torch.Tensor  # [K, 3] checker colours
+    color2: torch.Tensor  # [K, 3]
+
+
 class EnvColor(NamedTuple):
-    """Untextured background / environment colour."""
+    """TexturedColor for background / environment."""
 
     color: torch.Tensor  # [3]
+    tex_id: torch.Tensor  # [] int32 (-1 => none)
+    tex_m: torch.Tensor  # [3, 3]
+    tex_t: torch.Tensor  # [3]
 
 
 class CameraArrays(NamedTuple):
@@ -138,7 +174,7 @@ class KernelTables(NamedTuple):
     """The scene in the layout of the megakernel K1a (csrc/megakernel.cu),
     packed once per compiled scene (pallas_pathtrace._pack_tables)."""
 
-    mtl: torch.Tensor  # [M, 22] float32
+    mtl: torch.Tensor  # [M, 22] float32, or [M, 102] with checker columns
     light: torch.Tensor  # [L, 12] float32
     cam: torch.Tensor  # [25] float32: camera, background, environment
     light_kind: torch.Tensor  # [max(L, 1)] int32
@@ -157,6 +193,7 @@ class SceneArrays(NamedTuple):
     background: EnvColor
     environment: EnvColor
     camera: CameraArrays
+    textures: TextureAtlas
     kernel: Optional[KernelTables] = None
     mesh: Optional[MeshArrays] = None
     instances: Optional[MeshInstances] = None
@@ -196,6 +233,10 @@ class SceneMeta(NamedTuple):
     max_leaf: int = 4
 
 
+def mega_textured(meta: SceneMeta) -> bool:
+    """Does the megakernel sample this scene's (checker) textures itself?"""
+    return meta.has_mtl_textures and meta.mega_tex_ok
+
 
 def with_kernel_tables(arrays: SceneArrays, meta: SceneMeta) -> SceneArrays:
     """arrays with `kernel` packed from its tables and meta's static facts."""
@@ -205,6 +246,18 @@ def with_kernel_tables(arrays: SceneArrays, meta: SceneMeta) -> SceneArrays:
         mt.glossiness[:, None], mt.reflection_glossiness[:, None],
         mt.refraction_glossiness[:, None], mt.ior[:, None], mt.absorption,
     ], dim=1)
+    if mega_textured(meta):
+        # Checker columns (pallas_pathtrace._pack_tables, want_tex=True).
+        atlas = arrays.textures
+        cols = [mtl]
+        for s in range(NUM_SLOTS):
+            tid = mt.tex_id[:, s]
+            safe = tid.clamp_min(0).long()
+            cols += [(tid >= 0).to(torch.float32)[:, None],
+                     atlas.color1[safe], atlas.color2[safe],
+                     mt.tex_m[:, s, 0, :], mt.tex_m[:, s, 1, :],
+                     mt.tex_t[:, s]]
+        mtl = torch.cat(cols, dim=1)
     light = torch.cat([
         lt.intensity, lt.position, lt.direction, lt.size[:, None],
         lt.inner[:, None], lt.outer[:, None],

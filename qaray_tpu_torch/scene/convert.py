@@ -18,6 +18,7 @@ from qaray_tpu_torch.scene.arrays import (
     MeshInstances,
     SceneArrays,
     SceneMeta,
+    TextureAtlas,
     analytic_prims,
     with_kernel_tables,
 )
@@ -29,13 +30,11 @@ def from_numpy_arrays(tree, meta, device="cuda"):
 
     Mesh and instance leaves come across field by field (None where the
     JAX compiler left an optional table out); a scene without mesh
-    instances gets None for both, as the port's compiler gives it. Raises
-    NotImplementedError for scenes the port does not carry yet: textures
-    (texture slice) and per-instance object-space meshes (BVH-walk
-    slice)."""
+    instances gets None for both, as the port's compiler gives it. The
+    texture atlas and the texture columns of the materials, the background
+    and the environment come across as they are. Raises NotImplementedError
+    for per-instance object-space meshes (BVH-walk slice)."""
     meta = SceneMeta(**meta._asdict())
-    if meta.has_mtl_textures or meta.has_bg_texture or meta.has_env_texture:
-        raise NotImplementedError("textures come with the texture slice")
     if meta.num_mesh_instances and not meta.world_bvh:
         raise NotImplementedError("per-instance object-space meshes come "
                                   "with the BVH-walk slice")
@@ -58,9 +57,10 @@ def from_numpy_arrays(tree, meta, device="cuda"):
                                              "t_o2w")}),
         materials=group(MaterialTable, tree.materials),
         lights=group(LightTable, tree.lights),
-        background=EnvColor(dev(tree.background.color)),
-        environment=EnvColor(dev(tree.environment.color)),
+        background=group(EnvColor, tree.background),
+        environment=group(EnvColor, tree.environment),
         camera=group(CameraArrays, tree.camera),
+        textures=group(TextureAtlas, tree.textures),
         mesh=mesh,
         instances=instances,
     )

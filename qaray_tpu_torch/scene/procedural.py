@@ -1,14 +1,16 @@
-"""Procedural meshes for tests and the GPU smoke run.
+"""Procedural meshes and textures for tests and the GPU smoke run.
 
 icosphere(subdiv) is the subdivided icosahedron of the mesh-scale
 measurements (20 * 4**subdiv triangles: ico5 = 20,480, ico6 = 81,920);
 with_mesh puts such a mesh in place of the first OBJ node of a parsed
-scene, keeping its transform and material.
+scene, keeping its transform and material; with_texture binds a checker or
+an image to a material slot, the background or the environment.
 """
 
 from __future__ import annotations
 
 import copy
+import sys
 
 import numpy as np
 
@@ -68,4 +70,39 @@ def with_mesh(scene, verts, faces, name: str = "procedural"):
     node.mesh = type(node.mesh)(name=name,
                                 vertices=np.asarray(verts, np.float32),
                                 faces=np.asarray(faces, np.int32))
+    return scene
+
+
+def with_texture(scene, where, *, checker=None, image=None, color=None,
+                 scale=1.0, angle=0.0, offset=(0.0, 0.0, 0.0)):
+    """A copy of `scene` with a texture bound at `where`: "background",
+    "environment" or (material name, slot name).
+
+    checker: (color1, color2) of a procedural checker; image: [H, W, 3]
+    float array of a file texture (scene.textures.load_image). The map's
+    transform scales by `scale`, rotates by `angle` degrees about w, then
+    translates by `offset`, as the XML's <scale>, <rotate> and <translate>
+    children of a textured colour do. color: the slot's flat colour, kept
+    when None."""
+    scene = copy.deepcopy(scene)
+    desc = sys.modules[type(scene).__module__]  # the scene's own classes
+    if checker is not None:
+        tex = desc.TextureDesc(name="checkerboard", kind="checker")
+        tex.color1 = np.asarray(checker[0], float)
+        tex.color2 = np.asarray(checker[1], float)
+    else:
+        tex = desc.TextureDesc(name=f"image{len(scene.textures)}",
+                               kind="file", image=np.asarray(image))
+    scene.textures.append(tex)
+    xform = desc.Affine()
+    xform.scale(scale, scale, scale)
+    if angle:
+        xform.rotate(np.array([0.0, 0.0, 1.0]), angle)
+    xform.translate(np.asarray(offset, float))
+    holder, attr = ((scene, where) if isinstance(where, str)
+                    else (scene.find_material(where[0]), where[1]))
+    flat = getattr(holder, attr).color if color is None else color
+    setattr(holder, attr, desc.TexturedColor(
+        np.asarray(flat, float), desc.TextureMapDesc(texture=tex,
+                                                     xform=xform)))
     return scene

@@ -121,3 +121,65 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
            for f in tarr.analytic._fields})
     with pytest.raises((RuntimeError, ValueError, NotImplementedError)):
         analytic.closest(p.to("meta"), d.to("meta"), prims)
+
+
+def test_diff_uv_matches_jax():
+    """Texture footprints of texture_scene.xml's 2,048 first camera rays at
+    64x32: analytic_diff_uv alone on JAX's winners, then trace_closest with
+    the differential rays, which adds duvw0/duvw1 to the hit record.
+    Tolerance: 1e-5 relative + 1e-6 absolute on the uvs. A footprint is
+    the difference of two nearly equal uvs times RCP_DX = 100, so the uvs'
+    last-bit differences between the packages (atan2, asin, the summation
+    order of the object-space transform) arrive amplified: 1e-5 relative +
+    1e-4 absolute on duvw0 and duvw1."""
+    from qaray_tpu.integrators.engine import IntegratorConfig as JaxConfig
+    from qaray_tpu.integrators.engine import generate_camera_rays as jax_rays
+    from qaray_tpu.ops.trace import trace_closest as jax_trace
+    from qaray_tpu_torch.integrators import engine
+    from qaray_tpu_torch.ops import intersect as TI
+    from qaray_tpu_torch.ops.trace import trace_closest
+
+    scene = load_scene("tests/assets/texture_scene.xml")
+    scene.camera.img_width, scene.camera.img_height = 64, 32
+    arrays, meta = compile_scene(scene)
+    tarr, tmeta = from_numpy_arrays(jax.tree.map(np.asarray, arrays), meta,
+                                    "cpu")
+    ids = np.arange(2048, dtype=np.int32)
+    px, py, sid = ids % 64, ids // 64, np.zeros_like(ids)
+    p, d, _, _, diff = jax_rays(arrays, meta, JaxConfig(), jnp.asarray(px),
+                                jnp.asarray(py), jnp.asarray(sid), None)
+    tp, td, _, _, tdiff = engine.generate_camera_rays(
+        tarr, tmeta, torch.tensor(px), torch.tensor(py), torch.tensor(sid),
+        None)
+    for a, b in zip((p, d, *diff), (tp, td, *tdiff)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6)
+
+    want = jax_trace(arrays, meta, p, d, diff=diff)
+    hit = np.asarray(want["hit"])
+    assert 0.3 < hit.mean() < 1.0 and "duvw0" in want
+
+    def close(got, ref, what):
+        ref = np.asarray(ref)[hit]
+        err = np.abs(got.numpy()[hit] - ref)
+        bar = 1e-4 + 1e-5 * np.abs(ref)
+        # Near a sphere's silhouette the tangent plane is almost parallel
+        # to the offset ray and the footprint is ill-conditioned: 1 % of
+        # the hits may miss the bar.
+        assert (err > bar).mean() < 0.01, (what, (err > bar).mean())
+        assert np.abs(ref).max() > 0.01  # footprints, not zeros
+
+    # The function alone, on JAX's t, winners and uvw.
+    t_attr = np.where(hit, np.asarray(want["t"]), 1.0).astype(np.float32)
+    _, prim = JI.closest_analytic(p, d, arrays.analytic)
+    d0, d1 = TI.analytic_diff_uv(
+        tp, td, *tdiff, torch.tensor(t_attr),
+        torch.tensor(np.asarray(prim)), tarr.analytic,
+        torch.tensor(np.asarray(want["uvw"])))
+    close(d0, want["duvw0"], "analytic_diff_uv duvw0")
+    close(d1, want["duvw1"], "analytic_diff_uv duvw1")
+    # Through trace_closest.
+    got = trace_closest(tarr, tmeta, tp, td, diff=tdiff)
+    assert np.array_equal(got["hit"].numpy(), hit)
+    close(got["duvw0"], want["duvw0"], "trace_closest duvw0")
+    close(got["duvw1"], want["duvw1"], "trace_closest duvw1")
+    assert "duvw0" not in trace_closest(tarr, tmeta, tp, td)

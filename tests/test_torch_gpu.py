@@ -9,7 +9,10 @@ Every case carries the `gpu` marker and skips without a CUDA device.
 Bars: tests/test_pallas.py for K2a-K2c, tests/test_megakernel.py::_compare
 for K1a against the wavefront engine (which itself runs on K2b/K2c);
 tests/test_pallas_tiles.py for K3 and K4a/K4b against their plain versions,
-and tests/test_megakernel.py's mesh bars for K1c against the engine.
+and tests/test_megakernel.py's mesh bars for K1c against the engine;
+test_mega_checker_textures_parity's bars for K1b against the engine with
+its texture stack. The wavefront route's texture stack and the Whitted
+family's integrators are held to the same code on the CPU.
 """
 
 import numpy as np
@@ -28,7 +31,12 @@ from qaray_tpu_torch.ops.mesh_stream import (
 )
 from qaray_tpu_torch.ops.mesh_tiles import TiledMesh, tiled_sweep
 from qaray_tpu_torch.scene.compiler import compile_scene
-from qaray_tpu_torch.scene.procedural import icosphere, with_mesh
+from qaray_tpu_torch.scene.procedural import (
+    icosphere,
+    with_mesh,
+    with_texture,
+)
+from qaray_tpu_torch.scene.textures import load_image
 from qaray_tpu_torch.scene.xml_parser import load_scene
 
 SCENES = ["tests/assets/spot_scene.xml", "tests/assets/softdof_scene.xml"]
@@ -230,3 +238,93 @@ def test_k1c_matches_engine(cuda, integrator, path, subdiv, bars):
     rel = (rad_p - rad_k).abs().amax(-1) / (1.0 + rad_p.abs().amax(-1))
     assert (rel > 1e-3).double().mean().item() < rad_bar
     assert (rad_p.mean(0) - rad_k.mean(0)).abs().max().item() < mean_bar
+
+
+# -- textures and the other integrators -----------------------------------------
+
+TEXTURE_SCENE = "tests/assets/texture_scene.xml"
+
+
+def _lanes(w, h, spp, device):
+    ids = torch.arange(w * h * spp, device=device, dtype=torch.int32)
+    return ids % w, (ids // w) % h, ids // (w * h)
+
+
+@pytest.mark.parametrize("variant", ["scene", "two-slot"])
+@pytest.mark.parametrize("integrator", ["pathtrace", "photonmap"])
+def test_k1b_matches_engine(cuda, integrator, variant):
+    """texture_scene.xml at 200x150 x 2 spp, threefry words, and a variant
+    with a second live slot (specular) under a rotated and translated map:
+    under 0.5 % of lanes above 1e-3 relative, channel means within 2e-3
+    (test_mega_checker_textures_parity), primary depth as for K1a."""
+    scene = load_scene(TEXTURE_SCENE)
+    if variant == "two-slot":
+        scene = with_texture(scene, ("ballmtl", "specular"),
+                             checker=((1.0, 0.2, 0.1), (0.1, 0.3, 1.0)),
+                             scale=0.07, angle=30.0,
+                             offset=(0.013, 0.027, 0.0))
+    arr, meta = compile_scene(scene, device="cuda")
+    assert meta.mega_tex_ok and arr.kernel.mtl.shape[1] == 102
+    px, py, sid = _lanes(200, 150, 2, "cuda")
+    cfg = IntegratorConfig(integrator=integrator, max_bounce=4)
+    before = dict(megakernel.launches)
+    rad_k, t0_k = megakernel.mega_render(arr, meta, cfg, px, py, sid, (0, 3))
+    assert megakernel.launches["K1b"] == before["K1b"] + 1
+    assert megakernel.launches["K1a"] == before["K1a"] + 1
+    rad_p, t0_p = render_batch_wavefront(arr, meta, cfg, px, py, sid, (0, 3))
+    assert torch.allclose(t0_p, t0_k, rtol=1e-4, atol=1e-3)
+    rad_p, rad_k = rad_p.double(), rad_k.double()
+    rel = (rad_p - rad_k).abs().amax(-1) / (1.0 + rad_p.abs().amax(-1))
+    assert (rel > 1e-3).double().mean().item() < 5e-3
+    assert (rad_p.mean(0) - rad_k.mean(0)).abs().max().item() < 2e-3
+
+
+def _cuda_vs_cpu(scene, cfg, res=(200, 150), outliers=2e-3):
+    """The wavefront engine on the card (K2b/K2c, K3 and plain torch for the
+    texture stack) against the same engine on the CPU: the _compare bars."""
+    scene.camera.img_width, scene.camera.img_height = res
+    outs = []
+    for device in ("cuda", "cpu"):
+        arr, meta = compile_scene(scene, device=device)
+        px, py, sid = _lanes(*res, 1, device)
+        rad, t0 = render_batch_wavefront(arr, meta, cfg, px, py, sid, (0, 3))
+        outs.append((rad.cpu().double(), t0.cpu()))
+    (rad_g, t0_g), (rad_c, t0_c) = outs
+    assert torch.allclose(t0_c, t0_g, rtol=1e-4, atol=1e-3)
+    rel = (rad_c - rad_g).abs().amax(-1) / (1.0 + rad_c.abs().amax(-1))
+    assert (rel > 1e-3).double().mean().item() < outliers
+    assert (rad_c.mean(0) - rad_g.mean(0)).abs().max().item() < 2e-3
+
+
+def test_file_textures_cuda_matches_cpu(cuda):
+    """A file texture on a material, on the background and on the
+    environment: the wavefront route's texture stack on the card."""
+    image = load_image("tests/assets/colorBuffer.png")
+    scene = load_scene("tests/assets/spot_scene.xml")
+    scene = with_texture(scene, (scene.materials[0].name, "diffuse"),
+                         image=image, color=(1.0, 1.0, 1.0), scale=0.5)
+    scene = with_texture(scene, "background", image=image,
+                         color=(1.0, 0.9, 0.8))
+    scene = with_texture(scene, "environment", image=image,
+                         color=(0.8, 0.9, 1.0), scale=0.5, angle=25.0)
+    _cuda_vs_cpu(scene, IntegratorConfig(integrator="photonmap",
+                                         max_bounce=3))
+
+
+def test_checker_wavefront_cuda_matches_cpu(cuda):
+    """texture_scene.xml on the wavefront route (K2b's uv, ops/texture.py
+    on the card); 0.5 % of lanes may flip a checker sample (atan2 and asin
+    differ in their last bits between the card and the CPU)."""
+    _cuda_vs_cpu(load_scene(TEXTURE_SCENE),
+                 IntegratorConfig(integrator="pathtrace", max_bounce=3),
+                 outliers=5e-3)
+
+
+@pytest.mark.parametrize("integrator", ["basic", "whitted", "phong", "mcgi"])
+def test_integrators_cuda_match_cpu(cuda, integrator):
+    _cuda_vs_cpu(load_scene("tests/assets/spot_scene.xml"),
+                 IntegratorConfig(integrator=integrator, max_bounce=3,
+                                  shadow_spp=4, shadow_spp_max=8,
+                                  mc_samples=4,
+                                  inverse_square_falloff=integrator == "mcgi"),
+                 res=(80, 60))

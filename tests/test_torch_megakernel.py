@@ -4,17 +4,22 @@ On the CPU, ops.megakernel.mega_render runs the plain version of kernel
 K1a (the wavefront engine); here it is held to qaray_tpu's mega_render in
 interpret mode under a threefry key, with the bars of
 tests/test_megakernel.py::_compare. tests/test_torch_gpu.py holds K1a itself
-to the plain version on a card with the same bars.
+to the plain version on a card with the same bars. On the checker-textured
+scene (K1b) the bars are those of test_mega_checker_textures_parity.
 """
+
+import shutil
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from qaray_tpu.integrators.engine import IntegratorConfig as JaxConfig
 from qaray_tpu.ops.pallas_pathtrace import mega_render as jax_mega_render
 from qaray_tpu_torch.integrators.engine import IntegratorConfig
 from qaray_tpu_torch.ops import megakernel
+from qaray_tpu_torch.integrators import engine
 from test_torch_engine import compare, lanes, scenes
 
 KW = dict(integrator="pathtrace", max_bounce=3, shadow_spp=4,
@@ -33,3 +38,98 @@ def test_mega_render_matches_pallas_interpret():
                                      torch.tensor(px), torch.tensor(py),
                                      torch.tensor(sid), words)
     compare(np.asarray(rad_j), np.asarray(t0_j), rad.numpy(), t0.numpy())
+
+
+def test_mega_render_textured_is_the_engine_on_the_cpu():
+    """texture_scene.xml is served by the megakernel route (K1a + K1b), and
+    on CPU tensors mega_render is its plain version, the wavefront engine
+    with the texture stack: the same numbers, bit for bit."""
+    _, _, tarr, tmeta = scenes("texture")
+    cfg = IntegratorConfig(**KW)
+    assert engine.use_pathtrace_mega(tmeta, cfg)
+    assert tarr.kernel.mtl.shape[1] == 102
+    px, py, sid = (torch.tensor(a) for a in lanes())
+    rad, t0 = megakernel.mega_render(tarr, tmeta, cfg, px, py, sid, (0, 3))
+    rad_e, t0_e = engine.render_batch_wavefront(tarr, tmeta, cfg, px, py,
+                                                sid, (0, 3))
+    assert torch.equal(rad, rad_e) and torch.equal(t0, t0_e)
+    rad_r, _ = engine.render_batch(tarr, tmeta, cfg, px, py, sid, (0, 3))
+    assert torch.equal(rad, rad_r)
+
+
+def test_mega_render_textured_matches_pallas_interpret():
+    """The port's engine against the JAX megakernel in interpret mode on
+    texture_scene.xml at 80x60 x 1 (the JAX test's resolution; the time
+    is the kernel's trace, not its lanes), with the bars of
+    test_mega_checker_textures_parity: under 0.5 % of lanes above 1e-3
+    relative, channel means within 2e-3. This also bounds what the TPU
+    kernel's polynomial atan2 and asin cost against atan2f and asinf. The
+    lanes that differ are floor lanes: the two packages' camera rays differ
+    in their last bits, the grazing floor hit amplifies that, and one of
+    the footprint's 32 samples lands across a cell edge; the coarser the
+    image, the more cells a footprint spans and the more such lanes."""
+    arrays, meta, tarr, tmeta = scenes("texture", (80, 60))
+    assert meta.mega_tex_ok and meta.mega_tex_slots[0]
+    px, py, sid = lanes((80, 60), spp=1)
+    key = jax.random.key(3, impl="threefry2x32")
+    kd = jax.random.key_data(key)
+    rad_j, t0_j = jax_mega_render(arrays, meta, JaxConfig(**KW),
+                                  "threefry2x32", True, px, py, sid, kd)
+    words = tuple(int(w) for w in np.asarray(kd))
+    rad, t0 = megakernel.mega_render(tarr, tmeta, IntegratorConfig(**KW),
+                                     torch.tensor(px), torch.tensor(py),
+                                     torch.tensor(sid), words)
+    rad_j, rad = np.asarray(rad_j), rad.numpy()
+    rel = np.abs(rad_j - rad).max(-1) / (1.0 + np.abs(rad_j).max(-1))
+    assert (rel > 1e-3).mean() < 5e-3, (rel > 1e-3).mean()
+    assert np.abs(rad_j.mean(0) - rad.mean(0)).max() < 2e-3
+    np.testing.assert_allclose(t0.numpy(), np.asarray(t0_j), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("integrator", ["pathtrace", "photonmap"])
+@pytest.mark.parametrize("name", ["softdof", "texture", "mesh"])
+def test_kernel_source_on_the_host_matches_engine(name, integrator):
+    """csrc/megakernel.cu itself, compiled by g++ against
+    csrc/host/cuda_runtime.h and run one lane at a time
+    (megakernel.mega_render_host), against the wavefront engine at 64x48 x
+    2: K1a on softdof, K1a + K1b on texture_scene (with the work counters:
+    32 checker tests a textured primary vertex, 1 a later one), K1a + K1c on
+    mesh_scene. Both run on this CPU without FMA contraction, so the bars
+    are those the card's kernel is held to: _compare's for softdof,
+    test_mega_checker_textures_parity's for texture_scene, the mesh bars of
+    tests/test_torch_gpu.py for mesh_scene."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    _, _, tarr, tmeta = scenes(name, (64, 48))
+    cfg = IntegratorConfig(integrator=integrator, max_bounce=4, shadow_spp=4,
+                           shadow_spp_max=8)
+    px, py, sid = (torch.tensor(a) for a in lanes((64, 48), 2))
+    work = torch.zeros((px.shape[0], 5), dtype=torch.int32)
+    before = dict(megakernel.launches)
+    rad_k, t0_k = megakernel.mega_render_host(tarr, tmeta, cfg, px, py, sid,
+                                              (0, 3), work=work)
+    assert megakernel.launches == before  # no kernel launch is counted
+    rad_p, t0_p = engine.render_batch_wavefront(tarr, tmeta, cfg, px, py,
+                                                sid, (0, 3))
+    rad_k, t0_k, rad_p, t0_p = (a.numpy() for a in (rad_k, t0_k, rad_p, t0_p))
+    rel = np.abs(rad_p - rad_k).max(-1) / (1.0 + np.abs(rad_p).max(-1))
+    mean_err = np.abs(rad_p.mean(0) - rad_k.mean(0)).max()
+    tests, ciphers, vertices, tri_tests, checkers = work.sum(0).tolist()
+    assert tests > 0 and ciphers > 0 and vertices > 0
+    if name == "mesh":
+        assert (np.abs(t0_p - t0_k) > 1e-3).mean() < 2e-3
+        assert (rel > 1e-3).mean() < 5e-3 and mean_err < 2e-3
+        assert tri_tests > 0 and checkers == 0
+        return
+    assert tri_tests == 0
+    if name == "texture":
+        np.testing.assert_allclose(t0_k, t0_p, rtol=1e-4, atol=1e-3)
+        assert (rel > 1e-3).mean() < 5e-3 and mean_err < 2e-3
+        # Every primary hit is textured in one slot: 32 tests there, one at
+        # each later vertex.
+        primary = int((t0_k < 1e29).sum())
+        assert checkers == 32 * primary + (vertices - primary)
+    else:
+        compare(rad_p, t0_p, rad_k, t0_k)
+        assert checkers == 0

@@ -303,3 +303,51 @@ def test_mesh_scene_takes_the_megakernel_route():
                                                 (0, 3))
     assert torch.equal(rad, rad_w) and torch.equal(t0, t0_w)
     assert (t0 < 1e29).any()
+
+
+def test_mesh_diff_uv_matches_jax(tmp_path, monkeypatch):
+    """trace_closest(diff=...) on a UV sphere with a file texture: the 2,048
+    camera rays of a 64x32 view; uvw and the triangle footprints duvw0 /
+    duvw1 against qaray_tpu on its dense-sweep route. Tolerance as for the
+    analytic footprints (tests/test_torch_analytic.py): uvs to 1e-5
+    relative + 1e-6 absolute, footprints, which are uv differences times
+    RCP_DX = 100, to 1e-5 relative + 1e-4 absolute, on the rays whose
+    winners agree."""
+    from qaray_tpu.integrators.engine import generate_camera_rays as jax_rays
+    from qaray_tpu.ops.trace import trace_closest as jax_trace
+    from qaray_tpu_torch.ops.trace import trace_closest
+    from test_torch_engine import uv_mesh_scene
+
+    monkeypatch.setenv("QARAY_MESH_PATH", "stream")
+    jax.clear_caches()
+    scene = jax_load(uv_mesh_scene(tmp_path))
+    scene.camera.img_width, scene.camera.img_height = 64, 32
+    arrays, meta = jax_compile(scene)
+    tarr, tmeta = from_numpy_arrays(jax.tree.map(np.asarray, arrays), meta,
+                                    "cpu")
+    assert tmeta.num_tris == 192 and bool(tarr.mesh.tri_has_uv.all())
+    ids = np.arange(2048, dtype=np.int32)
+    px, py, sid = ids % 64, ids // 64, np.zeros_like(ids)
+    p, d, _, _, diff = jax_rays(arrays, meta, JaxConfig(), jnp.asarray(px),
+                                jnp.asarray(py), jnp.asarray(sid), None)
+    want = jax_trace(arrays, meta, p, d, diff=diff)
+    jax.clear_caches()
+    tp, td, _, _, tdiff = engine.generate_camera_rays(
+        tarr, tmeta, torch.tensor(px), torch.tensor(py), torch.tensor(sid),
+        None)
+    got = trace_closest(tarr, tmeta, tp, td, diff=tdiff)
+    hit = np.asarray(want["hit"])
+    assert np.array_equal(got["hit"].numpy(), hit)
+    same = hit & np.isclose(got["t"].numpy(), np.asarray(want["t"]),
+                            rtol=1e-5)
+    on_mesh = same & (np.asarray(want["mtl"]) == np.asarray(
+        arrays.mesh.tri_mtl)[0])
+    assert same.mean() > 0.99 * hit.mean() and on_mesh.mean() > 0.05
+    np.testing.assert_allclose(got["uvw"].numpy()[same],
+                               np.asarray(want["uvw"])[same], rtol=1e-5,
+                               atol=1e-6)
+    for k in ("duvw0", "duvw1"):
+        ref = np.asarray(want[k])[same]
+        err = np.abs(got[k].numpy()[same] - ref)
+        assert (err > 1e-4 + 1e-5 * np.abs(ref)).mean() < 0.01, k
+        assert np.abs(np.asarray(want[k])[on_mesh]).max() > 1e-3, k

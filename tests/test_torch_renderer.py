@@ -67,6 +67,61 @@ def test_cli_mesh_scene_matches_jax_cli(tmp_path, monkeypatch):
     assert got.std() > 0.01  # the icosphere and the ground are in view
 
 
+def test_cli_texture_scene_matches_jax_cli(tmp_path, monkeypatch):
+    """texture_scene.xml through both CLIs at 80x60 x 2 on the megakernel
+    route (checker textures in the kernel on the JAX side, its plain
+    version here): colour buffers within 2e-3 mean absolute error per
+    channel, the bar of test_cli_matches_jax_cli, and equal depth and
+    sample-count buffers."""
+    from qaray_tpu import cli as jax_cli
+    from qaray_tpu_torch import cli
+
+    args = ["tests/assets/texture_scene.xml", "-res", "80x60"] + ARGS[3:]
+    assert cli.main(args + ["-device", "cpu", "-out",
+                            str(tmp_path / "t_")]) == 0
+    monkeypatch.setenv("QARAY_MEGAKERNEL", "1")
+    monkeypatch.setenv("QARAY_COMPILE_CACHE", "0")
+    assert jax_cli.main(args + ["-platform", "cpu", "-out",
+                                str(tmp_path / "j_")]) == 0
+    got = _png(tmp_path / "t_colorBuffer.png")
+    want = _png(tmp_path / "j_colorBuffer.png")
+    assert got.shape == want.shape == (60, 80, 3)
+    err = np.abs(got - want).reshape(-1, 3).mean(axis=0)
+    assert (err < 2e-3).all(), err
+    assert got.std() > 0.05  # the checkers are in view
+    for name in ("depthBuffer.png", "sampleBuffer.png"):
+        assert np.array_equal(_png(tmp_path / f"t_{name}"),
+                              _png(tmp_path / f"j_{name}")), name
+
+
+@pytest.mark.parametrize("integrator", ["basic", "whitted", "phong", "mcgi"])
+def test_cli_integrators_render(tmp_path, integrator):
+    """-integrator takes the Whitted family's names and writes an image
+    that is not black."""
+    from qaray_tpu_torch import cli
+
+    assert cli.main(ARGS + ["-integrator", integrator, "-device", "cpu",
+                            "-out", str(tmp_path / "i_")]) == 0
+    img = _png(tmp_path / "i_colorBuffer.png")
+    assert img.shape == (24, 32, 3) and img.mean() > 0.01
+
+
+def test_cli_unknown_integrator_fails(tmp_path):
+    from qaray_tpu_torch import cli
+    from qaray_tpu_torch.integrators.engine import (
+        IntegratorConfig,
+        integrate,
+    )
+
+    with pytest.raises(ValueError):
+        cli.main(ARGS + ["-integrator", "metropolis", "-device", "cpu",
+                         "-out", str(tmp_path / "x_")])
+    assert not (tmp_path / "x_colorBuffer.png").exists()
+    with pytest.raises(ValueError):
+        integrate(None, None, IntegratorConfig(integrator="metropolis"),
+                  None, None, None)
+
+
 def test_renderer_adaptive_matches_jax():
     """The adaptive loop (packed phase 1, compacted phase 2, batches smaller
     than the image) with threefry keys: per-pixel sample counts and means
@@ -103,6 +158,7 @@ def test_port_imports_no_jax():
         "import qaray_tpu_torch.scene.convert\n"
         "import qaray_tpu_torch.ops.tiles, qaray_tpu_torch.ops.mesh_sweep\n"
         "import qaray_tpu_torch.scene.procedural\n"
+        "import qaray_tpu_torch.ops.texture\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'qaray_tpu')]\n"
         "assert not bad, bad\n"
@@ -136,5 +192,5 @@ def test_later_slices_raise():
             IntegratorConfig,
             integrate,
         )
-        integrate(None, None, IntegratorConfig(integrator="mcgi"),
+        integrate(None, None, IntegratorConfig(use_photon_map=True),
                   None, None, None)

@@ -1,8 +1,8 @@
 """The port's scene compiler against qaray_tpu's: same tables, same meta.
 
-Also checks that scenes the port does not carry yet (per-instance
-object-space meshes, textures) raise NotImplementedError instead of being
-dropped.
+Also checks that what the port does not carry yet (per-instance
+object-space meshes, photon maps) raises NotImplementedError instead of
+being dropped.
 """
 
 import jax
@@ -116,11 +116,92 @@ def test_bvh_matches_jax_numpy_builder(case, max_leaf):
     assert bvh.bvh_depth(got) == bvh_depth(want)
 
 
+def _assert_same_tables(got, want):
+    for group_got, group_want in zip(got, want):
+        if group_got is None:
+            assert group_want is None
+            continue
+        for f, a, b in zip(group_got._fields, group_got, group_want):
+            assert (a is None) == (b is None), f
+            assert a is None or _same(a, b), f
+
+
+@pytest.mark.parametrize("case", ["checker", "files", "uvmesh"])
+def test_compile_textured_scene_matches_jax(case, tmp_path):
+    """Texture tables: the atlas, the materials' tex_id/tex_m/tex_t, the
+    textured background and environment and the meta's texture facts, on
+    texture_scene.xml (checkers), on a scene with a file texture on a
+    material, the background and the environment and a texture file that
+    does not exist (folded to black), and on a UV mesh with a file
+    texture."""
+    from test_torch_engine import file_texture_scene, uv_mesh_scene
+
+    path = {"checker": lambda _: "tests/assets/texture_scene.xml",
+            "files": file_texture_scene, "uvmesh": uv_mesh_scene}[case](
+                tmp_path)
+    arrays, meta = jax_compile(jax_load(path))
+    want, want_meta = from_numpy_arrays(jax.tree.map(np.asarray, arrays),
+                                        meta, "cpu")
+    got, got_meta = compile_scene(load_scene(path), device="cpu")
+    assert got_meta == want_meta
+    _assert_same_tables(got, want)
+    assert got_meta.has_mtl_textures
+    if case == "checker":
+        assert got_meta.mega_tex_ok
+        assert got_meta.mega_tex_slots == (True, False, False, False, False)
+        assert got.kernel.mtl.shape == (2, 102)
+    else:
+        assert not got_meta.mega_tex_ok and got.kernel.mtl.shape[1] == 22
+        assert got.textures.texels.shape[0] == 1 + 200 * 150
+    if case == "files":
+        assert got_meta.has_bg_texture and got_meta.has_env_texture
+        # Interning order: background, environment, then the materials.
+        assert int(got.background.tex_id) == 0
+        assert int(got.materials.tex_id.max()) == 0  # the one image, shared
+        # The missing specular texture: black, and no texture id.
+        assert float(got.materials.specular[0].abs().max()) == 0.0
+        assert int(got.materials.tex_id[0, 1]) == -1
+
+
+def test_kernel_tables_match_pack_tables():
+    """with_kernel_tables' material table, checker columns included,
+    equals pallas_pathtrace._pack_tables(scene, want_tex=True) exactly, for
+    texture_scene.xml and a two-slot variant with a rotated map."""
+    from qaray_tpu.ops.pallas_pathtrace import _pack_tables
+    from qaray_tpu_torch.scene.procedural import with_texture
+
+    scene = jax_load("tests/assets/texture_scene.xml")
+    two = with_texture(scene, ("ballmtl", "specular"),
+                       checker=((1.0, 0.2, 0.1), (0.1, 0.3, 1.0)),
+                       scale=0.07, angle=30.0, offset=(0.013, 0.027, 0.0))
+    for desc in (scene, two):
+        arrays, meta = jax_compile(desc)
+        got, _ = from_numpy_arrays(jax.tree.map(np.asarray, arrays), meta,
+                                   "cpu")
+        _, mtl_tab, light_tab, cam_tab = _pack_tables(arrays, want_tex=True)
+        assert got.kernel.mtl.shape == (2, 102)
+        assert np.array_equal(got.kernel.mtl.numpy(), np.asarray(mtl_tab))
+        assert np.array_equal(got.kernel.light.numpy(),
+                              np.asarray(light_tab))
+        assert np.array_equal(got.kernel.cam.numpy(), np.asarray(cam_tab)[0])
+    assert meta.mega_tex_slots[:2] == (True, True)
+
+
 @pytest.mark.parametrize("name", ["mesh", "texture"])
 def test_later_slices_raise(name):
-    """Textures (texture slice) and per-instance object-space meshes,
-    which the BVH walks trace (BVH-walk slice)."""
-    kw = {"world_bvh": False} if name == "mesh" else {}
+    """Per-instance object-space meshes, which the BVH walks trace
+    (BVH-walk slice), and photon gathering (photon slice): texture_scene
+    compiles now, and rendering it with a photon map still raises."""
+    if name == "mesh":
+        with pytest.raises(NotImplementedError):
+            compile_scene(load_scene("tests/assets/mesh_scene.xml"),
+                          device="cpu", world_bvh=False)
+        return
+    from qaray_tpu_torch.integrators import engine
+
+    arr, meta = compile_scene(load_scene("tests/assets/texture_scene.xml"),
+                              device="cpu")
+    lane = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        compile_scene(load_scene(f"tests/assets/{name}_scene.xml"),
-                      device="cpu", **kw)
+        engine.render_batch(arr, meta, engine.IntegratorConfig(
+            use_photon_map=True), lane, lane, lane, (0, 3))
