@@ -13,6 +13,15 @@ Phases, each fatal on failure:
           one, on 1M random rays and the 480,000 camera rays of
           tests/assets/mesh_scene.xml at 800x600 (and their shadow rays for
           K4b), with the tests/test_pallas_tiles.py bars;
+       c. K5 against photon_gather_plain on caustics_scene (softdof with its
+          middle sphere made glass, scene.procedural.with_glass) at
+          800x600 with the default maps (10,000 global photons at r 0.2,
+          1,000 caustics photons at r 1.0; every map build in a temporary
+          working directory): the 480,000 global-map records of one
+          photon-mapped megakernel dispatch, Morton-sorted as gather_apply
+          sorts them, and the same at radius 50 where counts exceed 100
+          (sums within 1e-5 relative, 1e-7 absolute; counts exact; the share
+          of bit-equal lanes printed);
   3. the megakernel against the wavefront engine, with the
      tests/test_megakernel.py bars:
        a. K1a: softdof_scene.xml at 200x150, 2 samples per pixel,
@@ -35,6 +44,15 @@ Phases, each fatal on failure:
           settings and rbg words (the test_mega_checker_textures_parity
           bars: under 5e-3 of lanes above 1e-3 relative, channel means
           within 2e-3);
+       e. K1a+K1d: caustics_scene with the default maps against the
+          wavefront engine with its exact gathers, at 200x150 x 2 spp
+          (threefry) and at 800x600 (threefry and rbg words), with the
+          test_mega_photon_gather_parity bars on lanes that are not
+          escalated (its share of lanes off cut from 1 % to 1e-4, and a
+          control run with the caustics map emptied that must be off on
+          ten times that share), and at 200x150 with both radii at 50 those of
+          test_mega_photon_escalation_flags_dense_lanes (over 0.3 of lanes
+          flagged, no unflagged lane off); escalated shares printed;
   4. the main path at 800x600 with every launch count set to 0 before each
      route and read after it, and every plain version of a kernel made to
      raise if it is called:
@@ -60,13 +78,21 @@ Phases, each fatal on failure:
           render on the CPU;
        j. the basic, phong and mcgi integrators on spot_scene.xml, 1 spp:
           the wavefront route (K2b/K2c);
+       k. Renderer defaults with -use-photon-map on caustics_scene in a
+          temporary working directory: K1a+K1d with K5 on the records, the
+          escalated lanes (and only those) on the wavefront engine; map
+          build times and photon counts, the escalated share;
+       l. the same scene at 1 spp under QARAY_NO_MEGAKERNEL: the exact
+          gathers on the wavefront route;
   5. each kernel's time at the path's shapes beside its bound, its launches
-     on the main path and its plain version's time.
+     on the main path and its plain version's time, and the device's idle
+     share in one Renderer.render() of 4a, 4c, 4g, 4e and 4k.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers and, last, {"ok": true, "device": {...}}. Exits non-zero without
 those lines when there is no CUDA device or no package beside it.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -102,6 +128,17 @@ OPS_PER_TRI = 40
 # sample position (4 multiplies, 4 adds) and two floors with their
 # subtractions; the compares and the sum are not counted.
 OPS_PER_CHECKER = 12
+# A photon test (csrc/photon.cuh photon_add) is at least 20: the distance
+# (3 subtractions, 3 multiplies, 2 adds), the weight (a multiply and a
+# subtraction), seven multiply-adds of the sums counted as 7 (the count's
+# add included) and the compare. A cluster test (photon_cluster_near) is
+# at least 12: six additions or subtractions of the radius, six compares.
+OPS_PER_PHOTON = 20
+OPS_PER_PCLUSTER = 12
+# K1d's bar on the share of unescalated lanes off by more than 1e-3
+# relative (the JAX package's test allows 1 %, more than a caustic under
+# one glass sphere may touch).
+K1D_OFF_BAR = 1e-4
 MESH_SCENE = os.path.join(HERE, "tests", "assets", "mesh_scene.xml")
 MIRROR_SCENE = os.path.join(HERE, "tests", "assets", "mirror_scene.xml")
 ICO_CENTRE, ICO_RADIUS = (0.0, 50.0, 5.1), 8.0  # mesh_scene's icosphere
@@ -276,6 +313,42 @@ def mesh_rays(n, seed):
     return p.contiguous(), d.contiguous(), t_max
 
 
+def compare_photon_render(ref, got, esc, what, no_caustics):
+    """tests/test_megakernel.py::test_mega_photon_gather_parity's bars on
+    the lanes that are not escalated, with its share of lanes above 1e-3
+    relative cut from 1 % to K1D_OFF_BAR: channel means within 2e-3, the
+    irr0 plane equal on more than 0.999 of lanes; primary depth as
+    compare_render holds it. no_caustics, the kernel's radiance on the same
+    lanes with its caustics map emptied, must be off on ten times the bar's
+    share: the bar sees a kernel that skips the caustics gather. Returns
+    the largest difference on those lanes."""
+    (rad_ref, t0_ref, irr_ref), (rad, t0, irr) = ref, got
+    ok = ~esc
+    rad_ref, rad = rad_ref.double(), rad.double()
+    check(torch.allclose(t0_ref, t0, rtol=1e-4, atol=1e-3),
+          f"{what}: t0 within rtol 1e-4 atol 1e-3")
+
+    def off_share(x):
+        rel = ((rad_ref - x.double()).abs().amax(-1)
+               / (1.0 + rad_ref.abs().amax(-1)))[ok]
+        return (rel > 1e-3).double().mean().item()
+
+    frac, ctl = off_share(rad), off_share(no_caustics)
+    mean_err = (rad_ref[ok].mean(0) - rad[ok].mean(0)).abs().max().item()
+    same_irr = (irr_ref == irr).double().mean().item()
+    print(f"  {what}: escalated share {esc.double().mean().item():.6g}, "
+          f"unescalated lanes off without the caustics map {ctl:.6g}",
+          flush=True)
+    check(frac < K1D_OFF_BAR, f"{what}: unescalated lanes above 1e-3 "
+          f"relative {frac:.3g} < {K1D_OFF_BAR:g}")
+    check(ctl > 10 * K1D_OFF_BAR, f"{what}: control without the caustics "
+          f"map off on {ctl:.3g} > {10 * K1D_OFF_BAR:g}")
+    check(mean_err < 2e-3, f"{what}: channel-mean error {mean_err:.3g} < "
+          "2e-3")
+    check(same_irr > 0.999, f"{what}: irr0 equal on {same_irr:.6f} > 0.999")
+    return (rad_ref - rad)[ok].abs().max().item()
+
+
 class ForbidPlain:
     """Within the block, every plain version a kernel wrapper could take
     raises: a main-path run that finishes ran only kernels."""
@@ -315,7 +388,9 @@ def main():
         render_batch,
         render_batch_wavefront,
     )
+    from qaray_tpu_torch.fb.framebuffer import FrameBuffer
     from qaray_tpu_torch.ops import _build, analytic, megakernel, mesh_sweep
+    from qaray_tpu_torch.ops import photon
     from qaray_tpu_torch.ops import intersect as I
     from qaray_tpu_torch.ops import tiles
     from qaray_tpu_torch.ops.mesh_stream import (
@@ -327,8 +402,11 @@ def main():
     from qaray_tpu_torch.renderer import Renderer, RendererParam, key_words
     from qaray_tpu_torch.scene import bvh as bvh_mod
     from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.photon.build import build_photon_maps
+    from qaray_tpu_torch.photon.cluster import cluster_photon_map
     from qaray_tpu_torch.scene.procedural import (
         icosphere,
+        with_glass,
         with_mesh,
         with_texture,
     )
@@ -350,7 +428,9 @@ def main():
           f"{time.time() - t:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:
+                print(f"  {name}: {line.split('for ', 1)[1].strip()}")
+            elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
@@ -471,6 +551,74 @@ def main():
         check(bool(((r0 == r1) | (t0 == t1)).all()),
               f"K4a two-phase vs single-phase ico6 {what}: rows identical "
               f"but for {ties} exact ties in t")
+    torch.cuda.synchronize()
+
+    print("phase 2c: K5 vs photon_gather_plain, the global-map records of "
+          "one photon-mapped dispatch of caustics_scene at 800x600",
+          flush=True)
+    caus_desc = with_glass(load_scene(SCENE), "mid")
+    caus_desc.camera.img_width, caus_desc.camera.img_height = 800, 600
+    c_arr, c_meta = compile_scene(caus_desc, device="cuda")
+    p_photon = RendererParam(use_photon_map=True)
+    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+        t = time.time()
+        gmap, cmap = build_photon_maps(c_arr, c_meta, p_photon)
+        torch.cuda.synchronize()
+        t_maps = time.time() - t
+    pmaps = (cluster_photon_map(gmap), cluster_photon_map(cmap))
+    print(f"  maps built in {t_maps:.3f} s: {int(gmap.valid.sum())} global "
+          f"photons in {pmaps[0].cbounds.shape[0]} clusters, "
+          f"{int(cmap.valid.sum())} caustics photons in "
+          f"{pmaps[1].cbounds.shape[0]} clusters", flush=True)
+    cfg_photon = Renderer(p_photon, device="cuda").integrator_config()
+    rbg = key_words("rbg", RendererParam().seed)
+    bpx, bpy, bsid = lanes(800, 600, 1)
+    captured = {}
+    gather_apply = photon.gather_apply
+
+    def capture(gmap_, rec):
+        captured["rec"] = rec.clone()
+        return gather_apply(gmap_, rec)
+
+    photon.gather_apply = capture
+    try:
+        megakernel.mega_render(c_arr, c_meta, cfg_photon, bpx, bpy, bsid, rbg,
+                               photon_maps=pmaps)
+    finally:
+        photon.gather_apply = gather_apply
+    packed = torch.stack(list(captured.pop("rec")), dim=-1)
+    valid = packed[:, 16] > 0.5
+    _, order = torch.sort(photon._morton_keys(packed[:, 0:3], valid),
+                          stable=True)
+    q5 = packed[order, 0:3].contiguous()
+    a5 = packed[order, 16].contiguous()
+    print(f"  {q5.shape[0]} queries, {int(valid.sum())} with a record "
+          f"({valid.double().mean().item():.4f})", flush=True)
+    k5_err = 0.0
+    for radius in (pmaps[0].radius, 50.0):
+        got = photon.photon_gather(pmaps[0].ctable, pmaps[0].cbounds, radius,
+                                   q5, a5)
+        want = photon.photon_gather_plain(pmaps[0].ctable, pmaps[0].cbounds,
+                                          radius, q5, a5)
+        torch.cuda.synchronize()
+        r_ = float(radius)
+        for k, (w_, g_) in enumerate(zip(want[:2], got[:2])):
+            bad = ((g_ - w_).abs() > 1e-7 + 1e-5 * w_.abs()).sum().item()
+            check(bad == 0, f"K5 r {r_:g}: {('irradiance', 'direction')[k]} "
+                  "sums within 1e-5 relative (1e-7 absolute)")
+            k5_err = max(k5_err, (g_ - w_).abs().max().item())
+        check(torch.equal(want[2], got[2]), f"K5 r {r_:g}: counts exact")
+        same = torch.ones_like(valid)
+        for w_, g_ in zip(want, got):
+            same &= (w_ == g_).reshape(w_.shape[0], -1).all(-1)
+        over = (got[2] > 100).double().mean().item()
+        print(f"  K5 r {r_:g}: bit-equal lanes {same.double().mean().item()}"
+              f", lanes over 100 photons {over:.6f}", flush=True)
+        if r_ > 1.0:
+            check(over > 0.01, f"K5 r 50: counts over 100 on {over:.4f} of "
+                  "lanes")
+        del got, want
+    numbers["K5"] = {"max_abs_err": k5_err}
     torch.cuda.synchronize()
 
     # -- 3. the megakernel against the engine --------------------------------
@@ -613,13 +761,80 @@ def main():
     numbers["K1b"] = {"max_abs_err": k1b_err}
     torch.cuda.synchronize()
 
+    print("phase 3e: K1a+K1d vs the wavefront engine with its exact gathers, "
+          "caustics_scene with the default maps", flush=True)
+
+    def plain_photon(arr, meta_, cfg, px, py, sid, words, maps):
+        """The engine with exact gathers in 65,536-lane batches:
+        ((radiance, t0, irr0), ms)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [render_batch_wavefront(arr, meta_, cfg, px[lo:lo + 65536],
+                                       py[lo:lo + 65536], sid[lo:lo + 65536],
+                                       words, photon_maps=maps,
+                                       want_aux=True)
+                for lo in range(0, px.shape[0], 65536)]
+        end.record()
+        end.synchronize()
+        return (tuple(torch.cat([o[k] for o in outs]) for k in range(3)),
+                start.elapsed_time(end))
+
+    k1d_err = 0.0
+    small = with_glass(load_scene(SCENE), "mid")
+    small.camera.img_width, small.camera.img_height = 200, 150
+    sc_arr, sc_meta = compile_scene(small, device="cuda")
+    spx, spy, ssid = lanes(200, 150, 2)
+    cfg_small = IntegratorConfig(integrator="photonmap", max_bounce=4,
+                                 use_photon_map=True)
+    blown = tuple(m._replace(radius=torch.tensor(50.0)) for m in pmaps)
+    # The control of compare_photon_render: the global map with an empty
+    # caustics map.
+    no_caustics = (pmaps[0], cluster_photon_map(
+        cmap._replace(valid=torch.zeros_like(cmap.valid))))
+    for what, maps in (("200x150 x 2 threefry", pmaps),
+                       ("200x150 x 2 threefry, both radii 50", blown)):
+        rad_k, t0_k, irr_k, esc = megakernel.mega_render(
+            sc_arr, sc_meta, cfg_small, spx, spy, ssid, (0, 3),
+            photon_maps=maps)
+        ref, _ = plain_photon(sc_arr, sc_meta, cfg_small, spx, spy, ssid,
+                              (0, 3), maps)
+        if maps is blown:
+            share = esc.double().mean().item()
+            rel = ((ref[0] - rad_k).abs().amax(-1)
+                   / (1.0 + ref[0].abs().amax(-1)))[~esc]
+            check(share > 0.3, f"K1d {what}: escalated share {share:.4f} > "
+                  "0.3")
+            off = int((rel > 1e-3).sum().item())
+            check(off == 0, f"K1d {what}: no unflagged lane off ({off})")
+        else:
+            ctl = megakernel.mega_render(sc_arr, sc_meta, cfg_small, spx,
+                                         spy, ssid, (0, 3),
+                                         photon_maps=no_caustics)[0]
+            k1d_err = max(k1d_err, compare_photon_render(
+                ref, (rad_k, t0_k, irr_k), esc, f"K1d {what}", ctl))
+    for what, words in (("threefry", (0, 3)), ("rbg", rbg)):
+        out = megakernel.mega_render(c_arr, c_meta, cfg_photon, bpx, bpy,
+                                     bsid, words, photon_maps=pmaps)
+        ctl = megakernel.mega_render(c_arr, c_meta, cfg_photon, bpx, bpy,
+                                     bsid, words, photon_maps=no_caustics)[0]
+        ref, photon_plain_ms = plain_photon(c_arr, c_meta, cfg_photon, bpx,
+                                            bpy, bsid, words, pmaps)
+        k1d_err = max(k1d_err, compare_photon_render(
+            ref, out[:3], out[3], f"K1d 800x600 photonmap max_bounce 5 "
+            f"{what}", ctl))
+        del out, ref, ctl
+    numbers["K1d"] = {"max_abs_err": k1d_err}
+    torch.cuda.synchronize()
+
     # -- 4. the main path ----------------------------------------------------
     counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
-                tiles.launches)
+                tiles.launches, photon.launches)
     forbid = ForbidPlain(
         (analytic, "closest_plain"), (analytic, "closest_full_plain"),
         (analytic, "shadow_plain"), (mesh_sweep, "stream_closest"),
-        (mesh_sweep, "stream_any_hit"), (tiles, "march_plain"))
+        (mesh_sweep, "stream_any_hit"), (tiles, "march_plain"),
+        (photon, "photon_gather_plain"))
 
     def reset_counts():
         for counts in counters:
@@ -667,6 +882,16 @@ def main():
               and fb.count.max() <= param.spp_max,
               f"spp within {param.spp_min}..{param.spp_max}")
         return fb, wall, counts, r
+
+    escalated = [0]
+    render_escalated = Renderer._render_escalated
+
+    def count_escalated(self, ids, sids, esc):
+        fixed = render_escalated(self, ids, sids, esc)
+        escalated[0] += 0 if fixed is None else fixed[0].size
+        return fixed
+
+    Renderer._render_escalated = count_escalated
 
     print("phase 4a: Renderer, softdof 800x600, defaults", flush=True)
     fb, wall, _, renderer = render_main("softdof", scene, RendererParam())
@@ -809,12 +1034,54 @@ def main():
               f"{integ}: K2b launched {c_j['K2b']} times, K2c {c_j['K2c']}, "
               "no megakernel launch")
         counts_j.append(c_j)
+
+    print("phase 4k: Renderer, caustics_scene 800x600, -use-photon-map "
+          "defaults", flush=True)
+    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+        escalated[0] = 0
+        fb_k, wall_k, counts_k, r_k = render_main(
+            "caustics_scene photon map", caus_desc, p_photon)
+        files = {n_: os.path.getsize(os.path.join(wd, n_))
+                 for n_ in ("photonmap.dat", "caustics.dat")}
+        fb_k.save_irradiance_image(os.path.join(wd, "irr.png"))
+    rays_k = int(fb_k.count.sum())
+    gk, ck = r_k.photon_maps
+    print(f"  maps: {int(gk.valid.sum())} global and {int(ck.valid.sum())} "
+          f"caustics photons; files {json.dumps(files)}; escalated lanes "
+          f"{escalated[0]} of {rays_k} ({escalated[0] / rays_k:.6g}); "
+          f"irradiance plane {(fb_k.irrad > 0).mean():.4f} of pixels",
+          flush=True)
+    check(files == {"photonmap.dat": 26 * int(gk.valid.sum()),
+                    "caustics.dat": 26 * int(ck.valid.sum())},
+          "photonmap.dat and caustics.dat written in the working directory")
+    check(counts_k["K1d"] > 0 and counts_k["K1d"] == counts_k["K1a"]
+          and counts_k["K5"] == counts_k["K1d"],
+          f"K1a launched {counts_k['K1a']} times, all with K1d, and K5 "
+          f"{counts_k['K5']} times")
+    check(counts_k["wavefront_lanes"] == escalated[0],
+          "only the escalated lanes on the wavefront engine")
+    check(0.0 < (fb_k.irrad > 0).mean() < 1.0, "irradiance plane filled")
+
+    print("phase 4l: caustics_scene 800x600 x 1 spp, -use-photon-map, under "
+          "QARAY_NO_MEGAKERNEL: the exact gathers on the wavefront route",
+          flush=True)
+    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+        _, wall_l, counts_l, _ = render_main(
+            "caustics_scene photon map wavefront", caus_desc,
+            RendererParam(use_photon_map=True, spp_min=1, spp_max=1,
+                          batch_pixels=1 << 16), no_mega=True)
+    check(counts_l["K2b"] > 0 and counts_l["K1a"] == 0
+          and counts_l["K5"] == 0,
+          f"K2b launched {counts_l['K2b']} times, no K1a or K5 launch")
+    Renderer._render_escalated = render_escalated
+
     launches = {k: sum(c[k] for c in (counts_a, counts_b, counts_c, counts_d,
                                        counts_e, counts_f, counts_g, counts_h,
-                                       counts_i, *counts_j))
-                for k in ("K1a", "K1b", "K1c", "K2a", "K2b", "K2c", "K3",
-                          "K4a", "K4b")}
-    print(f"  launches on the main path (4a-4j): {json.dumps(launches)}",
+                                       counts_i, *counts_j, counts_k,
+                                       counts_l))
+                for k in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c",
+                          "K3", "K4a", "K4b", "K5")}
+    print(f"  launches on the main path (4a-4l): {json.dumps(launches)}",
           flush=True)
 
     # -- 5. timings at the path's shapes -------------------------------------
@@ -822,14 +1089,15 @@ def main():
     ms, src = kernel_ms(lambda: megakernel.mega_render(
         s_arr, s_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
 
-    def mega_work(arr, meta_):
+    def mega_work(arr, meta_, cfg=cfg_pt, maps=None):
         """Per-lane work counters of one K1a launch, summed: (primitive
         tests, threefry ciphers, shaded vertices, triangle tests, checker
-        tests)."""
-        work = torch.zeros((480000, 5), dtype=torch.int32, device="cuda")
-        megakernel.mega_render(arr, meta_, cfg_pt, bpx, bpy, bsid, rbg,
-                               work=work)
-        return work.sum(0, dtype=torch.int64).tolist()
+        tests), with maps also (photon tests, caustics cluster tests)."""
+        work = torch.zeros((480000, 7), dtype=torch.int32, device="cuda")
+        megakernel.mega_render(arr, meta_, cfg, bpx, bpy, bsid, rbg,
+                               work=work, photon_maps=maps)
+        return work.sum(0, dtype=torch.int64).tolist()[:5 if maps is None
+                                                       else 7]
 
     def mega_ops(wsum):
         return (wsum[0] * OPS_PER_TEST + wsum[1] * OPS_PER_CIPHER
@@ -900,6 +1168,62 @@ def main():
           f"{src} (K1a on softdof {numbers['K1a']['ms']:.4f} ms), bound "
           f"{b_ms:.5f} ms by {b_by}, engine {numbers['K1b']['plain_ms']:.3f} "
           f"ms, {wsum[4]} checker tests on {wsum[2]} vertices", flush=True)
+
+    # K1d: the gathering launch on caustics_scene with the default maps
+    # (photonmap, max_bounce 5, rbg), beside K1a's time on softdof above;
+    # its plain version is the wavefront engine with the exact gathers.
+    ms, src = kernel_ms(lambda: megakernel.mega_render(
+        c_arr, c_meta, cfg_photon, bpx, bpy, bsid, rbg, photon_maps=pmaps),
+        "mega_kernel", 5)
+    wsum = mega_work(c_arr, c_meta, cfg_photon, pmaps)
+    ctab = pmaps[1]
+    b_ms, b_by = bound(
+        480000 * (12 + 4 * 4 + 4 * 19)
+        + 4 * (ctab.ctable.numel() + ctab.cbounds.numel()),
+        mega_ops(wsum) + wsum[5] * OPS_PER_PHOTON + wsum[6] * OPS_PER_PCLUSTER)
+    numbers["K1d"].update(ms=ms, plain_ms=photon_plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None, timed_by=src,
+                          lanes=480000, prim_tests=wsum[0], ciphers=wsum[1],
+                          vertices=wsum[2], photon_tests=wsum[5],
+                          cluster_tests=wsum[6])
+    print(f"  K1a+K1d caustics_scene, photonmap 480000 lanes: {ms:.4f} ms by "
+          f"{src} (K1a on softdof {numbers['K1a']['ms']:.4f} ms), bound "
+          f"{b_ms:.5f} ms by {b_by}, engine {photon_plain_ms:.3f} ms, "
+          f"{wsum[5]} photon tests, {wsum[6]} cluster tests on {wsum[2]} "
+          "vertices", flush=True)
+
+    # K5 on the records of phase 2c's dispatch. The bound counts, for each
+    # query with a record, the rows of the clusters within r of that query
+    # alone (what a per-query cull must sweep). Its bytes: each query's
+    # active flag in and 28 bytes out, the 12-byte position of each query
+    # with a record, the cluster boxes once, and the 9 columns the sweep
+    # reads of the rows of the clusters within r of some such query.
+    g5 = pmaps[0]
+    r5 = float(g5.radius)
+    qa = q5[a5 > 0.5]
+    cb = g5.cbounds
+    near = ((cb[None, :, 0] <= cb[None, :, 3])
+            & (cb[None, :, 0:3] - r5 <= qa[:, None, :]).all(-1)
+            & (cb[None, :, 3:6] + r5 >= qa[:, None, :]).all(-1))
+    tests5 = int(near.sum().item()) * 128
+    near5 = int(near.any(0).sum().item())
+    b_ms, b_by = bound(q5.shape[0] * (4 + 28) + qa.shape[0] * 12
+                       + 4 * cb.numel() + near5 * 128 * 9 * 4,
+                       tests5 * OPS_PER_PHOTON)
+    ms, src = kernel_ms(lambda: photon.photon_gather(
+        g5.ctable, g5.cbounds, g5.radius, q5, a5), "gather_kernel", 20)
+    numbers["K5"].update(
+        ms=ms, plain_ms=cuda_ms(lambda: photon.photon_gather_plain(
+            g5.ctable, g5.cbounds, g5.radius, q5, a5), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, timed_by=src,
+        wrapper_ms=cuda_ms(lambda: photon.photon_gather(
+            g5.ctable, g5.cbounds, g5.radius, q5, a5), 20),
+        queries=q5.shape[0], active=int(qa.shape[0]), photon_tests=tests5,
+        clusters_near=near5, photons=int(gmap.valid.sum()))
+    print(f"  K5 {q5.shape[0]} queries ({qa.shape[0]} with a record): "
+          f"{ms:.5f} ms by {src}, bound {b_ms:.6f} ms by {b_by}, plain "
+          f"{numbers['K5']['plain_ms']:.3f} ms, {tests5} photon tests",
+          flush=True)
 
     n2 = 1 << 16  # one wavefront batch of primary rays
     n_sh = 1 << 20  # its first 16 soft-shadow rays per lane
@@ -1005,11 +1329,14 @@ def main():
                                              m6t.tile_c16T), 10)
     torch.cuda.synchronize()
 
-    # Device busy share of one Renderer.render() at the 4a, 4c and 4e
-    # settings.
-    def profile_render(what, desc, param):
-        r = Renderer(param, device="cuda")
-        r.compute_scene(desc)
+    # Device busy share of one Renderer.render() at the 4a, 4c, 4g, 4e and
+    # 4k settings (4k on phase 4k's renderer, whose maps are built).
+    def profile_render(what, desc, param, r=None):
+        if r is None:
+            r = Renderer(param, device="cuda")
+            r.compute_scene(desc)
+        else:
+            r.fb = FrameBuffer(r.meta.img_width, r.meta.img_height)
         torch.cuda.synchronize()
         reset_counts()
         with torch.profiler.profile(
@@ -1036,6 +1363,8 @@ def main():
     profile_render("mesh_scene defaults", mesh_base, RendererParam())
     profile_render("texture_scene defaults", tex_desc, RendererParam())
     profile_render("ico6 1 spp", ico6, RendererParam(spp_min=1, spp_max=1))
+    profile_render("caustics_scene photon map defaults", caus_desc, p_photon,
+                   r_k)
 
     meta_k = {
         "K1a": ("qaray_tpu_torch/csrc/megakernel.cu",
@@ -1044,6 +1373,10 @@ def main():
                 "qaray_tpu/ops/pallas_pathtrace.py:1614"),
         "K1c": ("qaray_tpu_torch/csrc/megakernel.cu",
                 "qaray_tpu/ops/pallas_pathtrace.py:1614"),
+        "K1d": ("qaray_tpu_torch/csrc/megakernel.cu",
+                "qaray_tpu/ops/pallas_pathtrace.py:1614"),
+        "K5": ("qaray_tpu_torch/csrc/photon.cu",
+               "qaray_tpu/ops/pallas_photon.py:164"),
         "K3": ("qaray_tpu_torch/csrc/mesh.cu",
                "qaray_tpu/ops/pallas_mesh.py:143"),
         "K4a": ("qaray_tpu_torch/csrc/tiles.cu",
@@ -1058,8 +1391,8 @@ def main():
                 "qaray_tpu/ops/pallas_analytic.py:174"),
     }
     kernels = []
-    for name in ("K1a", "K1b", "K1c", "K2a", "K2b", "K2c", "K3", "K4a",
-                 "K4b"):
+    for name in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c", "K3", "K4a",
+                 "K4b", "K5"):
         src, rep = meta_k[name]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches[name]}

@@ -9,6 +9,11 @@ src/main.cpp:8-61):
     -integrator {photonmap,pathtrace,basic,whitted,phong,mcgi}
     -seed N                          RNG seed
     -shadow-spp N / -shadow-spp-max N   soft-shadow sample budget
+    -use-photon-map                  photon-map gathers (photonmap); writes
+                                     photonmap.dat and caustics.dat into
+                                     the working directory and
+                                     PREFIXirradianceBuffer.png
+    -photon-map-size N / -caustics-map-size N   photons a map
     -progressive N                   save a preview PNG every N spp
     -probe X,Y                       print RGB+z at a pixel after the render
     -res WxH                         resolution override
@@ -17,7 +22,7 @@ src/main.cpp:8-61):
 
 -batch and -threads are accepted for compatibility. Scenes may carry
 checker and file textures on materials, the background and the environment.
-Photon maps, several devices, multihost runs, the preview server and
+Several devices, multihost runs, rank-debug planes, the preview server and
 profiling come with later slices of the port and raise NotImplementedError.
 """
 
@@ -31,9 +36,6 @@ from qaray_tpu_torch.renderer import Renderer, RendererParam
 from qaray_tpu_torch.scene.xml_parser import load_scene
 
 _LATER = {
-    "-use-photon-map": "photon maps",
-    "-photon-map-size": "photon maps",
-    "-caustics-map-size": "photon maps",
     "-devices": "multi-device rendering",
     "-multihost": "multihost rendering",
     "-rank-debug": "rank-debug planes",
@@ -70,6 +72,14 @@ def parse_args(argv):
             param.use_srgb = int(argv[i]) != 0
         elif a == "-threads":
             i += 1
+        elif a == "-use-photon-map":
+            param.use_photon_map = True
+        elif a == "-photon-map-size":
+            i += 1
+            param.photon_map_size = int(argv[i])
+        elif a == "-caustics-map-size":
+            i += 1
+            param.caustics_map_size = int(argv[i])
         elif a == "-integrator":
             i += 1
             if argv[i] not in INTEGRATORS:
@@ -142,6 +152,8 @@ def main(argv=None):
     fb.save_image(out_prefix + "colorBuffer.png")
     fb.save_z_image(out_prefix + "depthBuffer.png")
     fb.save_sample_count_image(out_prefix + "sampleBuffer.png")
+    if param.use_photon_map:
+        fb.save_irradiance_image(out_prefix + "irradianceBuffer.png")
     for x, y in opts.get("probe", []):
         try:
             r, g, b, z = fb.probe(x, y)

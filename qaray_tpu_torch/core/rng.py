@@ -13,13 +13,31 @@ import torch
 
 from qaray_tpu_torch.core.krng import MASK, draw_at, fold2
 
-# Purpose tags (the JAX package's values; its photon, pixel and
-# light-select tags 4-6 arrive with the slices that use them).
+# Purpose tags (the JAX package's values).
 P_LOBE_SELECT = 0
 P_LOBE_SAMPLE = 1
 P_DOF = 2
 P_SHADOW = 3
+P_PHOTON_EMIT = 4
+P_PIXEL = 5
+P_LIGHT_SELECT = 6
 P_GLOSSY = 7
+
+
+def key_words(rng_impl: str, seed: int):
+    """Key data of jax.random.key(seed, impl=rng_impl) as words.
+
+    threefry2x32 -> [seed >> 32, seed & 0xFFFFFFFF] (also the words of
+    jax.random.PRNGKey(seed)); rbg -> [0, s, 0, s]. The four rbg words
+    xor-fold to (0, 0) for every seed on the way into the draws
+    (fold_words), so an rbg render does not depend on the seed: this
+    matches the reference's megakernel path on purpose."""
+    hi, lo = (seed >> 32) & MASK, seed & MASK
+    if rng_impl == "threefry2x32":
+        return (hi, lo)
+    if rng_impl == "rbg":
+        return (0, lo, 0, lo)
+    raise ValueError(f"unknown rng_impl {rng_impl!r}")
 
 
 def fold_words(key_words):

@@ -1,4 +1,4 @@
-// Path-trace megakernel (K1a, with K1b and K1c): one whole pathtrace or
+// Path-trace megakernel (K1a, with K1b, K1c and K1d): one whole pathtrace or
 // photonmap sample per thread, camera ray to radiance, in one launch.
 //
 // Replaces the Pallas TPU kernel qaray_tpu/ops/pallas_pathtrace.py
@@ -7,7 +7,9 @@
 // the in-kernel threefry of core/krng.py (K1a), and its world-mesh sweep
 // _mesh_tri_test / _cluster_overlaps / _bundle_bounds (K1c), and its checker
 // textures: the winner's uv and primary-hit footprints of _closest_hit and
-// _apply_checker_textures (K1b). Gather-free only (K1d comes later).
+// _apply_checker_textures (K1b), and its photon outputs: the in-kernel
+// caustics gather (photon_sweep), the irr0 and escalation planes and the
+// global-map gather records (K1d).
 //
 // What bounds it on the H100: operations. A lane reads 12 bytes and
 // writes 16, but does per bounce a closest-hit sweep over the primitives,
@@ -56,6 +58,28 @@
 // Operations again: 32 checker tests a textured slot at a primary vertex,
 // one at a later vertex, counted in `work`.
 //
+// K1d, photon gathering (photonmap with -use-photon-map): a third
+// instantiation flag, mega_kernel<kTex, true>, so scenes without maps run
+// the kernels they ran before. At every diffuse-selected vertex the lane
+// sweeps the caustics map for its own hit point (photon.cuh's per-thread
+// sweep: lanes are not spatially sorted, so each culls the map's clusters
+// against its own point, and reads the rows, 64 KB at the default 1,000
+// photons, through the read-only cache), Blinn-combines the estimate with
+// gather_blinn's luma gate and adds it, and raises the lane's escalation
+// flag where more than GATHER_K (100) photons lay in the radius: there the
+// estimate needs the radius cap, which the Renderer gets by rendering the
+// lane again on the wavefront engine. A diffuse-selected vertex after a
+// diffuse bounce also gathers the global map; the path ends there, so a
+// lane has at most one such vertex, and the kernel writes that vertex's
+// 17-field record (p, n, v, beta*diffuse, beta*specular, glossiness,
+// valid) straight to its output planes instead of sweeping the global map
+// from incoherent lanes: the wrapper Morton-sorts the records and gathers
+// them with K5 (ops/photon.gather_apply). The primary vertex's irr0 flag
+// (a photon surface) is the fb debug plane. Output planes are zeroed by
+// the wrapper; the kernel writes only the ones a lane sets. Operations
+// again: about 20 a photon test, counted with the cluster tests in the
+// last two columns of `work`.
+//
 // Random draws are bit-exact with jax.random (threefry2x32 key words):
 // the per-lane key is fold(base, rid * 65536 + sid) in wrapping 32-bit
 // arithmetic, then fold(1000 + bounce) and a purpose tag per decision, as
@@ -65,6 +89,7 @@
 
 #include "analytic.cuh"
 #include "mesh.cuh"
+#include "photon.cuh"
 #include "threefry.cuh"
 
 // The launch and the block's dynamic shared memory go through two macros,
@@ -102,6 +127,8 @@ constexpr int LIGHT_AMBIENT = 0, LIGHT_DIRECT = 1, LIGHT_SPOT = 3;
 constexpr int P_LOBE_SELECT = 0, P_LOBE_SAMPLE = 1, P_DOF = 2, P_SHADOW = 3;
 constexpr float TWO_PI = (float)(2.0 * M_PI);
 constexpr float CLT = 0.00001f;  // COLOR_LUMA_THRESHOLD
+constexpr float GATHER_K = 100.0f;  // photon/cluster.py
+constexpr int NUM_REC = 17;        // fields of a global-map gather record
 constexpr int kThreads = 128;
 
 // The 31 elliptic footprint offsets (ops/texture.elliptic_offsets_np),
@@ -142,8 +169,15 @@ struct Params {
   float* g;
   float* b;
   float* t0;
-  int* work;  // optional [n, 5]: prim tests, ciphers, vertices, tri tests,
-              // checker tests
+  int* work;  // optional [n, 7]: prim tests, ciphers, vertices, tri tests,
+              // checker tests; K1d: photon tests, caustics cluster tests
+  // K1d: the clustered caustics map ([Fc, 16] rows, [C, 8] boxes), its
+  // squared radius, and the [19, n] outputs (irr0, esc, 17 record planes).
+  const float4* ctab;
+  const float* ccb;
+  int n_cclusters;
+  float cr2;
+  float* pout;
 };
 
 struct Shared {
@@ -158,7 +192,7 @@ struct Shared {
 };
 
 struct Work {
-  int tests, ciphers, vertices, tri_tests, checkers;
+  int tests, ciphers, vertices, tri_tests, checkers, photons, pclusters;
 };
 
 __device__ __forceinline__ float luma3(V3 c) {
@@ -457,8 +491,8 @@ __device__ V3 textured(const float* tx, V3 color, float u, float v,
 }
 
 // kTex: the scene has checker textures (K1b); material rows are then
-// P.mtl_cols wide, MTL_COLS otherwise.
-template <bool kTex>
+// P.mtl_cols wide, MTL_COLS otherwise. kPhoton: photon gathering (K1d).
+template <bool kTex, bool kPhoton>
 __global__ void __launch_bounds__(kThreads)
     mega_kernel(const Params P) {
   QR_SHARED_FLOATS(smem);
@@ -501,7 +535,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= P.n) return;
-  Work w{0, 0, 0, 0, 0};
+  Work w{0, 0, 0, 0, 0, 0, 0};
 
   const int px = P.px[lane], py = P.py[lane], sid = P.sid[lane];
   const uint32_t rid = (uint32_t)py * (uint32_t)P.width + (uint32_t)px;
@@ -678,6 +712,48 @@ __global__ void __launch_bounds__(kThreads)
     const V3 direct = blinn_direct(P, S, hp, n, v, diffuse, specular, gloss,
                                    kb, w);
     radiance = add3(radiance, mul3(beta, add3(emit, direct)));
+
+    if (kPhoton) {
+      // K1d (MtlBlinn_PhotonMap.cpp:344-368, 420-458): diffuse-selected
+      // vertices gather the caustics map; those after a diffuse bounce also
+      // the global map, through their record.
+      const size_t np = (size_t)P.n;
+      if (bounce == 0 && luma3(diffuse) > 0.0f) P.pout[lane] = 1.0f;
+      if (sel_diff) {
+        if (has_dh) {
+          const float rec[NUM_REC] = {
+              hp.x, hp.y, hp.z, n.x, n.y, n.z, v.x, v.y, v.z,
+              beta.x * diffuse.x, beta.y * diffuse.y, beta.z * diffuse.z,
+              beta.x * specular.x, beta.y * specular.y, beta.z * specular.z,
+              gloss, 1.0f};
+          for (int k = 0; k < NUM_REC; ++k)
+            P.pout[(2 + k) * np + lane] = rec[k];
+        }
+        const float cr = sqrtf(P.cr2);
+        const PhotonSums s =
+            photon_sweep_thread(P.ctab, P.ccb, P.n_cclusters, hp, cr, P.cr2,
+                                1.0f / P.cr2, &w.pclusters, &w.photons);
+        const float inv_area = 1.0f / ((float)(M_PI * 0.5) * P.cr2);
+        const V3 irrad = V3{s.ir * inv_area, s.ig * inv_area, s.ib * inv_area};
+        // gather_blinn: L = -normalize(dir), H = normalize(V + L),
+        // I * cosNL * (diffuse + specular * cosNH^gloss), under the luma gate.
+        const V3 l_dir = neg3(norm3(V3{s.dx, s.dy, s.dz}, 1e-30f));
+        const V3 hh = norm3(add3(v, l_dir), 1e-30f);
+        const float cos_nl = fmaxf(0.0f, dot3(n, l_dir));
+        const float cos_nh = fmaxf(0.0f, dot3(n, hh));
+        const float spec_w = pow_safe(cos_nh, gloss);
+        if (luma3(irrad) > CLT) {
+          radiance = V3{
+              radiance.x + beta.x * (irrad.x * cos_nl *
+                                     (diffuse.x + specular.x * spec_w)),
+              radiance.y + beta.y * (irrad.y * cos_nl *
+                                     (diffuse.y + specular.y * spec_w)),
+              radiance.z + beta.z * (irrad.z * cos_nl *
+                                     (diffuse.z + specular.z * spec_w))};
+        }
+        if (s.cnt > GATHER_K) P.pout[np + lane] = 1.0f;
+      }
+    }
     if (bounce == P.max_bounce) break;
 
     const V3 t_dir = V3{-x.x * sin_o - y.x * cos_o, -x.y * sin_o - y.y * cos_o,
@@ -771,11 +847,16 @@ __global__ void __launch_bounds__(kThreads)
   P.b[lane] = radiance.z;
   P.t0[lane] = t0;
   if (P.work) {
-    P.work[5 * lane + 0] = w.tests;
-    P.work[5 * lane + 1] = w.ciphers;
-    P.work[5 * lane + 2] = w.vertices;
-    P.work[5 * lane + 3] = w.tri_tests;
-    P.work[5 * lane + 4] = w.checkers;
+    int* row = P.work + 7 * lane;
+    row[0] = w.tests;
+    row[1] = w.ciphers;
+    row[2] = w.vertices;
+    row[3] = w.tri_tests;
+    row[4] = w.checkers;
+    if (kPhoton) {
+      row[5] = w.photons;
+      row[6] = w.pclusters;
+    }
   }
 }
 
@@ -790,16 +871,16 @@ extern "C" int qr_mega_set_tex_offsets(const float* xs, const float* ys) {
 
 namespace {
 
-template <bool kTex>
+template <bool kTex, bool kPhoton>
 int launch(const Params& P, size_t smem, void* stream) {
+  void (*const kernel)(const Params) = mega_kernel<kTex, kPhoton>;
   if (smem > 48 * 1024) {
     int rc = (int)cudaFuncSetAttribute(
-        mega_kernel<kTex>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc) return rc;
   }
-  QR_LAUNCH(mega_kernel<kTex>, (P.n + kThreads - 1) / kThreads, kThreads,
-            smem, stream, P);
+  QR_LAUNCH(kernel, (P.n + kThreads - 1) / kThreads, kThreads, smem, stream,
+            P);
   return (int)cudaGetLastError();
 }
 
@@ -807,7 +888,9 @@ int launch(const Params& P, size_t smem, void* stream) {
 
 // C entry point (bound with ctypes): launches on `stream`, returns
 // cudaGetLastError(). n > 0 is the caller's job. tex_mask != 0 selects the
-// textured kernel (K1b), whose material rows are mtl_cols wide.
+// textured kernel (K1b), whose material rows are mtl_cols wide; pout !=
+// NULL the photon-gathering one (K1d, photonmap only), whose [19, n]
+// outputs the caller has zeroed.
 extern "C" int qr_mega_render(
     const int* px, const int* py, const int* sid, int n, const float* prim,
     const int* kinds, const int* prim_mtl, int num_prims, const float* mtl,
@@ -817,9 +900,12 @@ extern "C" int qr_mega_render(
     int max_bounce, int shadow_spp, int shadow_spp_max, int has_dof,
     int has_glossy, const float* mrows, const float* mattr, const float* mcb,
     int n_clusters, float* r, float* g, float* b, float* t0, int* work,
-    void* stream) {
+    const float* ctab, const float* ccb, int n_cclusters, float cr2,
+    float* pout, void* stream) {
   if (tex_mask ? mtl_cols != MT_TEXBASE + TEX_STRIDE * NUM_SLOTS
                : mtl_cols != MTL_COLS)
+    return (int)cudaErrorInvalidValue;
+  if (pout && !(photonmap && ctab && ccb && n_cclusters > 0 && cr2 > 0.0f))
     return (int)cudaErrorInvalidValue;
   Params P{px, py, sid, n, prim, kinds, prim_mtl, num_prims, mtl, num_mtls,
            mtl_cols, tex_mask, light, lkind, lsoft, num_lights, light_norm,
@@ -827,11 +913,15 @@ extern "C" int qr_mega_render(
            shadow_spp_max, has_dof, has_glossy,
            reinterpret_cast<const float4*>(mrows),
            reinterpret_cast<const float4*>(mattr), mcb, n_clusters, r, g, b,
-           t0, work};
+           t0, work, reinterpret_cast<const float4*>(ctab), ccb,
+           n_cclusters, cr2, pout};
   const size_t smem =
       4 * ((size_t)num_prims * (QR_PRIM_COLS + 2) +
            (size_t)num_mtls * mtl_cols +
            (size_t)num_lights * (LIGHT_COLS + 2) + CAM_COLS);
-  return tex_mask ? launch<true>(P, smem, stream)
-                  : launch<false>(P, smem, stream);
+  if (pout)
+    return tex_mask ? launch<true, true>(P, smem, stream)
+                    : launch<false, true>(P, smem, stream);
+  return tex_mask ? launch<true, false>(P, smem, stream)
+                  : launch<false, false>(P, smem, stream);
 }

@@ -2,9 +2,10 @@
 
 Counterpart of qaray_tpu/fb/device_accum.py. The per-pixel Welford planes
 live on the render device; each round's radiance updates them there, and
-only the convergence mask and the final planes cross to the host. Where
-JAX returned new arrays, these functions update the planes in place (one
-copy of the image state instead of two).
+only the convergence mask, the count of skipped lanes and the final planes
+cross to the host. Where JAX returned new arrays, these functions update
+the planes in place (one copy of the image state instead of two). With
+photon maps a fourth plane max-folds the irradiance debug flags.
 
 The recurrence is the reference's (SuperSamplerHalton::Accumulate,
 scene/scene.cpp:113-123):
@@ -17,13 +18,18 @@ import numpy as np
 import torch
 
 
-def init_state(fb, device):
-    """Host FrameBuffer -> device accumulator state."""
-    return {
+def init_state(fb, device, want_irr: bool = False):
+    """Host FrameBuffer -> device accumulator state (with want_irr the
+    irradiance plane too, as 0..1 floats)."""
+    state = {
         "mean": torch.as_tensor(fb.mean, device=device).clone(),
         "std": torch.as_tensor(fb.color_std, device=device).clone(),
         "count": torch.as_tensor(fb.count, device=device).clone(),
     }
+    if want_irr:
+        state["irr"] = torch.as_tensor(
+            fb.irrad.astype(np.float32) / 255.0, device=device)
+    return state
 
 
 def _welford(mean, std, count, colors):
@@ -33,27 +39,51 @@ def _welford(mean, std, count, colors):
     return mean + dc, std + torch.where(s > 0, upd, 0.0), count + 1
 
 
-def accumulate_round(state, pixel_ids, colors):
-    """One new sample for each pixel id (ids unique within a call)."""
+def _fold(state, where, colors, skip):
+    """Welford update of the rows `where` (an index tensor or a slice);
+    rows of skipped lanes keep their values and count. Returns the number
+    of skipped lanes."""
+    m, sd, c = state["mean"][where], state["std"][where], state["count"][where]
+    mean, std, count = _welford(m, sd, c, colors)
+    n_skip = 0
+    if skip is not None:
+        keep = skip[:, None]
+        mean = torch.where(keep, m, mean)
+        std = torch.where(keep, sd, std)
+        count = torch.where(skip, c, count)
+        n_skip = int(skip.sum())
+    state["mean"][where] = mean
+    state["std"][where] = std
+    state["count"][where] = count
+    return n_skip
+
+
+def accumulate_round(state, pixel_ids, colors, skip=None, irr=None):
+    """One new sample for each pixel id (ids unique within a call).
+
+    skip: optional bool [B], lanes NOT folded by this call (gather-escalated
+    lanes, folded later with their exact radiance); irr: optional bool [B],
+    max-folded into the irradiance plane (skipped lanes not, as in the JAX
+    package). Returns the number of skipped lanes."""
     ids = pixel_ids.long()
-    mean, std, count = _welford(state["mean"][ids], state["std"][ids],
-                                state["count"][ids], colors)
-    state["mean"][ids] = mean
-    state["std"][ids] = std
-    state["count"][ids] = count
-    return state
+    n_skip = _fold(state, ids, colors, skip)
+    if "irr" in state and irr is not None:
+        flag = irr if skip is None else irr & ~skip
+        state["irr"][ids] = torch.maximum(state["irr"][ids],
+                                          flag.to(torch.float32))
+    return n_skip
 
 
-def accumulate_contig(state, start: int, colors):
+def accumulate_contig(state, start: int, colors, skip=None, irr=None):
     """accumulate_round for the contiguous pixel ids [start, start + B):
-    slices instead of a gather and a scatter."""
+    slices instead of a gather and a scatter. Here, as in the JAX package,
+    the irradiance plane takes every lane's flag."""
     sl = slice(start, start + colors.shape[0])
-    mean, std, count = _welford(state["mean"][sl], state["std"][sl],
-                                state["count"][sl], colors)
-    state["mean"][sl] = mean
-    state["std"][sl] = std
-    state["count"][sl] = count
-    return state
+    n_skip = _fold(state, sl, colors, skip)
+    if "irr" in state and irr is not None:
+        state["irr"][sl] = torch.maximum(state["irr"][sl],
+                                         irr.to(torch.float32))
+    return n_skip
 
 
 def unconverged_ids(state, threshold, spp) -> np.ndarray:
@@ -71,4 +101,6 @@ def sync_to_fb(state, fb):
     fb.mean = state["mean"].cpu().numpy()
     fb.color_std = state["std"].cpu().numpy()
     fb.count = state["count"].cpu().numpy()
+    if "irr" in state:
+        fb.irrad = (state["irr"].cpu().numpy() * 255.0).astype(np.uint8)
     return fb

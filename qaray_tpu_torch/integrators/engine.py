@@ -1,18 +1,20 @@
 """Wavefront integrator engine.
 
-Counterpart of qaray_tpu/integrators/engine.py, all six integrators
-(photonmap without photon gathering). A batch of B rays advances through
-the bounces in lock step; the recursion of the reference's Material::Shade
-becomes a loop carrying the path throughput `beta`, with masked lanes for
-dead paths:
+Counterpart of qaray_tpu/integrators/engine.py, all six integrators and
+the photon-map gathers. A batch of B rays advances through the bounces in
+lock step; the recursion of the reference's Material::Shade becomes a loop
+carrying the path throughput `beta`, with masked lanes for dead paths:
 
-    L = sum_k beta_k * (emission_k + direct_k),
+    L = sum_k beta_k * (emission_k + direct_k [+ gather_k]),
     beta_0 = 1, beta_{k+1} = beta_k * BxDF_k / PDF_k
 
 - "photonmap": MtlBlinn_PhotonMap::Shade (the reference's default MtlBlinn):
   luma-weighted 4-way lobe select with kill = 0.1 whose probability is not
   divided out, hasDiffuseHit gating, Beer absorption on back-face
-  continuations.
+  continuations; with photon maps (cfg.use_photon_map) the exact
+  EstimateIrradiance<100> gathers of the caustics map at diffuse-selected
+  vertices and of the global map at those after a diffuse bounce
+  (photon/gather.py).
 - "pathtrace": MtlBlinn_PathTracing::Shade: colorMax-weighted 4-lobe
   roulette with the probability divided out, the double 1/numLights
   direct-light quirk, no absorption.
@@ -25,11 +27,12 @@ SampleEnvironment).
 
 render_batch routes pathtrace and photonmap on scenes of analytic
 primitives and world meshes up to 65,536 triangles, untextured or with
-checker textures only, to the path-trace megakernel (ops/megakernel.py,
-kernels K1a, K1b and K1c); this engine is that kernel's plain version and
-the route for everything else: file textures, textured backgrounds and
-environments, textured meshes, the other four integrators. With threefry
-key words both compute the same function draw for draw.
+checker textures only, with photon maps whose tables fit the megakernel's
+budget, to the path-trace megakernel (ops/megakernel.py, kernels K1a, K1b,
+K1c and K1d); this engine is that kernel's plain version and the route for
+everything else: file textures, textured backgrounds and environments,
+textured meshes, larger photon maps, the other four integrators. With
+threefry key words both compute the same function draw for draw.
 """
 
 import os
@@ -64,6 +67,7 @@ from qaray_tpu_torch.core.warps import (
 from qaray_tpu_torch.integrators import common as C
 from qaray_tpu_torch.ops.texture import sample_background, sample_environment
 from qaray_tpu_torch.ops.trace import trace_closest
+from qaray_tpu_torch.photon.gather import gather_blinn
 from qaray_tpu_torch.scene.arrays import (
     LIGHT_AMBIENT,
     SceneArrays,
@@ -126,9 +130,20 @@ def generate_camera_rays(scene: SceneArrays, meta: SceneMeta, px, py,
 # ---------------------------------------------------------------------------
 
 
+def _gather_lanes(pmap, do, p, n, v, mtl):
+    """gather_blinn of `pmap` on the lanes `do` selects, zero elsewhere."""
+    out = torch.zeros_like(p)
+    idx = torch.nonzero(do)[:, 0]
+    if idx.numel():
+        out[idx] = gather_blinn(pmap, p[idx], n[idx], v[idx],
+                                mtl.diffuse[idx], mtl.specular[idx],
+                                mtl.glossiness[idx])
+    return out
+
+
 def _photonmap_vertex(scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
-                      bounce_remaining):
-    """One vertex of MtlBlinn_PhotonMap::Shade, without photon gathering."""
+                      bounce_remaining, photon_maps=None):
+    """One vertex of MtlBlinn_PhotonMap::Shade."""
     n = hits["n"]
     fr = C.compute_fresnel(n, v, hits["front"], mtl.ior)
     tot = fr.total_reflection[:, None]
@@ -158,6 +173,21 @@ def _photonmap_vertex(scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
         mtl.glossiness, keys, skip_ambient=True, norm_power=1,
     )
     vertex_color = mtl.emission + direct
+
+    # Photon-map mode (MtlBlinn_PhotonMap.cpp:344-368, 420-458): vertices
+    # that selected the diffuse lobe gather the caustics map, those after a
+    # diffuse bounce also the global map (and end there), both under the
+    # luma(sampleDiffuse) guard. Only the selected lanes are gathered.
+    if cfg.use_photon_map and photon_maps is not None:
+        gmap, cmap = photon_maps
+        diffuse_ok = luma_d > COLOR_LUMA_THRESHOLD
+        do_photon = sel_diffuse & has_diffuse_hit & diffuse_ok
+        do_caustics = sel_diffuse & diffuse_ok
+        p = hits["p"]
+        vertex_color = vertex_color + _gather_lanes(gmap, do_photon, p, n, v,
+                                                    mtl)
+        vertex_color = vertex_color + _gather_lanes(cmap, do_caustics, p, n,
+                                                    v, mtl)
 
     # Continuation sampling.
     ks = RNG.fold(keys, RNG.P_LOBE_SAMPLE)
@@ -204,7 +234,7 @@ def _photonmap_vertex(scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
 
 
 def _pathtrace_vertex(scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
-                      bounce_remaining):
+                      bounce_remaining, photon_maps=None):
     """One vertex of MtlBlinn_PathTracing::Shade (:69-300)."""
     n = normalize(hits["n"], eps=1e-30)
     front = hits["front"]
@@ -280,8 +310,8 @@ def _pathtrace_vertex(scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
 
 
 def _basic_family_vertex(scene, meta, cfg, hits, mtl, v, keys,
-                         has_diffuse_hit, bounce_remaining, phong=False,
-                         mcgi=False, direct_lighting=True):
+                         has_diffuse_hit, bounce_remaining, photon_maps=None,
+                         phong=False, mcgi=False, direct_lighting=True):
     """Whitted-family vertex: MtlBlinn_Basic / MtlPhong_Basic /
     MtlBlinn_MonteCarloGI (materials/MtlBlinn_Basic.cpp:30-185,
     MtlPhong_Basic.cpp, MtlBlinn_MonteCarloGI.cpp).
@@ -447,8 +477,6 @@ def _check_supported(cfg: IntegratorConfig):
     if cfg.integrator not in _VERTEX_FNS:
         raise ValueError(f"unknown integrator {cfg.integrator!r}: one of "
                          f"{', '.join(INTEGRATORS)}")
-    if cfg.use_photon_map:
-        raise NotImplementedError("photon maps come with the photon slice")
 
 
 # ---------------------------------------------------------------------------
@@ -457,12 +485,15 @@ def _check_supported(cfg: IntegratorConfig):
 
 
 def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
-              p, d, ray_keys, screen_uv=None, diff=None):
-    """Trace B primary rays to full radiance: (radiance [B,3], t0 [B]).
+              p, d, ray_keys, screen_uv=None, photon_maps=None, diff=None):
+    """Trace B primary rays to full radiance: (radiance [B,3], t0 [B],
+    irrad0 [B]), irrad0 the irradiance debug plane (photonmap with photon
+    maps: the primary vertex is a photon surface; False elsewhere).
 
     screen_uv: [B,3] screen-space coordinates of the samples, for a
-    textured background; diff: the primary rays' differentials, for the
-    texture footprints at the first hit."""
+    textured background; photon_maps: the (global, caustics) PhotonMapData
+    gathered with cfg.use_photon_map; diff: the primary rays'
+    differentials, for the texture footprints at the first hit."""
     _check_supported(cfg)
     vertex_fn = _VERTEX_FNS[cfg.integrator]
     num = p.shape[0]
@@ -474,6 +505,7 @@ def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
     pending_absorption = torch.zeros((num, 3), dtype=torch.float32,
                                      device=dev)
     t0 = torch.full((num,), BIGFLOAT, dtype=torch.float32, device=dev)
+    irrad0 = torch.zeros(num, dtype=torch.bool, device=dev)
     # MC-GI first-vertex sample count (maxMCSample): above 1 the wavefront
     # widens after the primary hit.
     mc_n = cfg.mc_samples if cfg.integrator == "mcgi" else 1
@@ -512,6 +544,12 @@ def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
             scene, hits["mtl"], hits["uvw"], hits["has_texture"],
             duvw=(hits["duvw0"], hits["duvw1"]) if "duvw0" in hits else None,
             textured=meta.has_mtl_textures)
+        if (bounce == 0 and cfg.integrator == "photonmap"
+                and cfg.use_photon_map):
+            # Irradiance-computation debug plane: the primary vertex is a
+            # photon-gather surface (IsPhotonSurface, MtlBlinn_PhotonMap.h
+            # :74-77, diffuse luma > 0).
+            irrad0 = hit & (luma(mtl.diffuse) > 0.0)
         v = -d
         keys = RNG.fold(ray_keys, 1000 + bounce)
         lanes = p.shape[0]
@@ -529,7 +567,7 @@ def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
                 krep = keys if rep == 0 else RNG.fold(keys, 50000 + rep)
                 vc, nd, wt, ct, nh, pa = vertex_fn(
                     scene, meta, cfg, hits, mtl, v, krep, has_diffuse_hit,
-                    remaining, direct_lighting=(rep == 0))
+                    remaining, photon_maps, direct_lighting=(rep == 0))
                 if rep == 0:
                     vertex_color, pend = vc, pa
                 dirs.append(nd)
@@ -565,7 +603,7 @@ def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
 
         vertex_color, new_dir, weight, cont, new_hdh, pend = vertex_fn(
             scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
-            remaining,
+            remaining, photon_maps,
         )
         radiance = radiance + torch.where(alive[:, None],
                                           beta * vertex_color, 0.0)
@@ -579,7 +617,7 @@ def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
         d = normalize(new_dir, eps=1e-30)
     if radiance0 is not None:
         radiance = radiance0 + radiance.reshape(mc_n, num, 3).sum(dim=0)
-    return radiance, t0
+    return radiance, t0, irrad0
 
 
 def lane_fold_data(px, py, sample_ids, width: int):
@@ -592,10 +630,12 @@ def lane_fold_data(px, py, sample_ids, width: int):
 
 def render_batch_wavefront(scene: SceneArrays, meta: SceneMeta,
                            cfg: IntegratorConfig, px, py, sample_ids,
-                           key_words):
+                           key_words, photon_maps=None,
+                           want_aux: bool = False):
     """One sample per (px, py) lane on the wavefront engine: (radiance [B,3],
-    primary depth [B]). Counterpart of engine.render_batch_xla_impl and the
-    plain version of kernel K1a.
+    primary depth [B]), with want_aux also the irradiance debug flag [B].
+    Counterpart of engine.render_batch_xla_impl and the plain version of
+    kernel K1a (and of K1d with photon_maps: the exact gathers).
 
     key_words: the base key's words (2 for threefry2x32; the 4 of a jax
     'rbg' key fold to 2, see core.rng.fold_words). The draws are those of
@@ -611,21 +651,47 @@ def render_batch_wavefront(scene: SceneArrays, meta: SceneMeta,
                                                    sample_ids, keys)
     screen_uv = torch.stack([tx / meta.img_width, ty / meta.img_height,
                              torch.zeros_like(tx)], dim=-1)
-    return integrate(scene, meta, cfg, campos, d, keys, screen_uv, diff)
+    radiance, t0, irrad0 = integrate(scene, meta, cfg, campos, d, keys,
+                                     screen_uv, photon_maps, diff)
+    if want_aux:
+        return radiance, t0, irrad0
+    return radiance, t0
 
 
-def use_pathtrace_mega(meta: SceneMeta, cfg: IntegratorConfig) -> bool:
-    """Gate of the path-trace megakernel: pathtrace or photonmap (without
-    photon gathering) on scenes whose meshes, if any, carry the megakernel's
-    mesh tables (meta.mesh_mega), whose material textures, if any, are all
-    checkers off those meshes (meta.mega_tex_ok) and whose background and
-    environment are plain colours.
-    QARAY_NO_MEGAKERNEL set sends everything to the wavefront engine."""
+# Combined photon-table rows (global + caustics) the megakernel route takes:
+# the JAX package's VMEM budget, kept so that both packages route alike.
+# Reference defaults are 10,112 + 1,024 rows; larger maps take the
+# wavefront engine's exact gathers.
+MEGA_PHOTON_ROW_BUDGET = 32768
+
+
+def _mega_photon_ok(cfg: IntegratorConfig, photon_maps) -> bool:
+    """May the megakernel serve this photon-gathering config?"""
+    if not cfg.use_photon_map:
+        return True  # no gathering asked for: maps are irrelevant
+    if cfg.integrator != "photonmap" or photon_maps is None:
+        return False
+    gmap, cmap = photon_maps[0], photon_maps[1]
+    if gmap.ctable is None or cmap.ctable is None:
+        return False
+    return gmap.ctable.shape[0] + cmap.ctable.shape[0] <= \
+        MEGA_PHOTON_ROW_BUDGET
+
+
+def use_pathtrace_mega(meta: SceneMeta, cfg: IntegratorConfig,
+                       photon_maps=None) -> bool:
+    """Gate of the path-trace megakernel: pathtrace or photonmap on scenes
+    whose meshes, if any, carry the megakernel's mesh tables
+    (meta.mesh_mega), whose material textures, if any, are all checkers
+    off those meshes (meta.mega_tex_ok), whose background and environment
+    are plain colours, and, with photon gathering, whose clustered maps fit
+    MEGA_PHOTON_ROW_BUDGET (lanes over the gather cap are the Renderer's
+    to escalate). QARAY_NO_MEGAKERNEL set sends everything to the
+    wavefront engine."""
     if os.environ.get("QARAY_NO_MEGAKERNEL"):
         return False
     return (
         cfg.integrator in ("pathtrace", "photonmap")
-        and not cfg.use_photon_map
         and (meta.num_mesh_instances == 0 or meta.mesh_mega)
         and (meta.num_analytic > 0 or meta.mesh_mega)
         and len(meta.analytic_kinds) == meta.num_analytic
@@ -633,21 +699,43 @@ def use_pathtrace_mega(meta: SceneMeta, cfg: IntegratorConfig) -> bool:
         and (not meta.has_mtl_textures or meta.mega_tex_ok)
         and not meta.has_bg_texture
         and not meta.has_env_texture
+        and _mega_photon_ok(cfg, photon_maps)
     )
 
 
 def render_batch(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
-                 px, py, sample_ids, key_words):
+                 px, py, sample_ids, key_words, photon_maps=None,
+                 want_aux: bool = False):
     """Render one sample for each (px, py) lane: (radiance [B,3], depth [B]).
 
+    With want_aux=True the tuple gains the per-lane irradiance debug flag
+    (the fb plane). On the megakernel route with photon gathering it gains
+    a last per-lane escalation flag: lanes whose gather saw more than
+    GATHER_K photons in the radius need the exact estimate, which the
+    Renderer gets by rendering them again on the wavefront engine (same
+    key words, same paths). These are the tuples of the JAX package's
+    render_batch.
+
     Deterministic in (key words, pixel, sample): independent of how lanes
-    are batched. Eligible scenes go to the megakernel (K1a with K1b and K1c
-    on CUDA tensors, its plain version on the CPU); the rest to the
+    are batched. Eligible scenes go to the megakernel (K1a with K1b, K1c and
+    K1d on CUDA tensors, its plain version on the CPU); the rest to the
     wavefront engine.
     """
-    if use_pathtrace_mega(meta, cfg):
+    if use_pathtrace_mega(meta, cfg, photon_maps):
         from qaray_tpu_torch.ops.megakernel import mega_render
 
-        return mega_render(scene, meta, cfg, px, py, sample_ids, key_words)
+        if cfg.use_photon_map:
+            radiance, t0, irr0, esc = mega_render(
+                scene, meta, cfg, px, py, sample_ids, key_words,
+                photon_maps=photon_maps)
+            if want_aux:
+                return radiance, t0, irr0, esc
+            return radiance, t0, esc
+        radiance, t0 = mega_render(scene, meta, cfg, px, py, sample_ids,
+                                   key_words)
+        if want_aux:
+            # pathtrace never writes the irradiance debug plane.
+            return radiance, t0, torch.zeros_like(px, dtype=torch.bool)
+        return radiance, t0
     return render_batch_wavefront(scene, meta, cfg, px, py, sample_ids,
-                                  key_words)
+                                  key_words, photon_maps, want_aux)

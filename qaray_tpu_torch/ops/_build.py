@@ -34,7 +34,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = {"analytic": "analytic.cu", "megakernel": "megakernel.cu",
-           "mesh": "mesh.cu", "tiles": "tiles.cu"}
+           "mesh": "mesh.cu", "photon": "photon.cu", "tiles": "tiles.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",

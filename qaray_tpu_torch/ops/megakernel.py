@@ -1,4 +1,4 @@
-"""Path-trace megakernel dispatch (kernels K1a, K1b and K1c,
+"""Path-trace megakernel dispatch (kernels K1a, K1b, K1c and K1d,
 csrc/megakernel.cu).
 
 Counterpart of qaray_tpu/ops/pallas_pathtrace.py: _fold_words
@@ -12,19 +12,27 @@ its triangles in-kernel (K1c): `launches["K1c"]` counts those launches.
 On a scene whose live material textures are all checkers
 (scene.arrays.mega_textured) the launch is of the textured kernel, which
 computes the winner's uv, the primary hit's footprint and the checker
-samples itself (K1b): `launches["K1b"]` counts those.
+samples itself (K1b): `launches["K1b"]` counts those. With photon maps
+(photonmap and cfg.use_photon_map) the launch is of the gathering kernel
+(K1d), which gathers the caustics map itself and writes the irr0 and
+escalation planes and one global-map record per lane; the wrapper gathers
+the records with K5 (ops/photon.gather_apply), adds their contribution
+and ORs their escalation flags: `launches["K1d"]` counts those launches.
 
 The plain version of K1a, K1b and K1c is the wavefront engine
 (integrators/engine.render_batch_wavefront) with its texture stack
-(ops/texture.py), which draws the same random numbers; mega_render runs it
-for tensors on the CPU and launches the kernel for CUDA tensors, never
-falling back from one to the other. `launches` counts kernel launches.
+(ops/texture.py), which draws the same random numbers; for K1d it is the
+engine with the exact gather (photon/gather.py), equal to K1d on every
+lane that is not escalated. mega_render runs it for tensors on the CPU
+and launches the kernel for CUDA tensors, never falling back from one to
+the other. `launches` counts kernel launches.
 """
 
 import numpy as np
 import torch
 
 from qaray_tpu_torch.core.rng import fold_words
+from qaray_tpu_torch.photon.gather import radius2
 from qaray_tpu_torch.scene.arrays import (
     MTL_COLS,
     MTL_TEX_COLS,
@@ -33,7 +41,9 @@ from qaray_tpu_torch.scene.arrays import (
     mega_textured,
 )
 
-launches = {"K1a": 0, "K1b": 0, "K1c": 0}
+launches = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0}
+
+NUM_REC = 17  # fields of a global-map gather record
 
 MEGA_CLUSTER = 256  # triangles per cull cluster
 
@@ -53,8 +63,9 @@ def _kernel(host: bool = False):
         set_offsets = _build.bind(lib, "qr_mega_set_tex_offsets", "pp")
         _build.check(set_offsets(xs.ctypes.data, ys.ctypes.data),
                      "K1b footprint offsets")
-        _fns[host] = _build.bind(lib, "qr_mega_render",
-                                 "pppipppipiiipppifpuuiiiiiiipppipppppp")
+        _fns[host] = _build.bind(
+            lib, "qr_mega_render",
+            "pppipppipiiipppifpuuiiiiiiipppipppppppifpp")
     return _fns[host]
 
 
@@ -104,54 +115,79 @@ def _check_lanes(px, py, sample_ids):
             raise ValueError("px, py and sample_ids must be [B] each")
 
 
+def gathers(cfg, photon_maps) -> bool:
+    """Does a photonmap launch gather photons (K1d)? As in the JAX package:
+    photonmap with cfg.use_photon_map and a pair of maps."""
+    return (cfg.use_photon_map and cfg.integrator == "photonmap"
+            and photon_maps is not None)
+
+
 def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
-                key_words, work=None):
-    """One sample per (px, py) lane: (radiance [B,3], primary depth [B]).
+                key_words, work=None, photon_maps=None):
+    """One sample per (px, py) lane: (radiance [B,3], primary depth [B]);
+    with photon gathering (gathers(cfg, photon_maps)) also the irradiance
+    debug flag [B] and the escalation flag [B], both bool: lanes whose
+    gather saw more than GATHER_K photons in the radius, which need the
+    exact estimate (on CPU tensors, the exact engine, all False).
 
     key_words: 2 threefry words, or the 4 words of a jax 'rbg' key, which
-    fold to (0, 0) as in the reference (core.rng.fold_words). work: optional
-    int32 [B, 5] tensor the kernel fills with each lane's primitive tests,
-    threefry ciphers, shaded vertices, triangle tests and checker tests
-    (CUDA only; for roofline bounds).
+    fold to (0, 0) as in the reference (core.rng.fold_words). photon_maps:
+    the clustered (global, caustics) PhotonMapData. work: optional int32
+    [B, 7] tensor the kernel fills with each lane's primitive tests,
+    threefry ciphers, shaded vertices, triangle tests and checker tests,
+    and when it gathers its photon tests and caustics cluster tests (the
+    last two columns are left as they were otherwise; CUDA only; for
+    roofline bounds).
     """
     _check_lanes(px, py, sample_ids)
+    gather = gathers(cfg, photon_maps)
     if px.device.type == "cpu":
         from qaray_tpu_torch.integrators.engine import render_batch_wavefront
 
-        return render_batch_wavefront(scene, meta, cfg, px, py, sample_ids,
-                                      key_words)
+        if not gather:
+            return render_batch_wavefront(scene, meta, cfg, px, py,
+                                          sample_ids, key_words)
+        radiance, t0, irr0 = render_batch_wavefront(
+            scene, meta, cfg, px, py, sample_ids, key_words,
+            photon_maps=photon_maps, want_aux=True)
+        return radiance, t0, irr0, torch.zeros_like(irr0)
     out = _launch(_kernel(), torch.cuda.current_stream().cuda_stream, scene,
-                  meta, cfg, px, py, sample_ids, key_words, work)
+                  meta, cfg, px, py, sample_ids, key_words, work,
+                  photon_maps if gather else None)
     if px.shape[0]:
         launches["K1a"] += 1
         if mega_textured(meta):
             launches["K1b"] += 1
         if meta.mesh_mega:
             launches["K1c"] += 1
+        if gather:
+            launches["K1d"] += 1
     return out
 
 
 def mega_render_host(scene: SceneArrays, meta: SceneMeta, cfg, px, py,
-                     sample_ids, key_words, work=None):
+                     sample_ids, key_words, work=None, photon_maps=None):
     """mega_render's kernel source run on the CPU, one lane at a time, on CPU
-    tensors (_build.load_host). For tests without a card: it holds the
-    source's arithmetic to the plain version; no entry point calls it and it
-    counts no launch."""
+    tensors (_build.load_host), with its records gathered by the plain
+    version of K5. For tests without a card: it holds the source's
+    arithmetic to the plain version; no entry point calls it and it counts
+    no launch."""
     _check_lanes(px, py, sample_ids)
     if px.device.type != "cpu":
         raise ValueError("mega_render_host takes CPU tensors")
     return _launch(_kernel(host=True), None, scene, meta, cfg, px, py,
-                   sample_ids, key_words, work)
+                   sample_ids, key_words, work,
+                   photon_maps if gathers(cfg, photon_maps) else None)
 
 
 def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
-            work):
+            work, photon_maps):
     """Check the tables against what the kernel reads and call
-    qr_mega_render `fn` on `stream`."""
-    if cfg.integrator not in ("pathtrace", "photonmap") or cfg.use_photon_map:
+    qr_mega_render `fn` on `stream`; with photon_maps, gather the records
+    the kernel wrote (gather_apply)."""
+    if cfg.integrator not in ("pathtrace", "photonmap"):
         raise NotImplementedError(
-            "the megakernel renders pathtrace and photonmap without photon "
-            "gathering")
+            "the megakernel renders pathtrace and photonmap")
     if not cfg.inverse_square_falloff:
         raise NotImplementedError("the megakernel always applies falloff")
     k0, k1 = fold_words(key_words)
@@ -175,9 +211,9 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
     r, g, b, t0 = (torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in range(4))
     if work is not None and (work.device != dev or work.dtype != torch.int32
-                             or work.shape != (n, 5)
+                             or work.shape != (n, 7)
                              or not work.is_contiguous()):
-        raise ValueError("work must be a contiguous int32 [B, 5] tensor on "
+        raise ValueError("work must be a contiguous int32 [B, 7] tensor on "
                          "the lanes' device")
     mesh = (tabs.mesh_rows, tabs.mesh_attr, tabs.mesh_cb)
     if meta.mesh_mega != (tabs.mesh_rows is not None):
@@ -195,6 +231,13 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
     if tabs.mtl.shape[1] != (MTL_TEX_COLS if tex_mask else MTL_COLS):
         raise ValueError("the kernel tables do not match the scene's "
                          "textures (scene.arrays.with_kernel_tables)")
+    if photon_maps is not None:
+        from qaray_tpu_torch.ops.photon import check_tables
+
+        for pmap in photon_maps:
+            check_tables(pmap.ctable, pmap.cbounds, dev)
+        cmap = photon_maps[1]
+        pout = torch.zeros((2 + NUM_REC, n), dtype=torch.float32, device=dev)
     n_clusters = 0
     if meta.mesh_mega:
         n_clusters = tabs.mesh_rows.shape[0] // MEGA_CLUSTER
@@ -226,7 +269,17 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
             *(t.data_ptr() if n_clusters else None for t in mesh), n_clusters,
             r.data_ptr(), g.data_ptr(), b.data_ptr(),
             t0.data_ptr(), work.data_ptr() if work is not None else None,
+            *((cmap.ctable.data_ptr(), cmap.cbounds.data_ptr(),
+               cmap.cbounds.shape[0], radius2(cmap.radius), pout.data_ptr())
+              if photon_maps is not None else (None, None, 0, 0.0, None)),
             stream,
         )
         _build.check(rc, "K1a megakernel")
-    return torch.stack([r, g, b], dim=-1), t0
+    radiance = torch.stack([r, g, b], dim=-1)
+    if photon_maps is None:
+        return radiance, t0
+    from qaray_tpu_torch.ops.photon import gather_apply
+
+    # Global-map gathers: the records, Morton-sorted, through K5.
+    contrib, esc = gather_apply(photon_maps[0], pout[2:])
+    return (radiance + contrib, t0, pout[0] > 0.5, (pout[1] > 0.5) | esc)

@@ -1,0 +1,185 @@
+"""Cluster-culled photon gather (kernel K5, csrc/photon.cu) beside its plain
+version, and the record gather of the megakernel's global map.
+
+Counterpart of qaray_tpu/ops/pallas_photon.py: pallas_gather ->
+photon_gather, _morton_keys, gather_apply. photon_gather sweeps a
+clustered photon map (photon/cluster.py) for each query point and returns
+the un-normalized sums (irradiance sum [B,3], direction sum [B,3], count
+[B]): divided by pi/2 r^2 they equal photon/gather.py's capped estimate
+wherever at most GATHER_K photons lie in the radius; callers flag the
+other lanes for the exact estimate.
+
+For tensors on the CPU photon_gather runs the plain version,
+photon_gather_plain, which sums the same terms in the same row order; for
+CUDA tensors it launches K5, never falling back from one to the other.
+`launches` counts kernel launches.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from qaray_tpu_torch.core.constants import BIGFLOAT, COLOR_LUMA_THRESHOLD
+from qaray_tpu_torch.core.krng import MASK
+from qaray_tpu_torch.core.vecmath import dot, luma, normalize, pow_safe
+from qaray_tpu_torch.photon.cluster import GATHER_K, PHOTON_CLUSTER
+from qaray_tpu_torch.photon.gather import radius2
+
+launches = {"K5": 0}
+
+_fn = []
+
+
+def _kernel():
+    if not _fn:
+        from qaray_tpu_torch.ops import _build
+
+        lib = _build.load("photon")
+        _fn.append(_build.bind(lib, "qr_photon_gather", "ppppifipp"))
+    return _fn[0]
+
+
+def check_tables(ctable, cbounds, device):
+    """Raise unless (ctable, cbounds) are the contiguous float32 [C*128, 16]
+    and [C, 8] tables of photon/cluster.py on `device`."""
+    for t, cols in ((ctable, 16), (cbounds, 8)):
+        if (t is None or t.device != device or t.dtype != torch.float32
+                or t.ndim != 2 or t.shape[1] != cols
+                or not t.is_contiguous()):
+            raise ValueError(f"photon tables must be contiguous float32 "
+                             f"[rows, {cols}] on {device} "
+                             "(photon.cluster.cluster_photon_map)")
+    if ctable.shape[0] != cbounds.shape[0] * PHOTON_CLUSTER:
+        raise ValueError(f"{ctable.shape[0]} photon rows for "
+                         f"{cbounds.shape[0]} clusters of {PHOTON_CLUSTER}")
+
+
+def _check(ctable, cbounds, p, active):
+    check_tables(ctable, cbounds, p.device)
+    if p.dtype != torch.float32 or p.ndim != 2 or p.shape[1] != 3:
+        raise ValueError(f"queries must be float32 [B, 3], got {p.dtype} "
+                         f"{tuple(p.shape)}")
+    if active.device != p.device or active.shape != p.shape[:1]:
+        raise ValueError("active must be [B] on the queries' device")
+
+
+def photon_gather_plain(ctable, cbounds, radius, p, active=None):
+    """The plain version of K5: every query against every photon row in row
+    order, with the kernel's operations (no cull: a culled cluster adds
+    only zeros)."""
+    num = p.shape[0]
+    act = (torch.ones(num, dtype=torch.float32, device=p.device)
+           if active is None else active.to(torch.float32))
+    _check(ctable, cbounds, p, act)
+    r2 = radius2(radius)
+    inv_r2 = float(np.float32(1.0) / np.float32(r2))
+    acc = torch.zeros((num, 6), dtype=torch.float32, device=p.device)
+    cnt = torch.zeros(num, dtype=torch.float32, device=p.device)
+    for lo in range(0, ctable.shape[0], PHOTON_CLUSTER):
+        rows = ctable[lo:lo + PHOTON_CLUSTER]
+        ex = p[:, 0:1] - rows[None, :, 0]
+        ey = p[:, 1:2] - rows[None, :, 1]
+        ez = p[:, 2:3] - rows[None, :, 2]
+        d2 = ex * ex + ey * ey + ez * ez
+        inr = d2 < r2
+        w = torch.where(inr, 1.0 - d2 * inv_r2, 0.0)
+        inr = inr.to(torch.float32)
+        vals = rows[:, 3:9]
+        for j in range(rows.shape[0]):
+            acc = acc + w[:, j:j + 1] * vals[j]
+            cnt = cnt + inr[:, j]
+    acc = acc * act[:, None]
+    return acc[:, 0:3], acc[:, 3:6], cnt * act
+
+
+def photon_gather(ctable, cbounds, radius, p, active=None):
+    """Filtered power sums [B,3], direction sums [B,3] and in-radius counts
+    [B] (float32) of the clustered map (ctable, cbounds) at query points p
+    [B,3]; zeros where active [B] is false or 0. K5 on a card, the plain
+    version on the CPU."""
+    num = p.shape[0]
+    act = (torch.ones(num, dtype=torch.float32, device=p.device)
+           if active is None else active.to(torch.float32))
+    if p.device.type == "cpu":
+        return photon_gather_plain(ctable, cbounds, radius, p, act)
+    _check(ctable, cbounds, p, act)
+    out = torch.empty((num, 7), dtype=torch.float32, device=p.device)
+    if num:
+        from qaray_tpu_torch.ops import _build
+
+        p, act = p.contiguous(), act.contiguous()
+        rc = _kernel()(p.data_ptr(), act.data_ptr(), ctable.data_ptr(),
+                       cbounds.data_ptr(), cbounds.shape[0],
+                       radius2(radius), num, out.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, "K5 photon gather")
+        launches["K5"] += 1
+    return out[:, 0:3], out[:, 3:6], out[:, 6]
+
+
+# ---------------------------------------------------------------------------
+# Record gathering: Morton-sort the queries, sweep with tight blocks
+# ---------------------------------------------------------------------------
+
+
+def _spread(v):
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v & MASK
+
+
+def _morton_keys(p, valid):
+    """[B,3] points -> 30-bit Morton codes over the valid points' box, as
+    int64 tensors. Invalid lanes get 0x7FFFFFFF, so the sort packs them at
+    the tail, where whole blocks cull every cluster."""
+    big = torch.tensor(BIGFLOAT, dtype=torch.float32, device=p.device)
+    lo = torch.where(valid[:, None], p, big).amin(dim=0)
+    hi = torch.where(valid[:, None], p, -big).amax(dim=0)
+    ext = torch.clamp_min(hi - lo, 1e-12)
+    q = torch.clamp((p - lo) / ext * 1023.0, 0.0, 1023.0).to(torch.int64)
+    key = (_spread(q[:, 0]) | (_spread(q[:, 1]) << 1)
+           | (_spread(q[:, 2]) << 2)) & MASK
+    return torch.where(valid, key, 0x7FFFFFFF)
+
+
+def gather_apply(gmap, rec):
+    """Per-lane gather records against a clustered photon map.
+
+    rec: 17 [B] float32 tensors in the megakernel's capture order: p(3),
+    n(3), v(3), beta*diffuse(3), beta*specular(3), glossiness, valid. The
+    records are Morton-sorted (a stable sort), gathered (photon_gather: K5
+    on a card), normalized by pi/2 r^2, Blinn-combined with gather_blinn's
+    luma gate (photon/gather.py) and put back in lane order. Returns the
+    contribution [B,3] (beta folded in, zero on invalid lanes) and the
+    escalation mask [B]: valid lanes whose count exceeds GATHER_K."""
+    packed = torch.stack(list(rec), dim=-1)  # [B, 17]
+    num = packed.shape[0]
+    if num == 0:
+        return packed[:, 0:3], packed[:, 16] > 0.5
+    valid = packed[:, 16] > 0.5
+    _, si = torch.sort(_morton_keys(packed[:, 0:3], valid), stable=True)
+    ps = packed[si]
+    act_s = ps[:, 16]
+    irr_sums, dirsum, cnt = photon_gather(gmap.ctable, gmap.cbounds,
+                                          gmap.radius,
+                                          ps[:, 0:3].contiguous(), act_s)
+    r2 = radius2(gmap.radius)
+    irrad = irr_sums / float(np.float32(math.pi * 0.5) * np.float32(r2))
+    # gather_blinn's combine (MtlBlinn_PhotonMap.cpp:426-458).
+    l_dir = -normalize(dirsum, eps=1e-30)
+    n = ps[:, 3:6]
+    v = ps[:, 6:9]
+    h = normalize(v + l_dir, eps=1e-30)
+    cos_nl = torch.clamp_min(dot(n, l_dir), 0.0)
+    cos_nh = torch.clamp_min(dot(n, h), 0.0)
+    c = irrad * cos_nl[:, None] * (
+        ps[:, 9:12] + ps[:, 12:15] * pow_safe(cos_nh, ps[:, 15])[:, None])
+    gate = (act_s > 0.5) & (luma(irrad) > COLOR_LUMA_THRESHOLD)
+    c = torch.where(gate[:, None], c, 0.0)
+    esc_s = (act_s > 0.5) & (cnt > float(GATHER_K))
+    inv = torch.empty_like(si)
+    inv[si] = torch.arange(num, device=si.device)
+    return c[inv], esc_s[inv]

@@ -7,12 +7,21 @@ rule (scene/scene.cpp:92-98: stop when s >= sppMin and every channel's std
 is under its threshold, hard stop at sppMax). Phase 1 packs several sample
 indices into one dispatch when the image underfills the batch; phase 2
 renders only the unconverged pixels. The accumulation planes stay on the
-device (fb/device_accum.py). All six integrators and textured scenes render
-(integrators/engine.render_batch picks the megakernel or the wavefront
-engine).
+device (fb/device_accum.py). All six integrators, textured scenes and
+photon maps render (integrators/engine.render_batch picks the megakernel
+or the wavefront engine).
 
-Photon maps, multi-device rendering, checkpoints and rank-debug planes
-arrive with their slices of the port and raise NotImplementedError here.
+With use_photon_map, compute_scene builds the global and caustics maps
+(photon/build.py), clusters them for the gather kernels and writes
+photonmap.dat and caustics.dat into the working directory, as the
+reference and the JAX package do. On the megakernel route the kernels'
+gathers are exact up to GATHER_K photons in the radius; lanes over it are
+flagged, skipped by the fold and rendered again on the wavefront engine
+with the exact estimate (same key words, same paths), folded in sample
+order so that per-pixel counts stay exact.
+
+Multi-device rendering, checkpoints and rank-debug planes arrive with their
+slices of the port and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import numpy as np
 import torch
 
 from qaray_tpu_torch.core.constants import SPP_THRESHOLD
+from qaray_tpu_torch.core.rng import key_words
 from qaray_tpu_torch.fb import device_accum
 from qaray_tpu_torch.fb.framebuffer import FrameBuffer
 from qaray_tpu_torch.integrators.engine import IntegratorConfig, render_batch
@@ -42,6 +52,12 @@ class RendererParam:
     max_bounce: int = 5
     integrator: str = "photonmap"
     use_photon_map: bool = False
+    photon_map_size: int = 10000
+    photon_map_bounce: int = 20
+    photon_map_radius: float = 0.2
+    caustics_map_size: int = 1000
+    caustics_map_bounce: int = 20
+    caustics_map_radius: float = 1.0
     shadow_spp: int = 16  # GenLight::shadow_spp_min (lights.cpp:16)
     shadow_spp_max: int = 64  # GenLight::shadow_spp_max (lights.cpp:17)
     threshold: tuple = SPP_THRESHOLD
@@ -57,28 +73,12 @@ class RendererParam:
     checkpoint_every: int = 0
 
 
-def key_words(rng_impl: str, seed: int):
-    """Key data of jax.random.key(seed, impl=rng_impl) as words.
-
-    threefry2x32 -> [seed >> 32, seed & 0xFFFFFFFF]; rbg -> [0, s, 0, s].
-    The four rbg words xor-fold to (0, 0) for every seed on the way into the
-    draws (core.rng.fold_words), so an rbg render does not depend on the
-    seed: this matches the reference's megakernel path on purpose."""
-    hi, lo = (seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF
-    if rng_impl == "threefry2x32":
-        return (hi, lo)
-    if rng_impl == "rbg":
-        return (0, lo, 0, lo)
-    raise ValueError(f"unknown rng_impl {rng_impl!r}")
-
-
 class Renderer:
     def __init__(self, param: Optional[RendererParam] = None,
                  device="cuda"):
         self.param = param or RendererParam()
         p = self.param
-        for flag, what in ((p.use_photon_map, "photon maps"),
-                           (p.num_devices > 1, "multi-device rendering"),
+        for flag, what in ((p.num_devices > 1, "multi-device rendering"),
                            (p.rank_debug, "rank-debug planes"),
                            (p.checkpoint_every, "checkpoints")):
             if flag:
@@ -89,6 +89,7 @@ class Renderer:
         self.scene_arrays = None
         self.meta = None
         self.fb: Optional[FrameBuffer] = None
+        self.photon_maps = None
         self._progress_cb: Optional[Callable] = None
         self._accum = None
 
@@ -96,7 +97,30 @@ class Renderer:
         self.scene_arrays, self.meta = compile_scene(scene_desc,
                                                      device=self.device)
         self.fb = FrameBuffer(self.meta.img_width, self.meta.img_height)
+        if self.param.use_photon_map:
+            from qaray_tpu_torch.photon.build import (
+                build_photon_maps,
+                save_photon_map,
+            )
+            from qaray_tpu_torch.photon.cluster import cluster_photon_map
+
+            gmap, cmap = build_photon_maps(self.scene_arrays, self.meta,
+                                           self.param)
+            # Morton-clustered tables for the gather kernels (K1d, K5); the
+            # exact gathers of the wavefront engine ignore them.
+            self.photon_maps = (cluster_photon_map(gmap),
+                                cluster_photon_map(cmap))
+            # The reference dumps both maps for its viewer
+            # (renderer.cpp:204-209, 284-289): same files, same records.
+            save_photon_map(self.photon_maps[0], "photonmap.dat")
+            save_photon_map(self.photon_maps[1], "caustics.dat")
         return self.scene_arrays, self.meta
+
+    def _want_aux(self) -> bool:
+        """Ask the engine for the irradiance debug plane (photonmap with
+        photon maps only)."""
+        return (self.param.integrator == "photonmap"
+                and self.param.use_photon_map)
 
     def signal_stop(self):
         self.stop_flag = True
@@ -125,7 +149,16 @@ class Renderer:
         fb = self.fb
         num_pixels = self.meta.img_width * self.meta.img_height
         words = key_words(p.rng_impl, p.seed)
-        self._accum = device_accum.init_state(fb, self.device)
+        self._words = words
+        # Megakernel dispatches with photon gathering return a last
+        # escalation flag per lane (the gather saw > GATHER_K photons in
+        # the radius): those lanes are rendered again on the exact engine.
+        from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
+
+        self._mega_photon = bool(cfg.use_photon_map and use_pathtrace_mega(
+            self.meta, cfg, self.photon_maps))
+        self._accum = device_accum.init_state(fb, self.device,
+                                              want_irr=self._want_aux())
         all_ids = np.arange(num_pixels, dtype=np.int32)
         start = time.time()
 
@@ -175,6 +208,16 @@ class Renderer:
         return (ids % w, ids // w,
                 torch.as_tensor(sample_ids, device=self.device))
 
+    def _dispatch(self, cfg, px, py, sid, words):
+        """render_batch with this render's maps: (radiance, depth, irr or
+        None, esc or None)."""
+        out = render_batch(self.scene_arrays, self.meta, cfg, px, py, sid,
+                           words, self.photon_maps,
+                           want_aux=self._want_aux())
+        irr = out[2] if self._want_aux() else None
+        esc = out[-1] if self._mega_photon else None
+        return out[0], out[1], irr, esc
+
     def _render_packed(self, cfg, pixel_ids, sample_indices, words,
                        record_depth: bool):
         """len(sample_indices) samples per pixel in one dispatch, folded
@@ -184,10 +227,10 @@ class Renderer:
         ids = np.tile(pixel_ids, len(sample_indices))
         sids = np.repeat(np.asarray(sample_indices, np.int32), n)
         px, py, sid = self._lanes(ids, sids)
-        radiance, depth = render_batch(self.scene_arrays, self.meta, cfg, px,
-                                       py, sid, words)
+        radiance, depth, irr, esc = self._dispatch(cfg, px, py, sid, words)
+        fixed = self._render_escalated(ids, sids, esc)
         for k in range(len(sample_indices)):
-            self._fold(pixel_ids, radiance[k * n:(k + 1) * n])
+            self._fold(pixel_ids, k * n, radiance, esc, irr, fixed)
         if record_depth:
             self.fb.set_depth(pixel_ids, depth[:n].cpu().numpy())
 
@@ -197,22 +240,64 @@ class Renderer:
         chunk = self.param.batch_pixels
         for lo in range(0, pixel_ids.size, chunk):
             ids = pixel_ids[lo:lo + chunk]
-            px, py, sid = self._lanes(
-                ids, np.full(ids.size, sample_idx, np.int32))
-            radiance, depth = render_batch(self.scene_arrays, self.meta, cfg,
-                                           px, py, sid, words)
-            self._fold(ids, radiance)
+            sids = np.full(ids.size, sample_idx, np.int32)
+            px, py, sid = self._lanes(ids, sids)
+            radiance, depth, irr, esc = self._dispatch(cfg, px, py, sid,
+                                                       words)
+            fixed = self._render_escalated(ids, sids, esc)
+            self._fold(ids, 0, radiance, esc, irr, fixed)
             if record_depth:
                 self.fb.set_depth(ids, depth.cpu().numpy())
 
-    def _fold(self, pixel_ids: np.ndarray, radiance):
+    def _fold(self, pixel_ids: np.ndarray, lo: int, radiance, esc=None,
+              irr=None, fixed=None):
+        """Fold lanes [lo, lo + len(pixel_ids)) of a dispatch, one sample
+        of each pixel id. Escalated lanes are skipped, then folded with
+        their exact radiance from `fixed` (_render_escalated)."""
+        sl = slice(lo, lo + pixel_ids.size)
+        esc = None if esc is None else esc[sl]
+        irr = None if irr is None else irr[sl]
         if pixel_ids.size and np.all(np.diff(pixel_ids) == 1):
             device_accum.accumulate_contig(self._accum, int(pixel_ids[0]),
-                                           radiance)
+                                           radiance[sl], skip=esc, irr=irr)
         else:
             device_accum.accumulate_round(
                 self._accum, torch.as_tensor(pixel_ids, device=self.device),
-                radiance)
+                radiance[sl], skip=esc, irr=irr)
+        if fixed is not None:
+            self._accumulate_escalated(pixel_ids, lo, fixed)
+
+    def _render_escalated(self, ids, sids, esc):
+        """Render a dispatch's gather-escalated lanes again, all in one call,
+        on the wavefront engine, whose gather applies the reference's
+        radius cap exactly (EstimateIrradiance<100>); the same key words
+        give the same paths. Returns (lane indices, their radiance), or
+        None where no lane escalated."""
+        if esc is None:
+            return None
+        lanes = np.nonzero(esc.cpu().numpy())[0]
+        if lanes.size == 0:
+            return None
+        from qaray_tpu_torch.integrators.engine import render_batch_wavefront
+
+        px, py, sid = self._lanes(ids[lanes], sids[lanes])
+        radiance, _ = render_batch_wavefront(
+            self.scene_arrays, self.meta, self.integrator_config(), px, py,
+            sid, self._words, self.photon_maps)
+        return lanes, radiance
+
+    def _accumulate_escalated(self, pixel_ids, lo: int, fixed):
+        """Fold the exact radiance of the escalated lanes among [lo, lo +
+        len(pixel_ids)): the main fold skipped them, so each pixel still
+        gets exactly one sample, in sample order."""
+        lanes, radiance = fixed
+        sel = np.nonzero((lanes >= lo) & (lanes < lo + pixel_ids.size))[0]
+        if sel.size:
+            device_accum.accumulate_round(
+                self._accum,
+                torch.as_tensor(pixel_ids[lanes[sel] - lo],
+                                device=self.device),
+                radiance[torch.as_tensor(sel, device=self.device)])
 
     def _report(self, spp_done: int):
         if self._progress_cb is not None:

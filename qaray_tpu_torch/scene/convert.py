@@ -1,9 +1,12 @@
-"""Conversion of the JAX package's compiled scene into the port's tables.
+"""Conversion of the JAX package's compiled scene and photon maps into the
+port's tables.
 
 The tests compile a scene once with qaray_tpu, turn its SceneArrays into
 numpy leaves (jax.tree.map(np.asarray, arrays)) and hand them here, so both
-packages compute on identical tables. This module imports neither JAX nor
-qaray_tpu: it reads the leaves by field name.
+packages compute on identical tables; photon maps come across the same way
+(photon_map_from_numpy), which keeps gather parity apart from build parity.
+This module imports neither JAX nor qaray_tpu: it reads the leaves by field
+name.
 """
 
 import numpy as np
@@ -65,3 +68,21 @@ def from_numpy_arrays(tree, meta, device="cuda"):
         instances=instances,
     )
     return with_kernel_tables(arrays, meta), meta
+
+
+def photon_map_from_numpy(pmap, device="cuda"):
+    """A qaray_tpu PhotonMapData with numpy leaves -> the port's
+    PhotonMapData on `device` (the radius stays a float32 scalar on the
+    CPU). ctable and cbounds come across where the map has them."""
+    from qaray_tpu_torch.photon.gather import PhotonMapData
+
+    def dev(a):
+        return None if a is None else torch.as_tensor(np.array(a),
+                                                      device=device)
+
+    return PhotonMapData(
+        pos=dev(pmap.pos), power=dev(pmap.power),
+        max_power=dev(pmap.max_power), direction=dev(pmap.direction),
+        radius=torch.tensor(np.float32(pmap.radius)),
+        valid=dev(pmap.valid), ctable=dev(pmap.ctable),
+        cbounds=dev(pmap.cbounds))

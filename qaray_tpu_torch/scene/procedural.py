@@ -4,7 +4,8 @@ icosphere(subdiv) is the subdivided icosahedron of the mesh-scale
 measurements (20 * 4**subdiv triangles: ico5 = 20,480, ico6 = 81,920);
 with_mesh puts such a mesh in place of the first OBJ node of a parsed
 scene, keeping its transform and material; with_texture binds a checker or
-an image to a material slot, the background or the environment.
+an image to a material slot, the background or the environment;
+with_glass gives one object a glass material of its own.
 """
 
 from __future__ import annotations
@@ -105,4 +106,40 @@ def with_texture(scene, where, *, checker=None, image=None, color=None,
     setattr(holder, attr, desc.TexturedColor(
         np.asarray(flat, float), desc.TextureMapDesc(texture=tex,
                                                      xform=xform)))
+    return scene
+
+
+def with_glass(scene, name: str, refraction=(0.9, 0.9, 0.9), ior=1.5,
+               absorption=(0.01, 0.001, 0.01)):
+    """A copy of `scene` whose object `name` gets a glass material of its
+    own, "<name>_glass": its old material with diffuse 0, specular 0, the
+    given refraction colour, index and Beer absorption. The other objects
+    keep their materials. A glass object is what a caustics photon map
+    needs: a first hit on a zero-diffuse surface."""
+    scene = copy.deepcopy(scene)
+    desc = sys.modules[type(scene).__module__]  # the scene's own classes
+
+    def find(node):
+        if node.name == name and node.obj_type is not None:
+            return node
+        for child in node.children:
+            found = find(child)
+            if found is not None:
+                return found
+        return None
+
+    node = find(scene.root)
+    if node is None:
+        raise ValueError(f"the scene has no object named {name!r}")
+    old = scene.find_material(node.mtl_name)
+    mtl = (copy.deepcopy(old) if old is not None
+           else desc.MaterialDesc(name=""))
+    mtl.name = f"{name}_glass"
+    mtl.diffuse = desc.TexturedColor(np.zeros(3))
+    mtl.specular = desc.TexturedColor(np.zeros(3))
+    mtl.refraction = desc.TexturedColor(np.asarray(refraction, float))
+    mtl.ior = float(ior)
+    mtl.absorption = np.asarray(absorption, float)
+    scene.materials.append(mtl)
+    node.mtl_name = mtl.name
     return scene

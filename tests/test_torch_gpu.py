@@ -12,7 +12,11 @@ tests/test_pallas_tiles.py for K3 and K4a/K4b against their plain versions,
 and tests/test_megakernel.py's mesh bars for K1c against the engine;
 test_mega_checker_textures_parity's bars for K1b against the engine with
 its texture stack. The wavefront route's texture stack and the Whitted
-family's integrators are held to the same code on the CPU.
+family's integrators are held to the same code on the CPU. K5 against
+photon_gather_plain: sums within 1e-5 relative, counts exact; K1d against
+the engine with its exact gathers: test_mega_photon_gather_parity's and
+test_mega_photon_escalation_flags_dense_lanes's bars on caustics_scene
+(softdof with a glass middle sphere).
 """
 
 import numpy as np
@@ -23,7 +27,8 @@ from qaray_tpu_torch.integrators.engine import (
     IntegratorConfig,
     render_batch_wavefront,
 )
-from qaray_tpu_torch.ops import analytic, megakernel, mesh_sweep, tiles
+from qaray_tpu_torch.ops import analytic, megakernel, mesh_sweep, photon
+from qaray_tpu_torch.ops import tiles
 from qaray_tpu_torch.ops.mesh_stream import (
     StreamTris,
     stream_any_hit,
@@ -33,6 +38,7 @@ from qaray_tpu_torch.ops.mesh_tiles import TiledMesh, tiled_sweep
 from qaray_tpu_torch.scene.compiler import compile_scene
 from qaray_tpu_torch.scene.procedural import (
     icosphere,
+    with_glass,
     with_mesh,
     with_texture,
 )
@@ -328,3 +334,124 @@ def test_integrators_cuda_match_cpu(cuda, integrator):
                                   mc_samples=4,
                                   inverse_square_falloff=integrator == "mcgi"),
                  res=(80, 60))
+
+
+def _caustics(res, device="cuda"):
+    desc = with_glass(load_scene(SCENES[1]), "mid")
+    desc.camera.img_width, desc.camera.img_height = res
+    return compile_scene(desc, device=device)
+
+
+def _small_maps(arr, meta):
+    """Maps of tests/test_megakernel.py's _small_photon_maps sizes, built
+    on the card (photon tracing on K2b)."""
+    from qaray_tpu_torch.photon.build import _build_one_map
+    from qaray_tpu_torch.photon.cluster import cluster_photon_map
+    from qaray_tpu_torch.renderer import RendererParam
+
+    param = RendererParam()
+    gmap = _build_one_map(arr, meta, param, 400, 6, 0.2, caustics=False,
+                          seed=1)
+    cmap = _build_one_map(arr, meta, param, 120, 6, 1.0, caustics=True,
+                          seed=2)
+    return cluster_photon_map(gmap), cluster_photon_map(cmap)
+
+
+@pytest.mark.parametrize("radius", [0.2, 50.0])
+def test_k5_matches_plain(cuda, radius):
+    arr, meta = _caustics((48, 36))
+    gmap, _ = _small_maps(arr, meta)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = 1 << 15
+    near = gmap.pos[torch.randint(0, 400, (n // 2,), device="cuda",
+                                  generator=gen)]
+    q = torch.cat([near + 0.1 * torch.randn(near.shape, device="cuda",
+                                            generator=gen),
+                   torch.rand((n // 2, 3), device="cuda", generator=gen)
+                   * 40.0 - 20.0])
+    act = (torch.arange(n, device="cuda") % 5 != 0).float()
+    before = photon.launches["K5"]
+    got = photon.photon_gather(gmap.ctable, gmap.cbounds, radius, q, act)
+    assert photon.launches["K5"] == before + 1
+    want = photon.photon_gather_plain(gmap.ctable, gmap.cbounds, radius, q,
+                                      act)
+    torch.cuda.synchronize()
+    for w, g in zip(want[:2], got[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-7)
+    assert torch.equal(want[2], got[2])
+    assert (got[2][act == 0] == 0).all()
+    if radius > 1.0:
+        assert (got[2] > 100).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("radius", [0.2, 50.0])
+def test_k1d_matches_engine(cuda, radius):
+    """caustics_scene at 200x150 x 2 spp, threefry: lanes that are not
+    escalated within the bars of test_mega_photon_gather_parity, with its
+    share of lanes off cut to 1e-4 and held against a control without the
+    caustics map; with the
+    radius of both maps at 50 every gather is over the cap: over 0.3 of
+    the lanes flagged and no unflagged lane off."""
+    from qaray_tpu_torch.photon.cluster import cluster_photon_map
+
+    arr, meta = _caustics((200, 150))
+    gmap, cmap = _small_maps(arr, meta)
+    if radius > 1.0:
+        gmap = gmap._replace(radius=torch.tensor(radius))
+        cmap = cmap._replace(radius=torch.tensor(radius))
+    cfg = IntegratorConfig(integrator="photonmap", max_bounce=4,
+                           shadow_spp=4, shadow_spp_max=8,
+                           use_photon_map=True)
+    px, py, sid = _lanes(200, 150, 2, "cuda")
+    before = dict(megakernel.launches)
+    rad_k, t0_k, irr_k, esc = megakernel.mega_render(
+        arr, meta, cfg, px, py, sid, (0, 3), photon_maps=(gmap, cmap))
+    assert megakernel.launches["K1d"] == before["K1d"] + 1
+    rad_p, t0_p, irr_p = render_batch_wavefront(
+        arr, meta, cfg, px, py, sid, (0, 3), photon_maps=(gmap, cmap),
+        want_aux=True)
+    ok = ~esc
+    rel = ((rad_p - rad_k).abs().amax(-1)
+           / (1.0 + rad_p.abs().amax(-1)))[ok]
+    if radius > 1.0:
+        assert esc.float().mean().item() > 0.3
+        assert (rel > 1e-3).sum().item() == 0
+        return
+    assert esc.float().mean().item() < 0.01
+    assert (rel > 1e-3).float().mean().item() < 1e-4
+    # The control: with its caustics map emptied the kernel is off on ten
+    # times that share, so the bar sees a skipped caustics gather.
+    no_caustics = cluster_photon_map(cmap._replace(
+        valid=torch.zeros_like(cmap.valid), ctable=None, cbounds=None))
+    rad_c = megakernel.mega_render(arr, meta, cfg, px, py, sid, (0, 3),
+                                   photon_maps=(gmap, no_caustics))[0]
+    rel_c = ((rad_p - rad_c).abs().amax(-1)
+             / (1.0 + rad_p.abs().amax(-1)))[ok]
+    assert (rel_c > 1e-3).float().mean().item() > 1e-3
+    mean_err = (rad_p[ok].mean(0) - rad_k[ok].mean(0)).abs().max().item()
+    assert mean_err < 2e-3
+    assert (irr_p == irr_k).float().mean().item() > 0.999
+
+
+def test_renderer_photon_render(cuda, tmp_path, monkeypatch):
+    """-use-photon-map through the Renderer on the card: K1d and K5
+    launched, the maps written into the working directory, the image and
+    the irradiance plane filled."""
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+
+    desc = with_glass(load_scene(SCENES[1]), "mid")
+    monkeypatch.chdir(tmp_path)
+    desc.camera.img_width, desc.camera.img_height = 160, 120
+    r = Renderer(RendererParam(use_photon_map=True, photon_map_size=2000,
+                               caustics_map_size=300, spp_min=2, spp_max=4),
+                 device="cuda")
+    r.compute_scene(desc)
+    before = (megakernel.launches["K1d"], photon.launches["K5"])
+    fb = r.render()
+    assert megakernel.launches["K1d"] > before[0]
+    assert photon.launches["K5"] > before[1]
+    assert np.isfinite(fb.mean).all() and fb.mean.mean() > 0
+    assert (fb.count >= 2).all() and (fb.count <= 4).all()
+    assert 0 < (fb.irrad > 0).mean() < 1
+    assert (tmp_path / "photonmap.dat").stat().st_size == 2000 * 26
+    assert (tmp_path / "caustics.dat").stat().st_size == 300 * 26

@@ -105,7 +105,7 @@ def test_kernel_source_on_the_host_matches_engine(name, integrator):
     cfg = IntegratorConfig(integrator=integrator, max_bounce=4, shadow_spp=4,
                            shadow_spp_max=8)
     px, py, sid = (torch.tensor(a) for a in lanes((64, 48), 2))
-    work = torch.zeros((px.shape[0], 5), dtype=torch.int32)
+    work = torch.zeros((px.shape[0], 7), dtype=torch.int32)
     before = dict(megakernel.launches)
     rad_k, t0_k = megakernel.mega_render_host(tarr, tmeta, cfg, px, py, sid,
                                               (0, 3), work=work)
@@ -115,8 +115,10 @@ def test_kernel_source_on_the_host_matches_engine(name, integrator):
     rad_k, t0_k, rad_p, t0_p = (a.numpy() for a in (rad_k, t0_k, rad_p, t0_p))
     rel = np.abs(rad_p - rad_k).max(-1) / (1.0 + np.abs(rad_p).max(-1))
     mean_err = np.abs(rad_p.mean(0) - rad_k.mean(0)).max()
-    tests, ciphers, vertices, tri_tests, checkers = work.sum(0).tolist()
+    tests, ciphers, vertices, tri_tests, checkers, *photon = (
+        work.sum(0).tolist())
     assert tests > 0 and ciphers > 0 and vertices > 0
+    assert photon == [0, 0]  # written only by the gathering kernel (K1d)
     if name == "mesh":
         assert (np.abs(t0_p - t0_k) > 1e-3).mean() < 2e-3
         assert (rel > 1e-3).mean() < 5e-3 and mean_err < 2e-3

@@ -158,7 +158,8 @@ def test_port_imports_no_jax():
         "import qaray_tpu_torch.scene.convert\n"
         "import qaray_tpu_torch.ops.tiles, qaray_tpu_torch.ops.mesh_sweep\n"
         "import qaray_tpu_torch.scene.procedural\n"
-        "import qaray_tpu_torch.ops.texture\n"
+        "import qaray_tpu_torch.ops.texture, qaray_tpu_torch.ops.photon\n"
+        "import qaray_tpu_torch.photon.build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'qaray_tpu')]\n"
         "assert not bad, bad\n"
@@ -182,15 +183,17 @@ def test_cuda_entry_point_without_card_raises(tmp_path):
 
 
 def test_later_slices_raise():
+    """What later slices bring raises: several devices, rank-debug planes,
+    the preview server, checkpoints. Photon maps no longer do."""
     from qaray_tpu_torch import cli
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
 
-    for flag in ("-use-photon-map", "-devices"):
+    for flag in ("-devices", "-rank-debug", "-serve"):
         with pytest.raises(NotImplementedError):
             cli.parse_args(["scene.xml", flag, "2"])
     with pytest.raises(NotImplementedError):
-        from qaray_tpu_torch.integrators.engine import (
-            IntegratorConfig,
-            integrate,
-        )
-        integrate(None, None, IntegratorConfig(use_photon_map=True),
-                  None, None, None)
+        Renderer(RendererParam(checkpoint_every=1), device="cpu")
+    param, _, _, _ = cli.parse_args(["scene.xml", "-use-photon-map",
+                                     "-photon-map-size", "300"])
+    assert param.use_photon_map and param.photon_map_size == 300
+    Renderer(param, device="cpu")

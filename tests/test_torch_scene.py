@@ -190,18 +190,22 @@ def test_kernel_tables_match_pack_tables():
 @pytest.mark.parametrize("name", ["mesh", "texture"])
 def test_later_slices_raise(name):
     """Per-instance object-space meshes, which the BVH walks trace
-    (BVH-walk slice), and photon gathering (photon slice): texture_scene
-    compiles now, and rendering it with a photon map still raises."""
+    (BVH-walk slice), and several devices (multi-device slice) still
+    raise. texture_scene compiles, and since the photon slice a
+    photon-mapped config renders it (without maps: no gathers)."""
     if name == "mesh":
         with pytest.raises(NotImplementedError):
             compile_scene(load_scene("tests/assets/mesh_scene.xml"),
                           device="cpu", world_bvh=False)
         return
     from qaray_tpu_torch.integrators import engine
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
 
     arr, meta = compile_scene(load_scene("tests/assets/texture_scene.xml"),
                               device="cpu")
     lane = torch.zeros(1, dtype=torch.int32)
+    rad, _ = engine.render_batch(arr, meta, engine.IntegratorConfig(
+        use_photon_map=True), lane, lane, lane, (0, 3))
+    assert torch.isfinite(rad).all()
     with pytest.raises(NotImplementedError):
-        engine.render_batch(arr, meta, engine.IntegratorConfig(
-            use_photon_map=True), lane, lane, lane, (0, 3))
+        Renderer(RendererParam(num_devices=2), device="cpu")
