@@ -53,6 +53,13 @@ Phases, each fatal on failure:
           ten times that share), and at 200x150 with both radii at 50 those of
           test_mega_photon_escalation_flags_dense_lanes (over 0.3 of lanes
           flagged, no unflagged lane off); escalated shares printed;
+       f. K6 (the fused adjoint) against adjoint_render_plain at 200x150,
+          max_bounce 5, threefry, on spot_scene.xml, mesh_scene.xml and the
+          glass scene (softdof with its depth of field 0 and its middle
+          sphere glass), each field within 3e-2 of its max|b|
+          (tests/test_grad.py's bar), the errors printed; and render_batch's
+          gradients on the megakernel route (K1a forward, the engine's
+          autograd backward) against render_with_params';
   4. the main path at 800x600 with every launch count set to 0 before each
      route and read after it, and every plain version of a kernel made to
      raise if it is called:
@@ -84,9 +91,18 @@ Phases, each fatal on failure:
           build times and photon counts, the escalated share;
        l. the same scene at 1 spp under QARAY_NO_MEGAKERNEL: the exact
           gathers on the wavefront route;
+       m. the gradient path: diff.render_value_and_grad at bench.py's
+          gradient shapes (max_bounce 5, shadow_spp 16, rbg words) on
+          spot_scene.xml at 800x600 with 262,144 lanes and mesh_scene.xml
+          with 131,072, by the fast route (K1a forward, one K6 launch) and
+          by autograd (QARAY_NO_MEGAKERNEL: K2b/K2c, K3 on the mesh, and
+          their backward), the two routes' gradients within 3e-2 of each
+          field's max|b|; forward+backward paths/s and the device's idle
+          share printed;
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time, and the device's idle
-     share in one Renderer.render() of 4a, 4c, 4g, 4e and 4k.
+     share in one Renderer.render() of 4a, 4c, 4g, 4e and 4k; K6's at the
+     gradient path's shape of 4m.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers and, last, {"ok": true, "device": {...}}. Exits non-zero without
 those lines when there is no CUDA device or no package beside it.
@@ -95,6 +111,7 @@ those lines when there is no CUDA device or no package beside it.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -139,6 +156,10 @@ OPS_PER_PCLUSTER = 12
 # relative (the JAX package's test allows 1 %, more than a caustic under
 # one glass sphere may touch).
 K1D_OFF_BAR = 1e-4
+# K6's bar against its plain version: tests/test_grad.py's 3e-2 of each
+# field's max|b| (the kernel's atomics sum in another order, and a lane
+# whose path differs by a last-bit flip moves a field's sum).
+K6_BAR = 3e-2
 MESH_SCENE = os.path.join(HERE, "tests", "assets", "mesh_scene.xml")
 MIRROR_SCENE = os.path.join(HERE, "tests", "assets", "mirror_scene.xml")
 ICO_CENTRE, ICO_RADIUS = (0.0, 50.0, 5.1), 8.0  # mesh_scene's icosphere
@@ -176,9 +197,12 @@ def device_us(evt):
 
 
 def kernel_ms(fn, kernel_name, reps=10):
-    """Milliseconds per call of the CUDA kernel whose name contains
-    kernel_name, from torch.profiler's device times; CUDA events around the
-    whole call when the profiler reports no device time.
+    """Milliseconds per launch of the CUDA kernel whose name contains
+    kernel_name (fn launches it once), from torch.profiler's device times
+    over the launches it recorded; CUDA events around the whole call when
+    it recorded none. torch.profiler may drop the records of the last
+    launches it traced, so the mean is taken over those it kept, and their
+    count is printed when it is short.
     Returns (ms, "profiler" | "events")."""
     fn()
     torch.cuda.synchronize()
@@ -187,10 +211,14 @@ def kernel_ms(fn, kernel_name, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(device_us(e) for e in prof.key_averages()
-                if kernel_name in e.key)
+    seen = [e for e in prof.key_averages() if kernel_name in e.key]
+    total = sum(device_us(e) for e in seen)
+    count = sum(e.count for e in seen)
+    if count != reps:
+        print(f"  the profiler recorded {count} of {reps} {kernel_name} "
+              "launches", flush=True)
     if total > 0:
-        return total / reps / 1e3, "profiler"
+        return total / count / 1e3, "profiler"
     return cuda_ms(fn, reps), "events"
 
 
@@ -349,6 +377,19 @@ def compare_photon_render(ref, got, esc, what, no_caustics):
     return (rad_ref - rad)[ok].abs().max().item()
 
 
+def grad_field_errors(got, want):
+    """Per DiffParams field: max|a - b| / max|b| (or max|a| where b is 0)."""
+    out = {}
+    for f in got._fields:
+        a, b = getattr(got, f).double(), getattr(want, f).double()
+        if a.numel() == 0:
+            continue
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        out[f] = err / scale if scale > 0 else a.abs().max().item()
+    return out
+
+
 class ForbidPlain:
     """Within the block, every plain version a kernel wrapper could take
     raises: a main-path run that finishes ran only kernels."""
@@ -389,7 +430,9 @@ def main():
         render_batch_wavefront,
     )
     from qaray_tpu_torch.fb.framebuffer import FrameBuffer
-    from qaray_tpu_torch.ops import _build, analytic, megakernel, mesh_sweep
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.ops import _build, adjoint, analytic, megakernel
+    from qaray_tpu_torch.ops import mesh_sweep
     from qaray_tpu_torch.ops import photon
     from qaray_tpu_torch.ops import intersect as I
     from qaray_tpu_torch.ops import tiles
@@ -435,6 +478,22 @@ def main():
     for name in _build.SOURCES:
         _build.load(name)
     numbers = {}
+
+    def ptxas_info(name, symbol_part):
+        """Registers and spill bytes (stores, loads) of the kernel whose
+        mangled name holds symbol_part, from nvcc's -Xptxas=-v report of
+        library `name`, which ops/_build writes beside the library."""
+        log = _build._target(name).with_suffix(".log").read_text()
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties for" in line and symbol_part in line:
+                spill = dict((k, int(v)) for v, k in re.findall(
+                    r"(\d+) bytes spill (stores|loads)", lines[i + 1]))
+                regs = re.search(r"Used (\d+) registers", lines[i + 2])
+                return dict(registers=int(regs.group(1)),
+                            spill_store_bytes=spill["stores"],
+                            spill_load_bytes=spill["loads"])
+        raise AssertionError(f"no ptxas report for {symbol_part} in {name}")
 
     # -- 2. kernels against their plain versions -----------------------------
     print("phase 2a: analytic kernels vs plain, 1M random rays", flush=True)
@@ -827,9 +886,75 @@ def main():
     numbers["K1d"] = {"max_abs_err": k1d_err}
     torch.cuda.synchronize()
 
+    print("phase 3f: K6 vs adjoint_render_plain at 200x150, max_bounce 5, "
+          "threefry: spot_scene, mesh_scene, the glass scene", flush=True)
+    cfg_g = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                             shadow_spp=16)
+
+    def grad_desc(what, w, h):
+        if what == "glass":
+            desc = with_glass(load_scene(SCENE), "mid")
+            desc.camera.depth_of_field = 0.0
+        else:
+            desc = load_scene(SPOT_SCENE if what == "spot" else MESH_SCENE)
+        desc.camera.img_width, desc.camera.img_height = w, h
+        return desc
+
+    gpx, gpy, gsid = lanes(200, 150, 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k6_err = 0.0
+    for what in ("spot", "mesh", "glass"):
+        g_arr, g_meta = compile_scene(grad_desc(what, 200, 150),
+                                      device="cuda")
+        check(adjoint.adjoint_supported(g_meta, cfg_g),
+              f"{what}: the fused adjoint serves it")
+        ct = torch.randn((gpx.shape[0], 3), device="cuda", generator=gen)
+        got = adjoint.adjoint_render(g_arr, g_meta, cfg_g, gpx, gpy, gsid,
+                                     (0, 3), ct)
+        want = adjoint.adjoint_render_plain(g_arr, g_meta, cfg_g, gpx, gpy,
+                                            gsid, (0, 3), ct)
+        errs = grad_field_errors(diff._unpack_adjoint(got, g_meta, g_arr),
+                                 diff._unpack_adjoint(want, g_meta, g_arr))
+        print(f"  K6 {what}: " + ", ".join(f"{k} {v:.3g}"
+                                          for k, v in errs.items()),
+              flush=True)
+        check(bool(got.isfinite().all()) and max(errs.values()) < K6_BAR,
+              f"K6 {what}: every field within {K6_BAR:g} of its max|b| "
+              f"(worst {max(errs.values()):.3g})")
+        k6_err = max(k6_err, (got - want).abs().max().item())
+    numbers["K6"] = {"max_abs_err": k6_err}
+
+    print("phase 3f: render_batch's gradients on the megakernel route vs "
+          "render_with_params', spot_scene 200x150", flush=True)
+    g_arr, g_meta = compile_scene(grad_desc("spot", 200, 150), device="cuda")
+    params = diff.DiffParams(*(t.detach().requires_grad_()
+                               for t in diff.extract_params(g_arr)))
+    ct = torch.rand((gpx.shape[0], 3), device="cuda", generator=gen)
+    before = megakernel.launches["K1a"]
+    rad_g, _ = render_batch(diff.splice_params(g_arr, params), g_meta, cfg_g,
+                            gpx, gpy, gsid, (0, 3))
+    check(megakernel.launches["K1a"] == before + 1
+          and rad_g.grad_fn is not None,
+          "render_batch launched K1a and its radiance carries a gradient")
+    got = diff.DiffParams(*torch.autograd.grad(
+        (rad_g * ct).sum(), params, allow_unused=True))
+    rad_w = diff.render_with_params(g_arr, g_meta, cfg_g, params, gpx, gpy,
+                                    gsid, (0, 3))
+    want = diff.DiffParams(*torch.autograd.grad(
+        (rad_w * ct).sum(), params, allow_unused=True))
+    zero = diff.DiffParams(*(torch.zeros_like(p) for p in params))
+    errs = grad_field_errors(
+        diff.DiffParams(*(z if g is None else g for z, g in zip(zero, got))),
+        diff.DiffParams(*(z if g is None else g for z, g in zip(zero, want))))
+    check(max(errs.values()) < 1e-4, "render_batch gradients equal "
+          f"render_with_params' (worst field {max(errs.values()):.3g} < "
+          "1e-4 of max|b|)")
+    del params, rad_g, rad_w
+    torch.cuda.synchronize()
+
     # -- 4. the main path ----------------------------------------------------
     counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
-                tiles.launches, photon.launches)
+                tiles.launches, photon.launches, adjoint.launches)
     forbid = ForbidPlain(
         (analytic, "closest_plain"), (analytic, "closest_full_plain"),
         (analytic, "shadow_plain"), (mesh_sweep, "stream_closest"),
@@ -1075,13 +1200,95 @@ def main():
           f"K2b launched {counts_l['K2b']} times, no K1a or K5 launch")
     Renderer._render_escalated = render_escalated
 
+    print("phase 4m: the gradient path, render_value_and_grad at 800x600, "
+          "max_bounce 5, shadow_spp 16, rbg", flush=True)
+    cfg_gp = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                              shadow_spp=16)
+    forbid_grad = ForbidPlain(*forbid.targets,
+                              (adjoint, "adjoint_render_plain"))
+    grad_cells = {}
+
+    grad_steps = {}
+
+    def grad_path(what, batch, no_mega, rounds):
+        """bench.py's _grad_bench: `rounds` steps of render_value_and_grad
+        on `batch` lanes, one sample index a step, after a warm-up step;
+        counts set to 0 just before and read just after, plain versions
+        refused. Keeps the step for phase 5's idle share. Returns (counts,
+        (loss, grads) of the step at sample index 1, the first timed one,
+        the scene and its lanes)."""
+        g_arr, g_meta = compile_scene(grad_desc(what, 800, 600),
+                                      device="cuda")
+        ids = torch.arange(batch, device="cuda", dtype=torch.int32)
+        gx, gy = ids % 800, (ids // 800) % 600
+
+        def step(s):
+            return diff.render_value_and_grad(
+                g_arr, g_meta, cfg_gp, gx, gy, torch.full_like(ids, s), rbg)
+
+        reset_counts()
+        if no_mega:
+            os.environ["QARAY_NO_MEGAKERNEL"] = "1"
+        try:
+            with forbid_grad:
+                step(0)
+                torch.cuda.synchronize()
+                t = time.time()
+                outs = [step(s) for s in range(1, rounds + 1)]
+                torch.cuda.synchronize()
+                wall = time.time() - t
+                counts = read_counts()
+        finally:
+            os.environ.pop("QARAY_NO_MEGAKERNEL", None)
+        route = "autograd" if no_mega else "fast"
+        rate = rounds * batch / wall
+        loss, grads = outs[0]
+        print(f"  {what} {route} route, {batch} lanes: {rounds} steps in "
+              f"{wall:.4f} s, {rate:.4e} forward+backward paths/s",
+              flush=True)
+        print(f"  launch counts: {json.dumps(counts)}", flush=True)
+        check(bool(torch.isfinite(loss)) and all(
+            bool(g.isfinite().all()) for g in grads),
+            f"{what} {route}: loss {float(loss):.6g} and gradients finite")
+        grad_cells[(what, route)] = dict(paths_per_s=rate, wall_s=wall)
+        grad_steps[(what, route)] = (lambda: step(rounds + 1), no_mega)
+        del outs
+        return counts, (loss, grads), (g_arr, g_meta, gx, gy)
+
+    counts_m = []
+    g_path = {}
+    for what, batch in (("spot", 1 << 18), ("mesh", 1 << 17)):
+        c_fast, out_fast, g_path[what] = grad_path(what, batch, False, 5)
+        check(c_fast["K1a"] > 0 and c_fast["K6"] == c_fast["K1a"]
+              and c_fast["wavefront_lanes"] == 0,
+              f"{what} fast route: K1a and K6 launched {c_fast['K6']} times "
+              "each, no lane on the wavefront engine")
+        if what == "mesh":
+            check(c_fast["K1c"] == c_fast["K1a"], "every K1a launch swept "
+                  "the mesh (K1c)")
+        c_auto, out_auto, _ = grad_path(what, batch, True, 2)
+        check(c_auto["K6"] == 0 and c_auto["K1a"] == 0
+              and c_auto["K2b"] > 0 and c_auto["K2c"] > 0
+              and (what != "mesh" or c_auto["K3"] > 0),
+              f"{what} autograd route: K2b {c_auto['K2b']}, K2c "
+              f"{c_auto['K2c']}, K3 {c_auto['K3']} launches, no K1a or K6")
+        counts_m += [c_fast, c_auto]
+        errs = grad_field_errors(out_fast[1], out_auto[1])
+        errs.pop("texture_texels", None)
+        print(f"  {what} fast vs autograd route: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+        check(max(errs.values()) < K6_BAR, f"{what}: the routes' gradients "
+              f"within {K6_BAR:g} of each field's max|b|")
+        del out_fast, out_auto
+    torch.cuda.synchronize()
+
     launches = {k: sum(c[k] for c in (counts_a, counts_b, counts_c, counts_d,
                                        counts_e, counts_f, counts_g, counts_h,
                                        counts_i, *counts_j, counts_k,
-                                       counts_l))
+                                       counts_l, *counts_m))
                 for k in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c",
-                          "K3", "K4a", "K4b", "K5")}
-    print(f"  launches on the main path (4a-4l): {json.dumps(launches)}",
+                          "K3", "K4a", "K4b", "K5", "K6")}
+    print(f"  launches on the main path (4a-4m): {json.dumps(launches)}",
           flush=True)
 
     # -- 5. timings at the path's shapes -------------------------------------
@@ -1329,6 +1536,85 @@ def main():
                                              m6t.tile_c16T), 10)
     torch.cuda.synchronize()
 
+    # K6 at the gradient path's shapes of 4m (spot_scene 262,144 lanes;
+    # mesh_scene 131,072), on the mean loss's cotangent. The bound counts
+    # the replay's primitive tests, ciphers and triangle tests, and as
+    # bytes the lanes' ids and cotangents in and the gradient out (the
+    # hooks are the kernel's own scratch).
+    for what in ("spot", "mesh"):
+        g_arr, g_meta, gx, gy = g_path[what]
+        n_l = gx.shape[0]
+        gs = torch.zeros_like(gx)
+        ct = torch.full((n_l, 3), 1.0 / (3 * n_l), device="cuda")
+        ms, src = kernel_ms(lambda: adjoint.adjoint_render(
+            g_arr, g_meta, cfg_gp, gx, gy, gs, rbg, ct), "adjoint_kernel", 5)
+        work = torch.zeros((n_l, 4), dtype=torch.int32, device="cuda")
+        adjoint.adjoint_render(g_arr, g_meta, cfg_gp, gx, gy, gs, rbg, ct,
+                               work=work)
+        wsum = work.sum(0, dtype=torch.int64).tolist()
+        n_par = adjoint.param_layout(g_meta.num_materials,
+                                     g_meta.num_lights)
+        nbytes = n_l * (12 + 12) + 4 * n_par
+        if g_meta.mesh_mega:
+            tab = g_arr.kernel
+            nbytes += 4 * (tab.mesh_rows.numel() + tab.mesh_attr.numel()
+                           + tab.mesh_cb.numel())
+        b_ms, b_by = bound(nbytes, wsum[0] * OPS_PER_TEST
+                           + wsum[1] * OPS_PER_CIPHER + wsum[3] * OPS_PER_TRI)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        adjoint.adjoint_render_plain(g_arr, g_meta, cfg_gp, gx, gy, gs, rbg,
+                                     ct)
+        end.record()
+        end.synchronize()
+        row = dict(ms=ms, plain_ms=start.elapsed_time(end), bound_ms=b_ms,
+                   bound_by=b_by, timed_by=src, lanes=n_l,
+                   prim_tests=wsum[0], ciphers=wsum[1], vertices=wsum[2],
+                   tri_tests=wsum[3])
+        if what == "spot":
+            numbers["K6"].update(library_ms=None, **row)
+        else:
+            numbers["K6"].update({f"mesh_{k}": v for k, v in row.items()})
+        print(f"  K6 {what}, pathtrace {n_l} lanes: {ms:.4f} ms by {src}, "
+              f"bound {b_ms:.5f} ms by {b_by}, plain {row['plain_ms']:.3f} "
+              f"ms, {wsum[2]} vertices, {wsum[1]} ciphers", flush=True)
+    # The device's idle share over three more steps of each route of 4m,
+    # with the count of K1a and K6 records the profiler kept (it may drop
+    # the last ones it traced; busy time is then read low).
+    for (what, route), (one_step, no_mega) in grad_steps.items():
+        if no_mega:
+            os.environ["QARAY_NO_MEGAKERNEL"] = "1"
+        try:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t = time.time()
+                for _ in range(3):
+                    one_step()
+                torch.cuda.synchronize()
+                wall_p = (time.time() - t) * 1e3
+        finally:
+            os.environ.pop("QARAY_NO_MEGAKERNEL", None)
+        events = prof.key_averages()
+        busy = sum(device_us(e) for e in events) / 1e3
+        kept = {k: sum(e.count for e in events if n in e.key)
+                for k, n in (("K1a", "mega_kernel"),
+                             ("K6", "adjoint_kernel"))}
+        grad_cells[(what, route)].update(idle_share=1.0 - busy / wall_p)
+        print(f"  {what} {route} route, three steps under the profiler: "
+              f"wall {wall_p:.3f} ms, device busy {busy:.3f} ms, idle share "
+              f"{1.0 - busy / wall_p:.4f}, records kept {json.dumps(kept)}",
+              flush=True)
+    numbers["K6"]["grad_path"] = {f"{w} {r}": v
+                                  for (w, r), v in grad_cells.items()}
+    numbers["K6"].update(ptxas_info("adjoint", "adjoint_kernel"))
+    numbers["K1a"].update(ptxas_info("megakernel", "mega_kernelILb0ELb0E"))
+    print(f"  K6 ptxas: {ptxas_info('adjoint', 'adjoint_kernel')}; K1a "
+          f"ptxas: {ptxas_info('megakernel', 'mega_kernelILb0ELb0E')}",
+          flush=True)
+    torch.cuda.synchronize()
+
     # Device busy share of one Renderer.render() at the 4a, 4c, 4g, 4e and
     # 4k settings (4k on phase 4k's renderer, whose maps are built).
     def profile_render(what, desc, param, r=None):
@@ -1389,10 +1675,12 @@ def main():
                 "qaray_tpu/ops/pallas_analytic.py:405"),
         "K2c": ("qaray_tpu_torch/csrc/analytic.cu",
                 "qaray_tpu/ops/pallas_analytic.py:174"),
+        "K6": ("qaray_tpu_torch/csrc/adjoint.cu",
+               "qaray_tpu/ops/pallas_adjoint.py:639"),
     }
     kernels = []
     for name in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c", "K3", "K4a",
-                 "K4b", "K5"):
+                 "K4b", "K5", "K6"):
         src, rep = meta_k[name]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches[name]}

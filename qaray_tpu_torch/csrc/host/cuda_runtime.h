@@ -1,6 +1,6 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
-// compile csrc/megakernel.cu as C++ and run it one lane at a time on the
-// CPU (ops/_build.load_host). The CPU tests use it to hold the kernel
+// compile csrc/megakernel.cu and csrc/adjoint.cu as C++ and run them one
+// lane at a time on the CPU (ops/_build.load_host). The CPU tests use it to hold the kernel
 // source's arithmetic to the plain PyTorch version where there is no card
 // and no nvcc. It says nothing about what nvcc accepts or how fast the
 // kernel is. Not thread-safe: the launch geometry lives in globals.
@@ -52,6 +52,11 @@ inline float __uint_as_float(unsigned a) {
   float f;
   memcpy(&f, &a, 4);
   return f;
+}
+inline float atomicAdd(float* a, float v) {
+  const float old = *a;
+  *a = old + v;
+  return old;
 }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }

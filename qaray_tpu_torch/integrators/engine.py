@@ -303,7 +303,9 @@ def _pathtrace_vertex(scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
     bxdf = torch.where(go_refr[:, None], refr_bxdf, torch.where(
         go_refl[:, None], refl_bxdf,
         torch.where(go_spec[:, None], spec_bxdf, mtl.diffuse)))
-    weight = bxdf / torch.clamp_min(pdf, 1e-20)[:, None]
+    # Detached sampling: the lobe pdf carries no parameter gradient (see
+    # diff.py), as the JAX engine's stop_gradient on it.
+    weight = bxdf / torch.clamp_min(pdf, 1e-20).detach()[:, None]
     alive = go_refr | go_refl | go_spec | go_diff
     return (vertex_color, new_dir, weight, alive, has_diffuse_hit,
             torch.zeros_like(mtl.absorption))
@@ -409,7 +411,8 @@ def _basic_family_vertex(scene, meta, cfg, hits, mtl, v, keys,
         d_k = zero
         spawn_d = torch.zeros_like(front)
 
-    # Roulette among the active children, in proportion to their luma.
+    # Roulette among the active children, in proportion to their luma; the
+    # selection probability is detached (detached sampling, see diff.py).
     w_t = torch.where(spawn_t, torch.clamp_min(luma(t_k), 1e-6), 0.0)
     w_r = torch.where(spawn_r, torch.clamp_min(luma(r_k), 1e-6), 0.0)
     w_d = torch.where(spawn_d, torch.clamp_min(luma(d_k), 1e-6), 0.0)
@@ -425,7 +428,7 @@ def _basic_family_vertex(scene, meta, cfg, hits, mtl, v, keys,
                           torch.where(pick_r[:, None], r_dir, d_dir))
     weight = (torch.where(pick_t[:, None], t_k,
                           torch.where(pick_r[:, None], r_k, d_k))
-              / torch.clamp_min(prob, 1e-30)[:, None])
+              / torch.clamp_min(prob, 1e-30).detach()[:, None])
     return (vertex_color, new_dir, weight, any_child, has_diffuse_hit,
             mtl.absorption)
 
@@ -590,7 +593,8 @@ def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
                                           xrep(has_diffuse_hit))
             pending_absorption = xrep(pend)
             p = xrep(hits["p"])
-            d = normalize(torch.cat(dirs, dim=0), eps=1e-30)
+            # Detached sampling, as below.
+            d = normalize(torch.cat(dirs, dim=0), eps=1e-30).detach()
             folded = [RNG.fold(ray_keys, 777000 + rep) for rep in range(mc_n)]
             ray_keys = (torch.cat([k[0] for k in folded]),
                         torch.cat([k[1] for k in folded]))
@@ -614,7 +618,11 @@ def integrate(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
         has_diffuse_hit = torch.where(alive, new_hdh, has_diffuse_hit)
         pending_absorption = pend
         p = hits["p"]
-        d = normalize(new_dir, eps=1e-30)
+        # Detached sampling: continuation directions carry no parameter
+        # gradient (reparameterized/detached estimator: the correct gradient
+        # of the discrete-lobe expectation keeps BxDF sensitivities and
+        # drops direction/PDF sensitivities; see diff.py).
+        d = normalize(new_dir, eps=1e-30).detach()
     if radiance0 is not None:
         radiance = radiance0 + radiance.reshape(mc_n, num, 3).sum(dim=0)
     return radiance, t0, irrad0

@@ -20,8 +20,8 @@ when the package is imported.
 load_host is apart from all that: it compiles a kernel source with g++
 against csrc/host/cuda_runtime.h, a stand-in that runs a launch one lane at
 a time on the CPU, so that tests without a card can hold the source's
-arithmetic to the plain version (ops/megakernel.mega_render_host). No entry
-point of the port uses it.
+arithmetic to the plain version (ops/megakernel.mega_render_host,
+ops/adjoint.adjoint_render_host). No entry point of the port uses it.
 """
 
 import ctypes
@@ -33,8 +33,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = {"analytic": "analytic.cu", "megakernel": "megakernel.cu",
-           "mesh": "mesh.cu", "photon": "photon.cu", "tiles": "tiles.cu"}
+SOURCES = {"adjoint": "adjoint.cu", "analytic": "analytic.cu",
+           "megakernel": "megakernel.cu", "mesh": "mesh.cu",
+           "photon": "photon.cu", "tiles": "tiles.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
@@ -105,7 +106,7 @@ def load_host(name: str) -> ctypes.CDLL:
     """`name`'s source compiled for the CPU by g++ (-O1, no FMA contraction,
     as the card's build has none), loaded; raises RuntimeError without g++
     or for a source that does not go through csrc/host/cuda_runtime.h's
-    macros (only the megakernel does)."""
+    macros (the megakernel and the adjoint do)."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: no host build of the kernels")

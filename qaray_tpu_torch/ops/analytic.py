@@ -10,13 +10,23 @@ csrc/analytic.cu:
 A wrapper runs the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; it never falls back from one to the other.
 `launches` counts kernel launches, one per call that launched.
+
+closest and closest_full are differentiable, as the JAX package's
+closest_analytic_pallas and closest_analytic_full_pallas custom_vjp are:
+two torch.autograd.Functions whose forward is the kernel (or, on the CPU,
+its plain version) and whose backward re-derives only the winner's t in
+plain torch (_winner_t), giving gradients for p, d, m_w2o and t_o2w. In
+the JAX package that backward is XLA code, not a Pallas kernel, so plain
+torch is its counterpart here. The winner's attributes (n, uvw, p, front)
+carry no gradient: they hold only geometry sensitivities, which the
+detached-sampling estimator leaves out (diff.py).
 """
 
 import torch
 
-from qaray_tpu_torch.core.constants import BIGFLOAT
+from qaray_tpu_torch.core.constants import BIAS, BIGFLOAT, PLANE_EPS
 from qaray_tpu_torch.ops import intersect as I
-from qaray_tpu_torch.scene.arrays import AnalyticPrims
+from qaray_tpu_torch.scene.arrays import KIND_SPHERE, AnalyticPrims
 
 launches = {"K2a": 0, "K2b": 0, "K2c": 0}
 
@@ -83,8 +93,13 @@ def closest_plain(p, d, prims: AnalyticPrims):
 
 
 def closest(p, d, prims: AnalyticPrims):
-    """Closest analytic hit: (t [B] float32, prim [B] int32)."""
+    """Closest analytic hit: (t [B] float32, prim [B] int32);
+    differentiable in t (_Closest)."""
     _check_rays(p, d, prims)
+    return _Closest.apply(p, d, prims.m_w2o, prims.t_o2w, prims)
+
+
+def _closest_fwd(p, d, prims: AnalyticPrims):
     if p.device.type == "cpu":
         return closest_plain(p, d, prims)
     n = p.shape[0]
@@ -116,12 +131,22 @@ def closest_full_plain(p, d, prims: AnalyticPrims):
     return out
 
 
+_FULL_KEYS = ("t", "prim_idx", "mtl", "n", "uvw", "front", "p",
+              "has_texture")
+
+
 def closest_full(p, d, prims: AnalyticPrims):
     """Closest hit and the winner's attributes: t, prim_idx, p (world hit
     point at t, or at t=1 on a miss), n (world, unit), uvw, front, mtl,
     has_texture. Miss lanes carry benign values (prim 0 on the kernel; the
-    plain version evaluates prim 0 at t=1)."""
+    plain version evaluates prim 0 at t=1). Differentiable in t only
+    (_ClosestFull)."""
     _check_rays(p, d, prims)
+    out = _ClosestFull.apply(p, d, prims.m_w2o, prims.t_o2w, prims)
+    return dict(zip(_FULL_KEYS, out))
+
+
+def _closest_full_fwd(p, d, prims: AnalyticPrims):
     if p.device.type == "cpu":
         return closest_full_plain(p, d, prims)
     n = p.shape[0]
@@ -153,6 +178,87 @@ def closest_full(p, d, prims: AnalyticPrims):
         "p": hp,
         "has_texture": torch.ones(n, dtype=torch.bool, device=dev),
     }
+
+
+# ---------------------------------------------------------------------------
+# Backward rules (pallas_analytic._closest_bwd / _closest_full_bwd)
+# ---------------------------------------------------------------------------
+
+
+def _winner_t(p, d, m_w2o, t_o2w, kind, idx, t_fwd):
+    """Differentiable re-derivation of the winning primitive's t
+    (pallas_analytic._winner_t): the winner alone per lane, the kernels'
+    sphere and plane math with the square root's argument clamped to
+    1e-12 (finite gradients at grazing hits). Miss lanes give 0."""
+    i = idx.long()
+    m = m_w2o[i]
+    po = I._apply(m, p - t_o2w[i])
+    do = I._apply(m, d)
+    a = (do * do).sum(-1)
+    b = 2.0 * (po * do).sum(-1)
+    c = (po * po).sum(-1) - 1.0
+    sq = torch.sqrt(torch.clamp_min(b * b - 4.0 * a * c, 1e-12))
+    rcp2a = 0.5 / torch.clamp_min(a, 1e-20)
+    t1 = (-b - sq) * rcp2a
+    t2 = (-b + sq) * rcp2a
+    t_sph = torch.where(t1 > BIAS, t1, t2)
+    doz = do[..., 2]
+    safe = torch.where(torch.abs(doz) < PLANE_EPS,
+                       torch.full_like(doz, PLANE_EPS), doz)
+    t_pln = -po[..., 2] / safe
+    tw = torch.where(kind[i] == KIND_SPHERE, t_sph, t_pln)
+    return torch.where(t_fwd < BIGFLOAT, tw, torch.zeros_like(tw))
+
+
+def _winner_grads(ctx, dt):
+    """Gradients of the saved winner's t for (p, d, m_w2o, t_o2w)."""
+    p, d, m_w2o, t_o2w, t, idx = ctx.saved_tensors
+    need = ctx.needs_input_grad[:4]
+    if dt is None or not any(need):
+        return (None,) * 4
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_(w)
+               for x, w in zip((p, d, m_w2o, t_o2w), need)]
+        tw = _winner_t(*ins, ctx.kind, idx, t)
+        wrt = [x for x, w in zip(ins, need) if w]
+        got = iter(torch.autograd.grad(tw, wrt, dt, allow_unused=True))
+    return tuple(next(got) if w else None for w in need)
+
+
+class _Closest(torch.autograd.Function):
+    """closest_analytic_pallas: K2a (plain version on the CPU) forward,
+    winner-only backward."""
+
+    @staticmethod
+    def forward(ctx, p, d, m_w2o, t_o2w, prims):
+        t, idx = _closest_fwd(p, d, prims)
+        ctx.kind = prims.kind
+        ctx.save_for_backward(p, d, m_w2o, t_o2w, t, idx)
+        ctx.mark_non_differentiable(idx)
+        return t, idx
+
+    @staticmethod
+    def backward(ctx, dt, _didx):
+        return (*_winner_grads(ctx, dt), None)
+
+
+class _ClosestFull(torch.autograd.Function):
+    """closest_analytic_full_pallas: K2b (plain version on the CPU)
+    forward, winner-only backward; the attributes are detached."""
+
+    @staticmethod
+    def forward(ctx, p, d, m_w2o, t_o2w, prims):
+        full = _closest_full_fwd(p, d, prims)
+        out = tuple(full[k] for k in _FULL_KEYS)
+        ctx.kind = prims.kind
+        ctx.save_for_backward(p, d, m_w2o, t_o2w, full["t"],
+                              full["prim_idx"])
+        ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, dt, *_attrs):
+        return (*_winner_grads(ctx, dt), None)
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,8 @@
 csrc/megakernel.cu).
 
 Counterpart of qaray_tpu/ops/pallas_pathtrace.py: _fold_words
-(core.rng.fold_words here), build_mega_mesh, _mega_raw and mega_render,
-forward only (the backward comes with the gradient slice). _pack_tables is
+(core.rng.fold_words here), build_mega_mesh, _mega_raw and mega_render
+with its custom_vjp (_MegaRender). _pack_tables is
 scene.arrays.with_kernel_tables, run once when a scene is compiled. One
 launch renders one pathtrace or photonmap sample per lane: camera ray,
 every bounce's closest hit, shading, next-event shadow rays and all
@@ -26,12 +26,24 @@ engine with the exact gather (photon/gather.py), equal to K1d on every
 lane that is not escalated. mega_render runs it for tensors on the CPU
 and launches the kernel for CUDA tensors, never falling back from one to
 the other. `launches` counts kernel launches.
+
+Gradients: where a differentiable scene leaf (diff.DiffParams's fields of
+the scene) requires grad, mega_render is a torch.autograd.Function: the
+kernel forward as above, and a backward that re-runs the wavefront engine
+under autograd on the same lanes and key words, in batches of BWD_BATCH
+lanes, and takes the radiance cotangent back to those leaves. Under
+threefry words both compute the same function draw for draw, so this is
+the gradient of the forward's estimator. (The JAX package's backward
+samples XLA's rbg stream under an rbg key, an independent estimator; here
+both draw from the folded threefry words.) The primary depth, the photon
+maps and the photonmap flags carry no gradient.
 """
 
 import numpy as np
 import torch
 
 from qaray_tpu_torch.core.rng import fold_words
+from qaray_tpu_torch.diff import DiffParams, extract_params, splice_params
 from qaray_tpu_torch.photon.gather import radius2
 from qaray_tpu_torch.scene.arrays import (
     MTL_COLS,
@@ -46,6 +58,9 @@ launches = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0}
 NUM_REC = 17  # fields of a global-map gather record
 
 MEGA_CLUSTER = 256  # triangles per cull cluster
+
+# Lanes a batch of the backward's engine run (bounds its saved tensors).
+BWD_BATCH = 65536
 
 _fns = {}
 
@@ -141,6 +156,19 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
     """
     _check_lanes(px, py, sample_ids)
     gather = gathers(cfg, photon_maps)
+    leaves = extract_params(scene)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
+        return _MegaRender.apply(
+            (scene, meta, cfg, px, py, sample_ids, key_words, work,
+             photon_maps if gather else None), *leaves)
+    return _forward(scene, meta, cfg, px, py, sample_ids, key_words, work,
+                    photon_maps if gather else None)
+
+
+def _forward(scene, meta, cfg, px, py, sample_ids, key_words, work,
+             photon_maps):
+    """mega_render without gradients; photon_maps only when it gathers."""
+    gather = photon_maps is not None
     if px.device.type == "cpu":
         from qaray_tpu_torch.integrators.engine import render_batch_wavefront
 
@@ -152,8 +180,7 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
             photon_maps=photon_maps, want_aux=True)
         return radiance, t0, irr0, torch.zeros_like(irr0)
     out = _launch(_kernel(), torch.cuda.current_stream().cuda_stream, scene,
-                  meta, cfg, px, py, sample_ids, key_words, work,
-                  photon_maps if gather else None)
+                  meta, cfg, px, py, sample_ids, key_words, work, photon_maps)
     if px.shape[0]:
         launches["K1a"] += 1
         if mega_textured(meta):
@@ -163,6 +190,49 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
         if gather:
             launches["K1d"] += 1
     return out
+
+
+class _MegaRender(torch.autograd.Function):
+    """pallas_pathtrace.mega_render's custom_vjp: the kernel forward (its
+    plain version on the CPU), the wavefront engine's autograd backward
+    with respect to the DiffParams leaves."""
+
+    @staticmethod
+    def forward(ctx, args, *leaves):
+        ctx.args = args
+        ctx.save_for_backward(*leaves)
+        out = _forward(*args)
+        ctx.mark_non_differentiable(*out[1:])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_rad, *_rest):
+        from qaray_tpu_torch.integrators.engine import render_batch_wavefront
+
+        scene, meta, cfg, px, py, sid, key_words, _, photon_maps = ctx.args
+        leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        if g_rad is None or not any(need):
+            return (None,) * (1 + len(leaves))
+        params = DiffParams(*(t.detach().requires_grad_(w)
+                              for t, w in zip(leaves, need)))
+        wrt = [t for t, w in zip(params, need) if w]
+        total = [torch.zeros_like(t) for t in wrt]
+        spliced = splice_params(scene, params)
+        with torch.enable_grad():
+            for lo in range(0, px.shape[0], BWD_BATCH):
+                sl = slice(lo, lo + BWD_BATCH)
+                rad = render_batch_wavefront(
+                    spliced, meta, cfg, px[sl], py[sl], sid[sl], key_words,
+                    photon_maps=photon_maps)[0]
+                if not rad.requires_grad:
+                    continue
+                for acc, g in zip(total, torch.autograd.grad(
+                        rad, wrt, g_rad[sl], allow_unused=True)):
+                    if g is not None:
+                        acc += g
+        got = iter(total)
+        return (None, *(next(got) if w else None for w in need))
 
 
 def mega_render_host(scene: SceneArrays, meta: SceneMeta, cfg, px, py,

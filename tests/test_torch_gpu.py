@@ -16,7 +16,10 @@ family's integrators are held to the same code on the CPU. K5 against
 photon_gather_plain: sums within 1e-5 relative, counts exact; K1d against
 the engine with its exact gathers: test_mega_photon_gather_parity's and
 test_mega_photon_escalation_flags_dense_lanes's bars on caustics_scene
-(softdof with a glass middle sphere).
+(softdof with a glass middle sphere). K6 against adjoint_render_plain:
+tests/test_grad.py's 3e-2 of max|b| per field; render_value_and_grad's
+fast route launches K1a and K6; render_batch's gradients on the
+megakernel route equal render_with_params'.
 """
 
 import numpy as np
@@ -455,3 +458,111 @@ def test_renderer_photon_render(cuda, tmp_path, monkeypatch):
     assert 0 < (fb.irrad > 0).mean() < 1
     assert (tmp_path / "photonmap.dat").stat().st_size == 2000 * 26
     assert (tmp_path / "caustics.dat").stat().st_size == 300 * 26
+
+
+# -- gradients ---------------------------------------------------------------
+
+
+def _grad_scene(name, res):
+    """spot_scene, mesh_scene or the glass scene (softdof with its depth of
+    field 0 and a glass middle sphere) compiled on the card."""
+    if name == "glass":
+        scene = with_glass(load_scene(SCENES[1]), "mid")
+        scene.camera.depth_of_field = 0.0
+    else:
+        scene = load_scene(f"tests/assets/{name}_scene.xml")
+    scene.camera.img_width, scene.camera.img_height = res
+    return compile_scene(scene, device="cuda")
+
+
+def _field_errors(got, want):
+    """max|a - b| over max|b| (tests/test_grad.py's measure)."""
+    a, b = got.double().cpu(), want.double().cpu()
+    scale = b.abs().max().clamp_min(1e-30)
+    return ((a - b).abs().max() / scale).item()
+
+
+@pytest.mark.parametrize("name", ["spot", "mesh", "glass"])
+def test_k6_matches_plain(cuda, name):
+    """K6 against adjoint_render_plain at 64x48, max_bounce 3, threefry:
+    every field within 3e-2 of its max|b|; one launch counted."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.ops import adjoint
+
+    arr, meta = _grad_scene(name, (64, 48))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=3,
+                           shadow_spp=4, shadow_spp_max=8)
+    assert adjoint.adjoint_supported(meta, cfg)
+    px, py, sid = _lanes(64, 48, 1, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ct = torch.randn((px.shape[0], 3), device="cuda", generator=gen)
+    before = adjoint.launches["K6"]
+    got = adjoint.adjoint_render(arr, meta, cfg, px, py, sid, (0, 3), ct)
+    assert adjoint.launches["K6"] == before + 1
+    want = adjoint.adjoint_render_plain(arr, meta, cfg, px, py, sid, (0, 3),
+                                        ct)
+    g, w = (diff._unpack_adjoint(x, meta, arr) for x in (got, want))
+    for f in diff.DiffParams._fields[:7] + ("background", "environment"):
+        gf, wf = getattr(g, f), getattr(w, f)
+        if wf.abs().max() == 0:
+            assert gf.abs().max() < 1e-6, f
+            continue
+        assert _field_errors(gf, wf) < 3e-2, f
+
+
+def test_render_value_and_grad_launches_k6(cuda, monkeypatch):
+    """The fast route on the card is K1a forward and one K6 launch, and
+    gives the autograd route's gradients (QARAY_NO_MEGAKERNEL) within 3e-2
+    of each field's max|b|."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.ops import adjoint
+
+    arr, meta = _grad_scene("spot", (64, 48))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=3,
+                           shadow_spp=4, shadow_spp_max=8)
+    px, py, sid = _lanes(64, 48, 1, "cuda")
+    before = (megakernel.launches["K1a"], adjoint.launches["K6"])
+    loss, got = diff.render_value_and_grad(arr, meta, cfg, px, py, sid,
+                                           (0, 3))
+    assert (megakernel.launches["K1a"], adjoint.launches["K6"]) == (
+        before[0] + 1, before[1] + 1)
+    monkeypatch.setenv("QARAY_NO_MEGAKERNEL", "1")
+    loss_a, want = diff.render_value_and_grad(arr, meta, cfg, px, py, sid,
+                                              (0, 3))
+    assert adjoint.launches["K6"] == before[1] + 1
+    torch.testing.assert_close(loss, loss_a, rtol=1e-4, atol=1e-6)
+    for f in diff.DiffParams._fields:
+        gf, wf = getattr(got, f), getattr(want, f)
+        if wf.abs().max() == 0:
+            assert gf.abs().max() < 1e-6, f
+            continue
+        assert _field_errors(gf, wf) < 3e-2, f
+
+
+def test_render_batch_gradients_on_megakernel_route(cuda):
+    """render_batch on the megakernel route (K1a forward) carries
+    gradients to the DiffParams leaves: those of render_with_params."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.integrators.engine import render_batch
+
+    arr, meta = _grad_scene("spot", (64, 48))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=3,
+                           shadow_spp=4, shadow_spp_max=8)
+    px, py, sid = _lanes(64, 48, 2, "cuda")
+    ct = torch.rand((px.shape[0], 3), device="cuda")
+    params = diff.DiffParams(*(t.detach().requires_grad_()
+                               for t in diff.extract_params(arr)))
+    before = megakernel.launches["K1a"]
+    rad, _ = render_batch(diff.splice_params(arr, params), meta, cfg, px, py,
+                          sid, (0, 3))
+    assert megakernel.launches["K1a"] == before + 1
+    got = torch.autograd.grad((rad * ct).sum(), params, allow_unused=True)
+    rad_w = diff.render_with_params(arr, meta, cfg, params, px, py, sid,
+                                    (0, 3))
+    want = torch.autograd.grad((rad_w * ct).sum(), params,
+                               allow_unused=True)
+    for f, g, w in zip(diff.DiffParams._fields, got, want):
+        if w is None:
+            assert g is None or g.abs().max() == 0, f
+            continue
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
