@@ -9,10 +9,16 @@ Phases, each fatal on failure:
           tests/assets/softdof_scene.xml (tests/test_pallas.py bars);
        b. K3 (ico5, 20,480 triangles) against stream_closest and
           stream_any_hit, K4a/K4b (ico6, 81,920 triangles) against
-          tiled_sweep, and the two-phase K4a march against the single-phase
+          tiled_sweep, and the two-phase K4a walk against the single-phase
           one, on 1M random rays and the 480,000 camera rays of
           tests/assets/mesh_scene.xml at 800x600 (and their shadow rays for
-          K4b), with the tests/test_pallas_tiles.py bars;
+          K4b), with the tests/test_pallas_tiles.py bars and K4a's
+          runner-up, exact below t_cur, equal to tiled_sweep's on > 99 % of
+          the rays where that has one; K4a under a cap of 12 clusters a ray
+          against the uncapped walk on the rays it marks resolved; and
+          262,144 rays aimed at ico4's vertices through K4a and
+          ops/trace._fallback against tiled_sweep and the same fallback:
+          equal (t, gid) but for exact ties in t, no hole;
        c. K5 against photon_gather_plain on caustics_scene (softdof with its
           middle sphere made glass, scene.procedural.with_glass) at
           800x600 with the default maps (10,000 global photons at r 0.2,
@@ -73,7 +79,7 @@ Phases, each fatal on failure:
        c. Renderer defaults on mesh_scene.xml: K1a with K1c's mesh sweep;
        d. the same with the ico5 icosphere: K1a/K1c;
        e. the same with the ico6 icosphere, 1 spp: above 65,536 triangles
-          the wavefront route, K4a (two-phase) and K4b with K2b/K2c;
+          the wavefront route, K4a (two-phase walk) and K4b with K2b/K2c;
        f. mesh_scene.xml under QARAY_NO_MEGAKERNEL, 1 spp: K3 with K2b/K2c;
        g. Renderer defaults on texture_scene.xml: K1a with K1b's checker
           textures, no lane on the wavefront engine;
@@ -102,7 +108,12 @@ Phases, each fatal on failure:
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time, and the device's idle
      share in one Renderer.render() of 4a, 4c, 4g, 4e and 4k; K6's at the
-     gradient path's shape of 4m.
+     gradient path's shape of 4m; K3's also at the shape of its launches
+     (mesh_scene, 320 triangles); K4a's and K4b's with two bounds, the
+     clusters within reach of the winner (the bound of a walk that keeps
+     the winner alone) and within reach of the runner-up (what the exact
+     top-2 needs), their registers and spills,
+     and the two-phase K4a whole at budgets 12 and 0.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers and, last, {"ok": true, "device": {...}}. Exits non-zero without
 those lines when there is no CUDA device or no package beside it.
@@ -323,6 +334,95 @@ def row_bars(want, got, what):
     return (t_k - t_x)[hit].abs().max().item() if hit.any() else 0.0
 
 
+def row2_bar(want, got, what):
+    """K4a's runner-up is exact below t_cur: on the rays where the
+    reference reports a winner and a runner-up, the same runner-up on more
+    than 99 % (tiled_sweep's runner-up is exact; the Pallas march's is
+    not)."""
+    has = (want[1] >= 0) & (want[2] >= 0)
+    same = (got[2][has] == want[2][has]).double().mean().item()
+    check(same > 0.99, f"{what}: runner-ups equal on {same:.6f} > 0.99 of "
+          f"the {has.double().mean().item():.4f} of rays with one")
+
+
+def vertex_rays_no_hole():
+    """262,144 rays from a sphere of three radii around mesh_scene's
+    icosphere at ico4, aimed at its vertices jittered by 1e-4 (where the
+    exact re-test rejects sweep winners), through K4a's two-phase walk and
+    ops/trace._fallback, against tiled_sweep and the same fallback: equal
+    (t, gid) on every ray but exact ties of the sweep's t, and no ray
+    without a hit where the reference has one."""
+    from qaray_tpu_torch.ops import tiles
+    from qaray_tpu_torch.ops.mesh_stream import _chunk_test
+    from qaray_tpu_torch.ops.mesh_tiles import (
+        TiledMesh,
+        exact_winner_rows,
+        tiled_sweep,
+    )
+    from qaray_tpu_torch.ops.trace import _fallback
+    from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.procedural import icosphere, with_mesh
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+
+    v, f = icosphere(4)
+    old = os.environ.get("QARAY_STREAM_MAX_TRIS")
+    os.environ["QARAY_STREAM_MAX_TRIS"] = "1"
+    try:
+        arr, meta = compile_scene(with_mesh(load_scene(MESH_SCENE), v, f),
+                                  device="cuda")
+    finally:
+        if old is None:
+            os.environ.pop("QARAY_STREAM_MAX_TRIS")
+        else:
+            os.environ["QARAY_STREAM_MAX_TRIS"] = old
+    check(meta.mesh_tiled, "ico4 compiled for the tiled route")
+    m = arr.mesh
+    tm = TiledMesh(m.tile_coeff, m.tile_const, m.tile_gid, m.tile_cbounds)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 1 << 18
+    c = torch.tensor(ICO_CENTRE, device="cuda")
+    u = torch.randn((n, 3), device="cuda", generator=gen)
+    p = c + 3.0 * ICO_RADIUS * u / u.norm(dim=1, keepdim=True)
+    corners = m.tri_v.reshape(-1, 3)  # world-space vertices
+    pick = torch.randint(0, corners.shape[0], (n,), device="cuda",
+                         generator=gen)
+    aim = corners[pick] + 1e-4 * torch.randn((n, 3), device="cuda",
+                                             generator=gen)
+    d = (aim - p) / (aim - p).norm(dim=1, keepdim=True)
+    p, d = p.contiguous(), d.contiguous()
+    t_cur = torch.full((n,), BIG, device="cuda")
+
+    def fallback(rows, rows2):
+        return _fallback(t_cur, exact_winner_rows(p, d, rows, tm, m.tri_v),
+                         exact_winner_rows(p, d, rows2, tm, m.tri_v))[:2]
+
+    def sweep_t(rows):
+        r = rows.clamp_min(0).long()
+        t = _chunk_test(p[:, None], d[:, None], tm.coeff[r][:, None],
+                        tm.const[r][:, None])[:, 0, 0]
+        return torch.where(rows >= 0, t, -1.0)
+
+    got = tiles.tiled_closest_twophase(p, d, t_cur, tm, m.tile_c16T,
+                                       tree=m.tile_tree)
+    ref = tiled_sweep(p, d, t_cur, tm)
+    (t_g, gid_g), (t_r, gid_r) = fallback(*got[1:]), fallback(*ref[1:])
+    tie = ((sweep_t(got[1]) == sweep_t(ref[1]))
+           & (sweep_t(got[2]) == sweep_t(ref[2])))
+    off = ~(((gid_g == gid_r) & (t_g == t_r)) | tie)
+    holes = (gid_g < 0) & (gid_r >= 0) & ~tie
+    fell = (fallback(got[1], torch.full_like(got[1], -1))[1] != gid_g)
+    moved = tie & ((got[1] != ref[1]) | (got[2] != ref[2]))
+    print(f"  vertex-aimed ico4 rays: {int(fell.sum())} took the runner-up, "
+          f"{int(moved.sum())} have other rows at exactly tied t",
+          flush=True)
+    check(not bool(off.any()), f"K4a + fallback, {n} vertex-aimed ico4 "
+          f"rays: (t, gid) of tiled_sweep but for ties ({int(off.sum())} "
+          "off)")
+    check(not bool(holes.any()) and bool(fell.any()),
+          f"K4a + fallback: no hole ({int(holes.sum())}) where the "
+          "runner-up was taken")
+
+
 def mesh_rays(n, seed):
     """Rays around mesh_scene's icosphere: origins uniform in a box three
     radii wide, half the directions aimed at the centre (jittered), half
@@ -438,6 +538,7 @@ def main():
     from qaray_tpu_torch.ops import tiles
     from qaray_tpu_torch.ops.mesh_stream import (
         StreamTris,
+        _chunk_test,
         stream_any_hit,
         stream_closest,
     )
@@ -577,10 +678,21 @@ def main():
         check(torch.equal(occ_k, occ_p), f"K3 any hit ico5 {what}: every "
               "ray equal")
         del got, want
-        got = tiles.tiled_sweep_kernel(p_, d_, t_cur, tm6, m6t.tile_c16T)
+        got = tiles.tiled_sweep_kernel(p_, d_, t_cur, tm6, m6t.tile_c16T,
+                                       tree=m6t.tile_tree)
         want = tiled_sweep(p_, d_, t_cur, tm6)
         mesh_err["K4a"] = max(mesh_err["K4a"],
                               row_bars(want, got, f"K4a ico6 {what}"))
+        row2_bar(want, got, f"K4a ico6 {what}")
+        capped = tiles.tiled_sweep_kernel(p_, d_, t_cur, tm6, m6t.tile_c16T,
+                                          max_steps=12, tree=m6t.tile_tree)
+        res = capped[3]
+        check(all(torch.equal(a[res], b[res])
+                  for a, b in zip(capped[:3], got[:3])),
+              f"K4a ico6 {what}, 12 clusters a ray: the "
+              f"{res.double().mean().item():.4f} of rays marked resolved "
+              "have their uncapped top-2")
+        del capped, res
         if what == "camera":
             # Shadow rays toward mesh_scene's direct light from the camera
             # rays' hits; misses get budget 0, as the engine gives them.
@@ -591,25 +703,24 @@ def main():
             p_ = sp.contiguous()
             shadow6 = (p_, d_, tmax_)
         occ_k = tiles.tiled_sweep_kernel(p_, d_, tmax_, tm6, m6t.tile_c16T,
-                                         any_hit=True)
+                                         any_hit=True, tree=m6t.tile_tree)
         occ_p = tiled_sweep(p_, d_, tmax_, tm6, any_hit=True)
         check(torch.equal(occ_k, occ_p), f"K4b ico6 {what}: every ray equal "
               f"({occ_k.double().mean().item():.4f} occluded)")
         del got, want
     for what, p_, d_ in (("random", rp, rd), ("camera", cp, cd)):
-        # Two-phase against single-phase, both on the coherence-sorted rays.
-        # Rows may differ only where two triangles tie exactly in t (a ray
-        # through an edge both share): the repacked phase-2 packets visit
-        # the clusters in another order.
+        # Two-phase against single-phase, both on the coherence-sorted rays:
+        # a ray's walk takes the same clusters in the same order in both.
         t_cur = torch.full((p_.shape[0],), BIG, device="cuda")
-        t0, r0, _ = tiles.tiled_closest_twophase(p_, d_, t_cur, tm6,
-                                                 m6t.tile_c16T, budget=0)
-        t1, r1, _ = tiles.tiled_closest_twophase(p_, d_, t_cur, tm6,
-                                                 m6t.tile_c16T, budget=12)
-        ties = int(((r0 != r1) & (t0 == t1)).sum().item())
-        check(bool(((r0 == r1) | (t0 == t1)).all()),
-              f"K4a two-phase vs single-phase ico6 {what}: rows identical "
-              f"but for {ties} exact ties in t")
+        t0, r0, s0 = tiles.tiled_closest_twophase(
+            p_, d_, t_cur, tm6, m6t.tile_c16T, budget=0, tree=m6t.tile_tree)
+        t1, r1, s1 = tiles.tiled_closest_twophase(
+            p_, d_, t_cur, tm6, m6t.tile_c16T, budget=12, tree=m6t.tile_tree)
+        check(torch.equal(t0, t1) and torch.equal(r0, r1)
+              and torch.equal(s0, s1), f"K4a two-phase vs single-phase ico6 "
+              f"{what}: t, rows and runner-ups identical")
+    del t0, r0, s0, t1, r1, s1
+    vertex_rays_no_hole()
     torch.cuda.synchronize()
 
     print("phase 2c: K5 vs photon_gather_plain, the global-map records of "
@@ -958,7 +1069,7 @@ def main():
     forbid = ForbidPlain(
         (analytic, "closest_plain"), (analytic, "closest_full_plain"),
         (analytic, "shadow_plain"), (mesh_sweep, "stream_closest"),
-        (mesh_sweep, "stream_any_hit"), (tiles, "march_plain"),
+        (mesh_sweep, "stream_any_hit"), (tiles, "walk_plain"),
         (photon, "photon_gather_plain"))
 
     def reset_counts():
@@ -1465,75 +1576,135 @@ def main():
     torch.cuda.synchronize()
 
     # K3 on ico5 and K4a/K4b on ico6 at the 480,000 camera rays of
-    # mesh_scene at 800x600 (and, for K4b, their shadow rays). The tiled
-    # route sorts rays by coherence_order before each march, so the kernels
-    # are timed on sorted rays; the two-phase K4a is also timed whole.
+    # mesh_scene at 800x600 (and, for K4b, their shadow rays); K3 also on
+    # mesh_scene's own 320 triangles, the shape of its launches in 4f and
+    # 4m. The tiled route sorts rays by coherence_order before each walk,
+    # so the kernels are timed on sorted rays; the two-phase K4a is also
+    # timed whole.
     n_cam = cp.shape[0]
     t_big = torch.full((n_cam,), BIG, device="cuda")
-    fp5 = c16.shape[0]
-    tests = n_cam * fp5
-    b_ms, b_by = bound(n_cam * (24 + 4 + 12) + fp5 * 64, tests * OPS_PER_TRI)
-    k_ms, src = kernel_ms(
-        lambda: mesh_sweep.sweep_closest(cp, cd, t_big, c16), "sweep_kernel",
-        10)
+
+    def k3_row(c16_, n_tris):
+        fp = c16_.shape[0]
+        b_ms, b_by = bound(n_cam * (24 + 4 + 12) + fp * 64,
+                           n_cam * fp * OPS_PER_TRI)
+        k_ms, src = kernel_ms(lambda: mesh_sweep.sweep_closest(
+            cp, cd, t_big, c16_), "sweep_kernel", 10)
+        return dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by, timed_by=src,
+                    triangles=n_tris, tri_tests=n_cam * fp)
+
     numbers["K3"] = dict(
-        max_abs_err=mesh_err["K3"], ms=k_ms,
+        max_abs_err=mesh_err["K3"], **k3_row(c16, m5.num_tris),
         plain_ms=cuda_ms(lambda: stream_closest(cp, cd, t_big, plain5), 1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, timed_by=src,
-        wrapper_ms=cuda_ms(
+        library_ms=None, wrapper_ms=cuda_ms(
             lambda: mesh_sweep.sweep_closest(cp, cd, t_big, c16), 10),
-        rays=n_cam, triangles=m5.num_tris, tri_tests=tests)
+        rays=n_cam)
+    ms_arr, _ = compile_scene(mesh_base, device="cuda")
+    numbers["K3"]["mesh_scene"] = k3_row(ms_arr.mesh.stream_c16, 320)
+    print(f"  K3 on mesh_scene (320 triangles): "
+          f"{json.dumps(numbers['K3']['mesh_scene'])}", flush=True)
+    del ms_arr
 
     lo6 = m6t.tile_cbounds[:, :3].amin(0)
     hi6 = m6t.tile_cbounds[:, 3:6].amax(0)
-    packet = tiles.PACKET_ROWS * tiles.LANES
     fp6 = m6t.tile_c16T.shape[0] * 8
-    n_cl = m6t.tile_cbounds.shape[0]
+    tree6 = m6t.tile_tree
+
+    def clusters_within(p_, d_, reach):
+        """Per ray, the clusters whose widened entry bound is below reach:
+        those any exact walk must sweep (tiles.ray_cluster_entry, the
+        kernels' own box test)."""
+        out = []
+        for k in range(0, p_.shape[0], 1 << 13):
+            lo, ok = tiles.ray_cluster_entry(p_[k:k + (1 << 13)],
+                                             d_[k:k + (1 << 13)],
+                                             m6t.tile_cbounds)
+            out.append((ok & (lo < reach[k:k + (1 << 13), None])).sum(1))
+        return torch.cat(out)
+
     for name, (p_, d_, t_) in (("K4a", (cp, cd, t_big)), ("K4b", shadow6)):
         any_hit = name == "K4b"
         perm = tiles.coherence_order(p_, d_, lo6, hi6)
         ps, ds, ts = (x[perm].contiguous() for x in (p_, d_, t_))
         n = ps.shape[0]
-        g = (n + packet - 1) // packet
-        # The bound counts the triangle tests each ray needed (its own
-        # reach against each visited cluster's entry bound), not every lane
-        # of every visited cluster.
-        steps = torch.zeros(g, dtype=torch.int32, device="cuda")
+        steps = torch.zeros(n, dtype=torch.int32, device="cuda")
         work = torch.zeros(n, dtype=torch.int32, device="cuda")
         out = tiles.tiled_sweep_kernel(ps, ds, ts, tm6, m6t.tile_c16T,
                                        any_hit=any_hit, steps=steps,
-                                       work=work)
-        per_packet = torch.clamp(
-            n - packet * torch.arange(g, device="cuda"), max=packet)
-        upper = int((steps.long() * per_packet).sum().item()) * 256
-        tests = int(work.sum(dtype=torch.int64).item())
-        check(bool((work % 256 == 0).all()) and tests <= upper,
-              f"{name} per-ray tests {tests} within the packets' {upper}")
+                                       work=work, tree=tree6)
+        check(bool((work % 256 == 0).all() & (work <= 256 * steps).all()),
+              f"{name}: per-ray work in whole clusters, within those "
+              "visited")
+        # Two bounds. The winner's: the clusters within reach of the
+        # winner (its final t; the any hit: those the walk visited while
+        # open, the kernel's work). The exact top-2's: the clusters within
+        # reach of the runner-up (the any hit: every cluster within the
+        # budget of a ray left open, one for an occluded ray).
+        if any_hit:
+            need = torch.where(out, 1, clusters_within(ps, ds, ts))
+            need_win = work // 256
+        else:
+            # The runner-up's t, from its row as the sweep computes it.
+            r2 = out[2].clamp_min(0).long()
+            t2 = _chunk_test(ps[:, None], ds[:, None], tm6.coeff[r2][:, None],
+                             tm6.const[r2][:, None])[:, 0, 0]
+            need = clusters_within(ps, ds, torch.where(out[2] >= 0, t2, ts))
+            del r2, t2
+            need_win = clusters_within(ps, ds, out[0])
+        check(bool((need <= steps).all()), f"{name}: every ray visited the "
+              "clusters it needs")
         if any_hit:
             check(bool((work[ts <= BIAS] == 0).all()),
                   "K4b: no test counted for a ray without budget")
         else:
-            check(bool((work[out[1] >= 0] > 0).all()),
-                  "K4a: every ray with a hit needed a test")
-        nbytes = n * (24 + 4 + 4 + 13) + fp6 * 64 + g * n_cl * 8
+            check(bool((steps[out[1] >= 0] > 0).all()),
+                  "K4a: every ray with a hit visited a cluster")
+        # A warp's 32 rays take as long as its slowest walk: the clusters
+        # a ray's warp visits at most, averaged over rays.
+        warp_max = steps[: n - n % 32].view(-1, 32).amax(1)
+        warp_clusters = warp_max.double().mean().item()
+        tests = int(need.sum(dtype=torch.int64).item()) * 256
+        tests_win = int(need_win.sum(dtype=torch.int64).item()) * 256
+        visited = int(steps.sum(dtype=torch.int64).item())
+        nbytes = n * (24 + 4 + (1 if any_hit else 13)) + fp6 * 64 \
+            + tree6.numel() * 4
         b_ms, b_by = bound(nbytes, tests * OPS_PER_TRI)
-        kname = "march_kernel<true>" if any_hit else "march_kernel<false>"
+        bw_ms, _ = bound(nbytes, tests_win * OPS_PER_TRI)
+        kname = "walk_kernel<true>" if any_hit else "walk_kernel<false>"
         k_ms, src = kernel_ms(lambda: tiles.tiled_sweep_kernel(
-            ps, ds, ts, tm6, m6t.tile_c16T, any_hit=any_hit), kname, 10)
+            ps, ds, ts, tm6, m6t.tile_c16T, any_hit=any_hit, tree=tree6),
+            "walk_kernel", 10)
         numbers[name] = dict(
             max_abs_err=mesh_err[name], ms=k_ms,
-            plain_ms=cuda_ms(lambda: tiled_sweep(ps, ds, ts, tm6,
-                                                 any_hit=any_hit), 1),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, timed_by=src,
+            plain_ms=cuda_ms(lambda: tiles.walk_plain(
+                ps, ds, ts, m6t.tile_c16T, m6t.tile_cbounds, any_hit), 1),
+            bound_ms=b_ms, bound_by=b_by, bound_winner_ms=bw_ms,
+            library_ms=None, timed_by=src,
             wrapper_ms=cuda_ms(lambda: tiles.tiled_sweep_kernel(
-                ps, ds, ts, tm6, m6t.tile_c16T, any_hit=any_hit), 10),
-            rays=n, triangles=m6.num_tris, packets=g,
-            clusters_visited=int(steps.sum().item()),
-            max_packet_clusters=int(steps.max().item()), tri_tests=tests,
-            packet_tri_tests=upper)
+                ps, ds, ts, tm6, m6t.tile_c16T, any_hit=any_hit,
+                tree=tree6), 10),
+            rays=n, triangles=m6.num_tris, clusters_visited=visited,
+            mean_ray_clusters=visited / n, warp_ray_clusters=warp_clusters,
+            max_ray_clusters=int(steps.max().item()), tri_tests=tests,
+            tri_tests_win=tests_win,
+            **ptxas_info("tiles", "walk_kernelILb1E" if any_hit
+                         else "walk_kernelILb0E"))
+        print(f"  {name} ({kname}): {k_ms:.4f} ms by {src}, bound "
+              f"{b_ms:.5f} ms (runner-up reach; winner reach "
+              f"{bw_ms:.5f} ms), {visited / n:.3f} clusters a ray, "
+              f"{warp_clusters:.3f} for its warp's slowest, at most "
+              f"{int(steps.max().item())}", flush=True)
     numbers["K4a"]["twophase_wrapper_ms"] = cuda_ms(
         lambda: tiles.tiled_closest_twophase(cp, cd, t_big, tm6,
-                                             m6t.tile_c16T), 10)
+                                             m6t.tile_c16T, tree=tree6), 10)
+    numbers["K4a"]["twophase_budget0_wrapper_ms"] = cuda_ms(
+        lambda: tiles.tiled_closest_twophase(cp, cd, t_big, tm6,
+                                             m6t.tile_c16T, budget=0,
+                                             tree=tree6), 10)
+    print(f"  K4a two-phase whole: budget 12 "
+          f"{numbers['K4a']['twophase_wrapper_ms']:.4f} ms, budget 0 "
+          f"{numbers['K4a']['twophase_budget0_wrapper_ms']:.4f} ms",
+          flush=True)
     torch.cuda.synchronize()
 
     # K6 at the gradient path's shapes of 4m (spot_scene 262,144 lanes;

@@ -9,3 +9,15 @@ caller passes device="cpu".
 """
 
 __version__ = "0.1.0"
+
+from qaray_tpu_torch.scene.xml_parser import load_scene  # noqa: E402
+from qaray_tpu_torch.scene.compiler import compile_scene  # noqa: E402
+from qaray_tpu_torch.renderer import Renderer, RendererParam  # noqa: E402
+
+__all__ = [
+    "load_scene",
+    "compile_scene",
+    "Renderer",
+    "RendererParam",
+    "__version__",
+]

@@ -1,6 +1,6 @@
 // Triangle sweep predicate and cluster cull shared by the mesh kernels:
 // K3 (mesh.cu), K4a/K4b (tiles.cu) and the megakernel's mesh sweep K1c
-// (megakernel.cu).
+// (megakernel.cu, adjoint.cu).
 //
 // The predicate is qaray_tpu/ops/pallas_mesh.py::_sweep_kernel's math
 // (the linear-in-t form of the reference triangle test,
@@ -83,9 +83,10 @@ __device__ __forceinline__ RaySlab ray_slab(V3 p, V3 d) {
 // for one ray that interval is the plain slab test, whose rounding could
 // drop a grazing hit on a box face. Both ends are therefore widened by a
 // relative 1e-5 (the slab times carry a few ulp of error): the cull may
-// over-accept, never drop a cluster that holds the winner.
-__device__ __forceinline__ bool box_may_hit(const float* cb, const RaySlab& s,
-                                            float t_hi) {
+// over-accept, never drop a cluster that holds the winner. `lo` gets the
+// widened entry distance, a lower bound on the t of any hit in the box.
+__device__ __forceinline__ bool box_entry(const float* cb, const RaySlab& s,
+                                          float t_hi, float& lo) {
   float entry = -QR_BIGFLOAT, exit_ = QR_BIGFLOAT;
   for (int k = 0; k < 3; ++k) {
     if (s.mixed[k]) continue;
@@ -95,7 +96,13 @@ __device__ __forceinline__ bool box_may_hit(const float* cb, const RaySlab& s,
     exit_ = fminf(exit_, fmaxf(t1, t2));
   }
   const bool nonempty = cb[0] <= cb[3] && cb[1] <= cb[4] && cb[2] <= cb[5];
-  const float lo = entry - (1e-5f * fabsf(entry) + 1e-6f);
+  lo = entry - (1e-5f * fabsf(entry) + 1e-6f);
   const float hi = exit_ + (1e-5f * fabsf(exit_) + 1e-6f);
   return nonempty && lo <= hi && hi > QR_BIAS && lo < t_hi;
+}
+
+__device__ __forceinline__ bool box_may_hit(const float* cb, const RaySlab& s,
+                                            float t_hi) {
+  float lo;
+  return box_entry(cb, s, t_hi, lo);
 }

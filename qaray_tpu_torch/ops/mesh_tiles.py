@@ -11,8 +11,9 @@ It returns sorted-row ids: exact_winner_rows re-tests the winners with the
 reference formula and maps them through `gid` to the original triangles.
 
 tiled_sweep is what the kernels of ops/tiles.py must agree with on every
-winner; their own plain version (ops/tiles.march_plain) adds the kernels'
-front-to-back early termination.
+winner and runner-up; their own plain version (ops/tiles.walk_plain) walks
+each ray on its own and stops it as soon as no unvisited cluster can change
+its top-2.
 """
 
 from typing import NamedTuple

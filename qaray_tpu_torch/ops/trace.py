@@ -5,7 +5,7 @@ reference scene/scene.cpp:35-76) for analytic primitives and world-baked
 meshes. Analytic primitives go through K2b/K2c (ops/analytic.py); the world
 mesh through the route the compiler chose, read from the meta alone:
 
-    meta.mesh_tiled   tiled cluster march: K4a (two-phase) / K4b
+    meta.mesh_tiled   tiled cluster walk: K4a (two-phase) / K4b
                       (ops/tiles.py)
     meta.mesh_stream  dense sweep: K3 (ops/mesh_sweep.py)
 
@@ -68,7 +68,7 @@ def _tiles_of(scene: SceneArrays) -> TiledMesh:
 
 
 def _tile_perm(p, d, tm: TiledMesh):
-    """Coherence sort for the tiled any-hit march."""
+    """Coherence sort for the tiled any-hit walk."""
     lo = tm.cbounds[:, :3].amin(dim=0)
     hi = tm.cbounds[:, 3:6].amax(dim=0)
     return coherence_order(p, d, lo, hi)
@@ -90,10 +90,13 @@ def _fallback(t_cur, first, second):
 
 
 def _tiled_closest(scene, meta, p, d, t_cur):
-    """K4a's two-phase march, then the exact re-test of its rows."""
+    """K4a's walk, then the exact re-test of its rows. Budget 0: one launch
+    walks every ray to its end; a per-ray walk gains nothing from the
+    two-phase's capped first launch, which ico6 showed slower (PERF.md)."""
     tm = _tiles_of(scene)
-    _, rows, rows2 = tiles.tiled_closest_twophase(p, d, t_cur, tm,
-                                                  scene.mesh.tile_c16T)
+    _, rows, rows2 = tiles.tiled_closest_twophase(
+        p, d, t_cur, tm, scene.mesh.tile_c16T, tree=scene.mesh.tile_tree,
+        budget=0)
     tri_v = scene.mesh.tri_v
     return _fallback(t_cur, exact_winner_rows(p, d, rows, tm, tri_v),
                      exact_winner_rows(p, d, rows2, tm, tri_v))
@@ -263,7 +266,8 @@ def trace_shadow(scene: SceneArrays, meta: SceneMeta, p, d, t_max):
         tm = _tiles_of(scene)
         perm = _tile_perm(p, d, tm)
         occ_s = tiles.tiled_sweep_kernel(p[perm], d[perm], budget[perm], tm,
-                                         scene.mesh.tile_c16T, any_hit=True)
+                                         scene.mesh.tile_c16T, any_hit=True,
+                                         tree=scene.mesh.tile_tree)
         return occluded | occ_s[torch.argsort(perm)]
     return occluded | mesh_sweep.sweep_occluded(p, d, budget,
                                                 scene.mesh.stream_c16)

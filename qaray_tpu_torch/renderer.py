@@ -60,6 +60,7 @@ class RendererParam:
     caustics_map_radius: float = 1.0
     shadow_spp: int = 16  # GenLight::shadow_spp_min (lights.cpp:16)
     shadow_spp_max: int = 64  # GenLight::shadow_spp_max (lights.cpp:17)
+    mc_samples: int = 10  # MtlBlinn_MonteCarloGI maxMCSample (mcgi only)
     threshold: tuple = SPP_THRESHOLD
     seed: int = 0
     # Key kind, as in qaray_tpu: 'rbg' (the default) or 'threefry2x32'.
@@ -71,6 +72,7 @@ class RendererParam:
     progressive_prefix: str = ""
     rank_debug: bool = False
     checkpoint_every: int = 0
+    checkpoint_path: str = "render_checkpoint.npz"
 
 
 class Renderer:
@@ -116,6 +118,15 @@ class Renderer:
             save_photon_map(self.photon_maps[1], "caustics.dat")
         return self.scene_arrays, self.meta
 
+    def _effective_batch(self) -> int:
+        """Pixel lanes per dispatch: the MC-GI expansion widens the
+        wavefront mc_samples-fold after the first bounce, so its dispatches
+        start that much smaller (qaray_tpu/renderer.py:137-145)."""
+        p = self.param
+        if p.integrator == "mcgi" and p.mc_samples > 1:
+            return max(1, p.batch_pixels // p.mc_samples)
+        return p.batch_pixels
+
     def _want_aux(self) -> bool:
         """Ask the engine for the irradiance debug plane (photonmap with
         photon maps only)."""
@@ -135,6 +146,7 @@ class Renderer:
             max_bounce=p.max_bounce,
             shadow_spp=p.shadow_spp,
             shadow_spp_max=p.shadow_spp_max,
+            mc_samples=p.mc_samples,
             inverse_square_falloff=p.integrator in ("photonmap", "pathtrace",
                                                     "mcgi"),
             use_photon_map=p.use_photon_map,
@@ -165,11 +177,12 @@ class Renderer:
         # Phase 1: spp_min samples for every pixel, several sample indices
         # per dispatch when the image alone underfills the batch.
         s = int(fb.count.min())
-        pack = max(1, p.batch_pixels // max(num_pixels, 1))
+        batch = self._effective_batch()
+        pack = max(1, batch // max(num_pixels, 1))
         while s < p.spp_min:
             if self.stop_flag:
                 return self.sync_fb()
-            if num_pixels <= p.batch_pixels:
+            if num_pixels <= batch:
                 k = min(pack, p.spp_min - s)
                 self._render_packed(cfg, all_ids, list(range(s, s + k)),
                                     words, record_depth=(s == 0))
@@ -237,7 +250,7 @@ class Renderer:
     def _render_round(self, cfg, pixel_ids, sample_idx: int, words,
                       record_depth: bool):
         """One sample for each pixel id, chunked to the batch size."""
-        chunk = self.param.batch_pixels
+        chunk = self._effective_batch()
         for lo in range(0, pixel_ids.size, chunk):
             ids = pixel_ids[lo:lo + chunk]
             sids = np.full(ids.size, sample_idx, np.int32)

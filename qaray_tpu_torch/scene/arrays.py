@@ -88,12 +88,14 @@ class MeshArrays(NamedTuple):
     stream_coeff: Optional[torch.Tensor] = None  # [Fp, 3, 3] n, A, B
     stream_const: Optional[torch.Tensor] = None  # [Fp, 4] k, A0, B0, |n|
     stream_c16: Optional[torch.Tensor] = None  # [Fp16, 16] (pack_coeff16)
-    # Tiled cluster route (ops/mesh_tiles.py; K4a/K4b read tile_c16T).
+    # Tiled cluster route (ops/mesh_tiles.py; K4a/K4b read tile_c16T and
+    # walk tile_tree).
     tile_coeff: Optional[torch.Tensor] = None  # [Fp, 3, 3] Morton order
     tile_const: Optional[torch.Tensor] = None  # [Fp, 4]
     tile_gid: Optional[torch.Tensor] = None  # [Fp] original triangle id
     tile_cbounds: Optional[torch.Tensor] = None  # [C, 6] cluster AABBs
     tile_c16T: Optional[torch.Tensor] = None  # [Fp/8, 128] (pack_coeffT)
+    tile_tree: Optional[torch.Tensor] = None  # [2L, 8] (cluster_tree)
     # Megakernel mesh tables (K1c; ops/megakernel.build_mega_mesh), Morton
     # order: [Fp, 16] (or the same memory as [Fp/8, 128] above 16,384
     # triangles, the JAX package's streamed layout).

@@ -15,8 +15,8 @@ JAX package's default builder). The arrays are plain SoA numpy:
 The JAX package may build the same tree with its C++ builder; the port
 keeps only the numpy one. The walks over these arrays (bvh_traverse,
 traverse_bvh_packed) come with the BVH-walk slice of the port; the mesh
-routes of this slice (the dense sweep and the tiled cluster march) do not
-walk the tree, but the compiled scene carries it so that its tables equal
+routes of this slice (the dense sweep, and the tiled cluster walk over its
+own tree of cluster boxes) do not walk this tree, but the compiled scene carries it so that its tables equal
 the JAX package's.
 """
 

@@ -264,12 +264,13 @@ class SceneCompiler:
                                                     stream.const)
         else:
             from qaray_tpu_torch.ops.mesh_tiles import build_tiles
-            from qaray_tpu_torch.ops.tiles import pack_coeffT
+            from qaray_tpu_torch.ops.tiles import cluster_tree, pack_coeffT
 
             tiles = build_tiles(wv)
             tables.update(tile_coeff=tiles.coeff, tile_const=tiles.const,
                           tile_gid=tiles.gid, tile_cbounds=tiles.cbounds,
-                          tile_c16T=pack_coeffT(tiles.coeff, tiles.const))
+                          tile_c16T=pack_coeffT(tiles.coeff, tiles.const),
+                          tile_tree=cluster_tree(tiles.cbounds))
         # The megakernel's mesh tables (K1c), beside either route.
         if 0 < num <= _mega_stream_max_tris():
             distinct = tuple(sorted(int(m) for m in np.unique(mtl_all)))

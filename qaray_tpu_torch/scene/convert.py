@@ -51,7 +51,15 @@ def from_numpy_arrays(tree, meta, device="cuda"):
 
     mesh = instances = None
     if meta.num_mesh_instances:
-        mesh = group(MeshArrays, tree.mesh)
+        # The tiled walk's cluster tree has no JAX counterpart: it is built
+        # from the cluster boxes, as the port's compiler builds it.
+        mesh = MeshArrays(**{f: None if getattr(tree.mesh, f, None) is None
+                             else dev(getattr(tree.mesh, f))
+                             for f in MeshArrays._fields})
+        if mesh.tile_cbounds is not None:
+            from qaray_tpu_torch.ops.tiles import cluster_tree
+
+            mesh = mesh._replace(tile_tree=cluster_tree(mesh.tile_cbounds))
         instances = group(MeshInstances, tree.instances)
 
     arrays = SceneArrays(

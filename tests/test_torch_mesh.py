@@ -9,7 +9,11 @@
   kernels run in interpret mode, with the bars of
   tests/test_pallas_tiles.py: rows equal on > 99.9 % of rays, t to
   rtol/atol 1e-5 where they agree, runner-ups equal on > 99 % of agreeing
-  rays, occlusion equal on every ray;
+  rays, occlusion equal on every ray; the tiled walk's runner-up, exact
+  below t_cur, equals tiled_sweep's on > 99 % of the rays where that has
+  one, and rays aimed at an icosphere's vertices open no hole after the
+  exact re-test's fallback;
+- csrc/tiles.cu, built for the CPU by g++, agrees with its plain version;
 - the wavefront engine matches render_batch_xla on the mesh scenes with
   the TPU's mesh routes forced on the JAX side (QARAY_MESH_PATH), with
   tests/test_megakernel.py::_compare's bars.
@@ -81,6 +85,10 @@ def _tiled(tri_v):
     want = jmt.build_tiles(tri_v)
     got = build_tiles(tri_v)
     return want, got
+
+
+def _tree(tm):
+    return tiles.cluster_tree(tm.cbounds)
 
 
 def test_host_tables_match_jax():
@@ -175,47 +183,223 @@ def test_tiled_plain_matches_jax():
     assert np.array_equal(np.asarray(perm_x), perm_p.numpy())
 
 
-def test_k4_wrapper_matches_pallas_interpret(monkeypatch):
-    """tiled_sweep_kernel's CPU side (march_plain: the kernels' march) and
+def _row2_bar(want, got):
+    """The walk's runner-up is exact below t_cur: on the rays where the
+    reference has a winner and a runner-up, the same runner-up on > 99 %."""
+    r_x, r2_x = np.asarray(want[1]), np.asarray(want[2])
+    has = (r_x >= 0) & (r2_x >= 0)
+    assert has.mean() > 0.01
+    assert (np.asarray(got[2])[has] == r2_x[has]).mean() > 0.99
+
+
+def test_k4_plain_matches_jax_tiled_sweep():
+    """walk_plain (tiled_sweep_kernel on CPU tensors) against the JAX
+    package's tiled_sweep, with t_cur unbounded and at finite budgets:
+    winners at the _rows_bars, the runner-up at _row2_bar, any hit equal on
+    every ray."""
+    v, p, d, t_max = _soup()
+    jt, tt = _tiled(v)
+    tcT = torch.tensor(jax_packT(jt.coeff, jt.const))
+    tp, td = torch.tensor(p), torch.tensor(d)
+    for t_cur in (np.full(p.shape[0], BIG, np.float32), t_max):
+        want = jmt.tiled_sweep(jnp.asarray(p), jnp.asarray(d),
+                               jnp.asarray(t_cur), jt, packet=512)
+        got = tiles.tiled_sweep_kernel(tp, td, torch.tensor(t_cur), tt, tcT,
+                                       tree=_tree(tt))
+        _rows_bars(want, got[:3])
+        _row2_bar(want, got)
+        assert bool(got[3].all())
+    occ_x = jmt.tiled_sweep(jnp.asarray(p), jnp.asarray(d),
+                            jnp.asarray(t_max), jt, any_hit=True, packet=512)
+    occ_p = tiles.tiled_sweep_kernel(tp, td, torch.tensor(t_max), tt, tcT,
+                                     tree=_tree(tt), any_hit=True)
+    assert np.array_equal(np.asarray(occ_x), occ_p.numpy())
+
+
+def _rounding_decided(p, d, tm, rows_a, rows_b, ulps=2.0):
+    """Per ray, whether two sweeps' top-2 rows (rows_a, rows_b: pairs of
+    [B] sorted-row ids) may differ by float32 rounding alone. Witnessed in
+    float64 on the same coefficient table: a row that one pair holds and
+    the other lacks has a predicate of mesh_stream._chunk_test (a, b or
+    1 - a - b) within `ulps` float32 epsilons of its terms' magnitude of
+    zero; or both pairs hold the same rows in another order at t values
+    that close."""
+    eps = ulps * float(np.finfo(np.float32).eps)
+    coeff = tm.coeff.numpy().astype(np.float64)
+    const = tm.const.numpy().astype(np.float64)
+    p, d = p.astype(np.float64), d.astype(np.float64)
+
+    def test(rows):  # (t, t's scale, smallest predicate / its scale)
+        r = np.maximum(rows, 0)
+        n, av, bv = coeff[r, 0], coeff[r, 1], coeff[r, 2]
+        k, a0, b0 = const[r, 0], const[r, 1], const[r, 2]
+        pn, dn = (p * n).sum(1), (d * n).sum(1)
+        t = (k - pn) / dn
+        pa, ta = (p * av).sum(1), t * (d * av).sum(1)
+        pb, tb = (p * bv).sum(1), t * (d * bv).sum(1)
+        a, b = pa + ta + a0, pb + tb + b0
+        sa = np.abs(pa) + np.abs(ta) + np.abs(a0)
+        sb = np.abs(pb) + np.abs(tb) + np.abs(b0)
+        margin = np.minimum(np.minimum(np.abs(a) / sa, np.abs(b) / sb),
+                            np.abs(1.0 - a - b) / (1.0 + sa + sb))
+        return t, (np.abs(k) + np.abs(pn)) / np.abs(dn), margin
+
+    near = np.zeros(p.shape[0], bool)
+    for mine, other in ((rows_a, rows_b), (rows_b, rows_a)):
+        for r in mine:
+            lacks = (r >= 0) & (r != other[0]) & (r != other[1])
+            near |= lacks & (test(r)[2] < eps)
+    swapped = (rows_a[0] == rows_b[1]) & (rows_a[1] == rows_b[0])
+    ta, scale, _ = test(rows_a[0])
+    tb = test(rows_b[0])[0]
+    return near | (swapped & (np.abs(ta - tb) < eps * scale))
+
+
+def test_k4_vertex_rays_open_no_hole():
+    """Rays aimed at ico4's vertices (jittered by 1e-4), where the exact
+    re-test rejects some sweep winners and ops/trace._fallback takes the
+    runner-up. A walk that stops at its winner's reach loses runner-ups and
+    opens holes through the closed mesh; this one, after the fallback,
+    gives the (t, gid) of mesh_tiles.tiled_sweep on every ray but exact
+    ties in t. Against the JAX package's tiled_sweep + fallback, every ray
+    whose rows differ is one where float32 rounding decides the sweep's
+    test (XLA rounds the coefficient test otherwise than torch: 30 of
+    16,384 rays, each with a disputed row on a triangle's edge to within
+    an epsilon), so each hole that JAX's rows would close is witnessed."""
+    from qaray_tpu_torch.ops.mesh_stream import _chunk_test
+    from qaray_tpu_torch.ops.mesh_tiles import exact_winner_rows
+    from qaray_tpu_torch.ops.trace import _fallback
+
+    v, f = icosphere(4)
+    tri = v[f].astype(np.float32)
+    rng = np.random.default_rng(4)
+    n = 1 << 14
+    u = rng.normal(size=(n, 3))
+    p = (3.0 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(
+        np.float32)
+    aim = v[rng.integers(0, v.shape[0], n)] + 1e-4 * rng.normal(size=(n, 3))
+    d = (aim - p) / np.linalg.norm(aim - p, axis=1, keepdims=True)
+    d = d.astype(np.float32)
+    t_cur = np.full(n, BIG, np.float32)
+    jt, tt = _tiled(tri)
+    tcT = torch.tensor(jax_packT(jt.coeff, jt.const))
+    tp, td, tc, tv = (torch.tensor(a) for a in (p, d, t_cur, tri))
+
+    def fallback(rows, rows2):
+        rows, rows2 = torch.as_tensor(np.array(rows)), torch.as_tensor(
+            np.array(rows2))
+        t, gid, _, _ = _fallback(tc, exact_winner_rows(tp, td, rows, tt, tv),
+                                 exact_winner_rows(tp, td, rows2, tt, tv))
+        return t.numpy(), gid.numpy()
+
+    def sweep_t(rows):  # the sweep's own t of each ray's row
+        r = torch.as_tensor(np.array(rows)).clamp_min(0).long()
+        t = _chunk_test(tp[:, None], td[:, None], tt.coeff[r][:, None],
+                        tt.const[r][:, None])[:, 0, 0].numpy()
+        return np.where(np.array(rows) >= 0, t, -1.0)
+
+    got = tiles.tiled_closest_twophase(tp, td, tc, tt, tcT, tree=_tree(tt))
+    t_g, gid_g = fallback(*got[1:])
+    ref = tiled_sweep(tp, td, tc, tt)
+    t_r, gid_r = fallback(*ref[1:])
+    tie = ((sweep_t(got[1]) == sweep_t(ref[1]))
+           & (sweep_t(got[2]) == sweep_t(ref[2])))
+    assert np.all(((gid_g == gid_r) & (t_g == t_r)) | tie)
+    assert np.all((gid_g >= 0) | (gid_r < 0) | tie)  # no hole
+    want = jmt.tiled_sweep(jnp.asarray(p), jnp.asarray(d),
+                           jnp.asarray(t_cur), jt)
+    rows_x = (np.asarray(want[1]), np.asarray(want[2]))
+    rows_g = (got[1].numpy(), got[2].numpy())
+    same = (rows_x[0] == rows_g[0]) & (rows_x[1] == rows_g[1])
+    assert (rows_x[0] == rows_g[0]).mean() > 0.999 and same.mean() > 0.995
+    rounding = _rounding_decided(p, d, tt, rows_x, rows_g)
+    assert np.all(same | rounding), np.flatnonzero(~(same | rounding))
+    t_x, gid_x = fallback(*rows_x)
+    off = (gid_g != gid_x) | (t_g != t_x)
+    assert np.all(~off | rounding)
+    assert np.all((gid_g >= 0) | (gid_x < 0) | rounding)  # no hole vs JAX
+    # The exact re-test rejects some winners here: the fallback is tested.
+    assert (fallback(got[1], -np.ones(n))[1] != gid_g).sum() > 0
+
+
+def test_k4_source_on_the_host_matches_plain():
+    """csrc/tiles.cu compiled by g++ and run one ray at a time
+    (tiled_sweep_host) against walk_plain: the same t and rows but for
+    exact ties in t, runner-ups too; the same occlusion on every ray; under
+    a cap of 2 clusters, every ray marked resolved already has its
+    unbudgeted top-2, and the cap bites; per-ray work in whole clusters,
+    within the clusters visited."""
+    v, p, d, t_max = _soup()
+    _, tt = _tiled(v)
+    tcT = torch.tensor(tiles.pack_coeffT(tt.coeff, tt.const))
+    tp, td = torch.tensor(p), torch.tensor(d)
+    t_cur = torch.full((p.shape[0],), BIG)
+    tree = _tree(tt)
+    (t_h, r_h, r2_h, res_h), steps, work = tiles.tiled_sweep_host(
+        tp, td, t_cur, tt, tcT, tree=tree)
+    t_p, r_p, r2_p, _ = tiles.tiled_sweep_kernel(tp, td, t_cur, tt, tcT,
+                                                 tree=tree)
+    assert torch.equal(t_h, t_p) and bool(res_h.all())
+    assert bool(((r_h == r_p) | (r2_h == r_p)).all())
+    assert (r2_h == r2_p).float().mean().item() > 0.999
+    assert bool((work % 256 == 0).all() & (work <= 256 * steps).all())
+    assert bool((steps[r_h >= 0] > 0).all())
+    (t_b, r_b, r2_b, res_b), _, _ = tiles.tiled_sweep_host(
+        tp, td, t_cur, tt, tcT, tree=tree, max_steps=2)
+    assert 0.0 < res_b.float().mean().item() < 1.0
+    assert torch.equal(t_b[res_b], t_h[res_b])
+    assert torch.equal(r_b[res_b], r_h[res_b])
+    assert torch.equal(r2_b[res_b], r2_h[res_b])
+    occ_h, steps, work = tiles.tiled_sweep_host(tp, td, torch.tensor(t_max),
+                                                tt, tcT, tree=tree,
+                                                any_hit=True)
+    occ_p = tiles.tiled_sweep_kernel(tp, td, torch.tensor(t_max), tt, tcT,
+                                     tree=tree, any_hit=True)
+    assert torch.equal(occ_h, occ_p) and bool(occ_h.any())
+    assert torch.equal(work, 256 * steps)
+
+
+def test_k4_wrapper_matches_pallas_interpret():
+    """tiled_sweep_kernel's CPU side (walk_plain: the kernels' walk) and
     tiled_closest_twophase against the Pallas kernels in interpret mode,
-    packets of 512 rays."""
-    monkeypatch.setattr(tiles, "PACKET_ROWS", 4)
+    packets of 512 rays. The Pallas march resolves whole packets; the walk
+    resolves each ray, so its budgeted run is held to its own contract."""
     v, p, d, t_max = _soup()
     jt, tt = _tiled(v)
     cT = jax_packT(jt.coeff, jt.const)
     jp, jd, tp, td = jnp.asarray(p), jnp.asarray(d), torch.tensor(p), \
         torch.tensor(d)
-    tcT = torch.tensor(cT)
+    tcT, tree = torch.tensor(cT), _tree(tt)
     t_cur = np.full(p.shape[0], BIG, np.float32)
     t_x, r_x, r2_x, res_x = pallas_tiled_sweep(
         jp, jd, jnp.asarray(t_cur), jt, jnp.asarray(cT), interpret=True,
         packet_rows=4)
     t_p, r_p, r2_p, res_p = tiles.tiled_sweep_kernel(
-        tp, td, torch.tensor(t_cur), tt, tcT)
+        tp, td, torch.tensor(t_cur), tt, tcT, tree=tree)
     _rows_bars((t_x, r_x, r2_x), (t_p, r_p, r2_p))
     assert (np.asarray(res_x) > 0.5).mean() == 1.0 == res_p.numpy().mean()
     occ_x = pallas_tiled_sweep(jp, jd, jnp.asarray(t_max), jt,
                                jnp.asarray(cT), any_hit=True, interpret=True,
                                packet_rows=4)
     occ_p = tiles.tiled_sweep_kernel(tp, td, torch.tensor(t_max), tt, tcT,
-                                     any_hit=True)
+                                     tree=tree, any_hit=True)
     assert np.array_equal(np.asarray(occ_x), occ_p.numpy())
-    # Budgeted march: the same resolved lanes where no padding is involved.
-    _, r_b, _, res_b = tiles.tiled_sweep_kernel(
-        tp, td, torch.tensor(t_cur), tt, tcT, max_steps=2)
-    _, r_bx, _, res_bx = pallas_tiled_sweep(
-        jp, jd, jnp.asarray(t_cur), jt, jnp.asarray(cT), interpret=True,
-        packet_rows=4, max_steps=2)
-    assert np.array_equal(np.asarray(res_bx) > 0.5, res_b.numpy())
-    assert np.array_equal(np.asarray(r_bx), r_b.numpy())
-    assert not res_b.numpy().all()  # the budget bites
+    # Budgeted walk: a ray marked resolved already has its unbudgeted
+    # top-2, and the budget bites.
+    t_b, r_b, r2_b, res_b = tiles.tiled_sweep_kernel(
+        tp, td, torch.tensor(t_cur), tt, tcT, tree=tree, max_steps=2)
+    res = res_b.numpy()
+    assert 0.0 < res.mean() < 1.0
+    assert np.array_equal(t_b.numpy()[res], t_p.numpy()[res])
+    assert np.array_equal(r_b.numpy()[res], r_p.numpy()[res])
+    assert np.array_equal(r2_b.numpy()[res], r2_p.numpy()[res])
     want = jax_twophase(jp, jd, jnp.asarray(t_cur), jt, jnp.asarray(cT),
                         budget=2, interpret=True)
     got = tiles.tiled_closest_twophase(tp, td, torch.tensor(t_cur), tt, tcT,
-                                       budget=2)
+                                       tree=tree, budget=2)
     _rows_bars(want, got)
     single = tiles.tiled_closest_twophase(tp, td, torch.tensor(t_cur), tt,
-                                          tcT, budget=0)
+                                          tcT, tree=tree, budget=0)
     assert np.array_equal(single[1].numpy(), got[1].numpy())
 
 

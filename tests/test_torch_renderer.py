@@ -150,6 +150,41 @@ def test_renderer_adaptive_matches_jax():
     np.testing.assert_allclose(got.mean[same], want.mean[same], atol=1e-3)
 
 
+def test_renderer_param_mc_samples_and_exports():
+    """ROADMAP C1: RendererParam carries mc_samples to the engine, an mcgi
+    dispatch at 800x600 is cut to batch_pixels // mc_samples pixel lanes
+    (qaray_tpu/renderer.py::_effective_batch), and the package exports what
+    qaray_tpu exports."""
+    from qaray_tpu_torch import (
+        Renderer,
+        RendererParam,
+        compile_scene,
+        load_scene,
+    )
+
+    assert callable(compile_scene)
+    param = RendererParam(mc_samples=4)
+    assert param.checkpoint_path == "render_checkpoint.npz"
+    assert Renderer(param, device="cpu").integrator_config().mc_samples == 4
+    r = Renderer(RendererParam(integrator="mcgi", spp_min=1, spp_max=1),
+                 device="cpu")
+    scene = load_scene("tests/assets/spot_scene.xml")
+    scene.camera.img_width, scene.camera.img_height = 800, 600
+    r.compute_scene(scene)
+    lanes = []
+
+    def dispatch(cfg, px, py, sid, words):
+        assert cfg.mc_samples == 10
+        lanes.append(px.shape[0])
+        n = px.shape[0]
+        return torch.zeros((n, 3)), torch.zeros(n), None, None
+
+    r._dispatch = dispatch
+    r.render()
+    assert sum(lanes) == 800 * 600
+    assert max(lanes) <= (1 << 20) // 10, lanes
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
