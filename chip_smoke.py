@@ -7,12 +7,16 @@ Phases, each fatal on failure:
   2. kernels against their plain versions:
        a. K2a, K2b, K2c on 1M random rays against the primitives of
           tests/assets/softdof_scene.xml (tests/test_pallas.py bars);
-       b. K3 (ico5, 20,480 triangles) against stream_closest and
-          stream_any_hit, K4a/K4b (ico6, 81,920 triangles) against
-          tiled_sweep, and the two-phase K4a walk against the single-phase
-          one, on 1M random rays and the 480,000 camera rays of
-          tests/assets/mesh_scene.xml at 800x600 (and their shadow rays for
-          K4b), with the tests/test_pallas_tiles.py bars and K4a's
+       b. K3's walk (ico5, 20,480 triangles) equal to stream_closest in
+          (t, row, row2) on every ray of 1M random rays, of the same rays
+          with t_cur a tenth of their budget (runner-ups beyond t_cur), of
+          262,144 rays aimed exactly at ico5's vertices (exact ties in t)
+          and of the 480,000 camera rays of tests/assets/mesh_scene.xml at
+          800x600, and its any hit equal to stream_any_hit; K4a/K4b (ico6,
+          81,920 triangles) against tiled_sweep, and the two-phase K4a walk
+          against the single-phase one, on the random and camera rays (and
+          the camera rays' shadow rays for K4b), with the
+          tests/test_pallas_tiles.py bars and K4a's
           runner-up, exact below t_cur, equal to tiled_sweep's on > 99 % of
           the rays where that has one; K4a under a cap of 12 clusters a ray
           against the uncapped walk on the rays it marks resolved; and
@@ -80,7 +84,8 @@ Phases, each fatal on failure:
        d. the same with the ico5 icosphere: K1a/K1c;
        e. the same with the ico6 icosphere, 1 spp: above 65,536 triangles
           the wavefront route, K4a (two-phase walk) and K4b with K2b/K2c;
-       f. mesh_scene.xml under QARAY_NO_MEGAKERNEL, 1 spp: K3 with K2b/K2c;
+       f. mesh_scene.xml under QARAY_NO_MEGAKERNEL, 1 spp: K3's walk with
+          K2b/K2c;
        g. Renderer defaults on texture_scene.xml: K1a with K1b's checker
           textures, no lane on the wavefront engine;
        h. texture_scene.xml under QARAY_NO_MEGAKERNEL, 1 spp: the wavefront
@@ -108,12 +113,22 @@ Phases, each fatal on failure:
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time, and the device's idle
      share in one Renderer.render() of 4a, 4c, 4g, 4e and 4k; K6's at the
-     gradient path's shape of 4m; K3's also at the shape of its launches
-     (mesh_scene, 320 triangles); K4a's and K4b's with two bounds, the
+     gradient path's shape of 4m. The bounds of the kernels that run
+     threefry (K1a-K1d, K6) count the ciphers' integer operations at the
+     card's integer rate beside the float32 operations at the float32 rate
+     (and print the float32-rate figure of earlier PRs); K1a-K1d also give
+     the bound with each lane's counters raised to its warp's maximum, a
+     warp's maximum against a lane's mean of the counters, the share of
+     soft-shadow estimates that went past shadow_spp, and each
+     instantiation's registers, spills, shared memory and blocks an SM.
+     K3 on ico5 and on mesh_scene (the shape of its launches), on rays in
+     the order they come as the dense route walks them: clusters a ray and
+     for the warp's slowest ray, and its bound from the clusters within
+     each ray's final reach. K4a's and K4b's with two bounds, the
      clusters within reach of the winner (the bound of a walk that keeps
      the winner alone) and within reach of the runner-up (what the exact
-     top-2 needs), their registers and spills,
-     and the two-phase K4a whole at budgets 12 and 0.
+     top-2 needs), their registers and spills, and the two-phase K4a whole
+     at budgets 12 and 0.
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers and, last, {"ok": true, "device": {...}}. Exits non-zero without
 those lines when there is no CUDA device or no package beside it.
@@ -138,10 +153,15 @@ SPOT_SCENE = os.path.join(HERE, "tests", "assets", "spot_scene.xml")
 IMAGE = os.path.join(HERE, "tests", "assets", "colorBuffer.png")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 operations/s
-# outside the tensor cores (integer operations are counted at the same
-# rate, which keeps the bound a lower bound).
+# outside the tensor cores. The threefry ciphers' 32-bit integer operations
+# run at their own rate: 64 results a clock an SM for compute capability
+# 9.0 (the CUDA C++ Programming Guide's throughput table) on 132 SMs at the
+# card's maximum SM clock, which main() reads from nvidia-smi (about
+# 16.7e12/s at 1,980 MHz). The pipes issue side by side, so a bound is the
+# largest of the three times.
 PEAK_BYTES = 3.35e12
 PEAK_OPS = 67e12
+PEAK_INT_OPS = None  # set by main(): 64 * 132 * clocks.max.sm
 # Operations per unit of work, counted from csrc/analytic.cuh and
 # csrc/threefry.cuh: a primitive test is at least 45 (object-space transform
 # 33, plane solve and bounds 12; a sphere takes more), a threefry cipher
@@ -233,10 +253,19 @@ def kernel_ms(fn, kernel_name, reps=10):
     return cuda_ms(fn, reps), "events"
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, int_ops=0):
+    """The least time (ms) of nbytes moved, ops float32 operations and
+    int_ops 32-bit integer operations, and what sets it."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_OPS * 1e3
+    t_ops = max(ops / PEAK_OPS, int_ops / PEAK_INT_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0].split()[0]) * 1e6
 
 
 def check(cond, what):
@@ -423,6 +452,20 @@ def vertex_rays_no_hole():
           "runner-up was taken")
 
 
+def vertex_rays(tri_v, n, seed):
+    """n rays from a sphere of three radii around mesh_scene's icosphere,
+    aimed exactly at the world vertices of tri_v [F, 3, 3]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = torch.tensor(ICO_CENTRE, device="cuda")
+    u = torch.randn((n, 3), device="cuda", generator=gen)
+    p = c + 3.0 * ICO_RADIUS * u / u.norm(dim=1, keepdim=True)
+    corners = tri_v.reshape(-1, 3)
+    aim = corners[torch.randint(0, corners.shape[0], (n,), device="cuda",
+                                generator=gen)]
+    d = (aim - p) / (aim - p).norm(dim=1, keepdim=True)
+    return p.contiguous(), d.contiguous()
+
+
 def mesh_rays(n, seed):
     """Rays around mesh_scene's icosphere: origins uniform in a box three
     radii wide, half the directions aimed at the centre (jittered), half
@@ -562,6 +605,10 @@ def main():
     t_start = time.time()
     card = card_line()
     print(card, flush=True)
+    global PEAK_INT_OPS
+    PEAK_INT_OPS = 64 * 132 * max_sm_clock_hz()
+    print(f"integer rate {PEAK_INT_OPS:.4g} operations/s (64 a clock an SM, "
+          "132 SMs, the maximum SM clock)", flush=True)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
@@ -666,18 +713,44 @@ def main():
     light = -torch.tensor([1.0, 0.5, -1.0], device="cuda")
     light = light / light.norm()
     mesh_err = {"K3": 0.0, "K4a": 0.0, "K4b": 0.0}
+    mesh5 = a5.mesh
+    walk5 = mesh_sweep.walk_of(mesh5)
+    # K3's walk is the dense sweep's function: equal (t, row, row2) on every
+    # ray, also where t_cur falls short of every hit (the runner-up is then
+    # the nearest hit beyond t_cur) and where hits tie exactly in t (rays
+    # aimed at the vertices: the lower triangle id wins).
+    vp, vd = vertex_rays(a5.mesh.tri_v, 1 << 18, 5)
+    for what, p_, d_, t_cur in (
+            ("random", rp, rd, torch.full_like(rt, BIG)),
+            ("random, t_cur short of the hits", rp, rd, rt * 0.1),
+            ("vertex-aimed", vp, vd, torch.full((vp.shape[0],), BIG,
+                                                device="cuda")),
+            ("camera", cp, cd, torch.full((cp.shape[0],), BIG,
+                                          device="cuda"))):
+        got = mesh_sweep.sweep_closest(p_, d_, t_cur, c16, walk=walk5)
+        want = stream_closest(p_, d_, t_cur, plain5)
+        off = sum(int((a != b).sum()) for a, b in zip(want, got))
+        t2 = _chunk_test(p_[:, None], d_[:, None],
+                         plain5.coeff[want[2].clamp_min(0).long()][:, None],
+                         plain5.const[want[2].clamp_min(0).long()][:, None])
+        ties = int(((want[1] >= 0) & (want[2] >= 0)
+                    & (t2[:, 0, 0] == want[0])).sum())
+        beyond = int(((want[1] < 0) & (want[2] >= 0)).sum())
+        mesh_err["K3"] = max(mesh_err["K3"],
+                             (got[0] - want[0]).abs().max().item())
+        check(off == 0, f"K3 ico5 {what}: (t, row, row2) of stream_closest "
+              f"on every ray of {p_.shape[0]} ({ties} exact ties in t, "
+              f"{beyond} runner-ups beyond t_cur)")
+        del got, want, t2
     for what, p_, d_, tmax_ in (("random", rp, rd, rt),
                                 ("camera", cp, cd, rt[: cp.shape[0]])):
-        t_cur = torch.full_like(tmax_, BIG)
-        got = mesh_sweep.sweep_closest(p_, d_, t_cur, c16)
-        want = stream_closest(p_, d_, t_cur, plain5)
-        mesh_err["K3"] = max(mesh_err["K3"],
-                             row_bars(want, got, f"K3 ico5 {what}"))
-        occ_k = mesh_sweep.sweep_occluded(p_, d_, tmax_, c16)
+        occ_k = mesh_sweep.sweep_occluded(p_, d_, tmax_, c16, walk=walk5)
         occ_p = stream_any_hit(p_, d_, tmax_, plain5)
         check(torch.equal(occ_k, occ_p), f"K3 any hit ico5 {what}: every "
               "ray equal")
-        del got, want
+    for what, p_, d_, tmax_ in (("random", rp, rd, rt),
+                                ("camera", cp, cd, rt[: cp.shape[0]])):
+        t_cur = torch.full_like(tmax_, BIG)
         got = tiles.tiled_sweep_kernel(p_, d_, t_cur, tm6, m6t.tile_c16T,
                                        tree=m6t.tile_tree)
         want = tiled_sweep(p_, d_, t_cur, tm6)
@@ -1190,7 +1263,7 @@ def main():
           "no K1a or K3 launch above 65,536 triangles")
 
     print("phase 4f: Renderer, mesh_scene 800x600 x 1 spp under "
-          "QARAY_NO_MEGAKERNEL: the dense sweep", flush=True)
+          "QARAY_NO_MEGAKERNEL: the dense route (K3's walk)", flush=True)
     _, _, counts_f, _ = render_main("mesh_scene wavefront", mesh_base,
                                     RendererParam(spp_min=1, spp_max=1),
                                     no_mega=True)
@@ -1408,25 +1481,121 @@ def main():
         s_arr, s_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
 
     def mega_work(arr, meta_, cfg=cfg_pt, maps=None):
-        """Per-lane work counters of one K1a launch, summed: (primitive
-        tests, threefry ciphers, shaded vertices, triangle tests, checker
-        tests), with maps also (photon tests, caustics cluster tests)."""
-        work = torch.zeros((480000, 7), dtype=torch.int32, device="cuda")
+        """Per-lane work counters of one K1a launch: [480000, 8] int32
+        (primitive tests, threefry ciphers, shaded vertices, triangle
+        tests, checker tests, photon tests, caustics cluster tests,
+        soft-shadow estimates past shadow_spp), and their sums."""
+        work = torch.zeros((480000, 8), dtype=torch.int32, device="cuda")
         megakernel.mega_render(arr, meta_, cfg, bpx, bpy, bsid, rbg,
                                work=work, photon_maps=maps)
-        return work.sum(0, dtype=torch.int64).tolist()[:5 if maps is None
-                                                       else 7]
+        return work, work.sum(0, dtype=torch.int64).tolist()
+
+    def mega_bounds(nbytes, work, wsum):
+        """The launch's bound from its counters, recounted: the largest of
+        its bytes at PEAK_BYTES, its float32 operations at PEAK_OPS and its
+        ciphers' integer operations at PEAK_INT_OPS. Beside it the figure
+        of PRs 1-6 (every operation at PEAK_OPS) and the recounted bound
+        with each lane's counters raised to its warp's maximum (lanes in
+        launch order, 32 to a warp): what one thread a lane pays where a
+        warp waits for its slowest lane."""
+        f32, i32 = mega_ops(wsum)
+        b_ms, b_by = bound(nbytes, f32, i32)
+        n_w = work.shape[0] - work.shape[0] % 32
+        wmax = (work[:n_w].view(-1, 32, 8).amax(1).to(torch.int64).sum(0)
+                * 32 + work[n_w:].to(torch.int64).sum(0)).tolist()
+        return dict(bound_ms=b_ms, bound_by=b_by,
+                    bound_bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                    bound_f32_ms=f32 / PEAK_OPS * 1e3,
+                    bound_int32_ms=i32 / PEAK_INT_OPS * 1e3,
+                    bound_f32_rate_ms=bound(nbytes, f32 + i32)[0],
+                    bound_warp_max_ms=bound(nbytes, *mega_ops(wmax))[0])
+
+    def warp_stats(work, cols):
+        """Each warp's maximum of each counter against its lanes' mean,
+        averaged over warps (lanes in launch order, 32 to a warp)."""
+        n_w = work.shape[0] - work.shape[0] % 32
+        w = work[:n_w].view(-1, 32, 8).double()
+        out = {}
+        for name, c in cols:
+            out[f"warp_max_{name}"] = w[:, :, c].amax(1).mean().item()
+            out[f"lane_mean_{name}"] = w[:, :, c].mean().item()
+        return out
+
+    def mega_ptxas(symbol, arr, meta_, cfg):
+        """Registers and spills of the instantiation whose mangled name
+        holds symbol, its shared memory at this scene's tables and cfg's
+        soft-shadow window (none without a soft light, kind 0 ambient and
+        1 direct), and the blocks an SM holds by those registers
+        and that shared memory (128 threads a block; registers allocated
+        256 a warp, 65,536 an SM; 227 KB of shared memory a block, 228 KB
+        an SM less 1 KB a block; at most 16 blocks of 128 threads)."""
+        info = ptxas_info("megakernel", symbol)
+        tab = arr.kernel
+        smem = 4 * (meta_.num_analytic * 14 + tab.mtl.numel()
+                    + meta_.num_lights * 14 + 25)
+        soft = any(k not in (0, 1) and on for k, on in
+                   zip(meta_.light_kinds, meta_.light_soft))
+        w = max(1, min(max(cfg.shadow_spp_max, cfg.shadow_spp), 64))
+        smem += 4 * (9 * 128 + 3 + (w * 129 if soft else 0))
+        warp_regs = -(-info["registers"] * 32 // 256) * 256
+        blocks = min(65536 // warp_regs // 4, 233472 // (smem + 1024), 16)
+        return dict(info, smem_bytes=smem, blocks_per_sm=blocks,
+                    occupancy=blocks * 128 / 2048)
 
     def mega_ops(wsum):
-        return (wsum[0] * OPS_PER_TEST + wsum[1] * OPS_PER_CIPHER
-                + wsum[3] * OPS_PER_TRI + wsum[4] * OPS_PER_CHECKER)
+        """(float32 operations, integer operations) of the summed
+        counters: the ciphers are integer work, the rest float32."""
+        f32 = (wsum[0] * OPS_PER_TEST + wsum[3] * OPS_PER_TRI
+               + wsum[4] * OPS_PER_CHECKER + wsum[5] * OPS_PER_PHOTON
+               + wsum[6] * OPS_PER_PCLUSTER)
+        return f32, wsum[1] * OPS_PER_CIPHER
 
-    wsum = mega_work(s_arr, s_meta)
-    b_ms, b_by = bound(480000 * (12 + 16), mega_ops(wsum))
-    numbers["K1a"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None, timed_by=src,
-                          lanes=480000, prim_tests=wsum[0], ciphers=wsum[1],
-                          vertices=wsum[2])
+    def engine_ms(arr, meta_):
+        """The plain version (the wavefront engine) on the same lanes."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for lo in range(0, 480000, 65536):
+            render_batch_wavefront(arr, meta_, cfg_pt, bpx[lo:lo + 65536],
+                                   bpy[lo:lo + 65536], bsid[lo:lo + 65536],
+                                   rbg)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    soft_lights = int(((s_arr.kernel.light_soft > 0)
+                       & (s_arr.kernel.light_kind != 1)
+                       & (s_arr.kernel.light_kind != 0)).sum())
+    work, wsum = mega_work(s_arr, s_meta)
+    numbers["K1a"].update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          timed_by=src, lanes=480000, prim_tests=wsum[0],
+                          ciphers=wsum[1], vertices=wsum[2],
+                          soft_tails=wsum[7],
+                          tail_share=wsum[7] / max(1, wsum[2] * soft_lights),
+                          **mega_bounds(480000 * (12 + 16), work, wsum),
+                          **warp_stats(work, (("ciphers", 1),
+                                              ("prim_tests", 0),
+                                              ("vertices", 2))),
+                          **mega_ptxas("mega_kernelILb0ELb0E", s_arr, s_meta,
+                                       cfg_pt))
+    k1 = numbers["K1a"]
+    print(f"  K1a softdof, pathtrace 480000 lanes: {ms:.4f} ms by {src}, "
+          f"bound {k1['bound_ms']:.5f} ms by {k1['bound_by']} (bytes "
+          f"{k1['bound_bytes_ms']:.5f}, float32 {k1['bound_f32_ms']:.5f}, "
+          f"int32 {k1['bound_int32_ms']:.5f}; every operation at the "
+          f"float32 rate {k1['bound_f32_rate_ms']:.5f}; lanes raised to "
+          f"their warp's maximum {k1['bound_warp_max_ms']:.5f}); a warp's "
+          f"maximum against a lane's mean: ciphers "
+          f"{k1['warp_max_ciphers']:.1f} / {k1['lane_mean_ciphers']:.1f}, "
+          f"primitive tests {k1['warp_max_prim_tests']:.1f} / "
+          f"{k1['lane_mean_prim_tests']:.1f}, vertices "
+          f"{k1['warp_max_vertices']:.3f} / {k1['lane_mean_vertices']:.3f}; "
+          f"soft-shadow estimates past shadow_spp {k1['tail_share']:.4f} of "
+          f"lane-vertices; {k1['registers']} registers, spills "
+          f"{k1['spill_store_bytes']}/{k1['spill_load_bytes']} bytes, "
+          f"{k1['smem_bytes']} bytes of shared memory, {k1['blocks_per_sm']} "
+          f"blocks an SM (occupancy {k1['occupancy']:.4f})", flush=True)
+    del work
 
     # K1c: the same launch on mesh_scene (320 triangles) and its ico5
     # (20,480); its plain version is the wavefront engine on the same lanes.
@@ -1434,58 +1603,53 @@ def main():
         k_arr, k_meta = mesh_arr[what]
         ms, src = kernel_ms(lambda: megakernel.mega_render(
             k_arr, k_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
-        wsum = mega_work(k_arr, k_meta)
+        work, wsum = mega_work(k_arr, k_meta)
         tab = k_arr.kernel
         nbytes = (480000 * (12 + 16) + 4 * (tab.mesh_rows.numel()
                                             + tab.mesh_attr.numel()
                                             + tab.mesh_cb.numel()))
-        b_ms, b_by = bound(nbytes, mega_ops(wsum))
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for lo in range(0, 480000, 65536):
-            render_batch_wavefront(k_arr, k_meta, cfg_pt, bpx[lo:lo + 65536],
-                                   bpy[lo:lo + 65536], bsid[lo:lo + 65536],
-                                   rbg)
-        end.record()
-        end.synchronize()
-        row = dict(ms=ms, plain_ms=start.elapsed_time(end), bound_ms=b_ms,
-                   bound_by=b_by, timed_by=src, prim_tests=wsum[0],
-                   ciphers=wsum[1], vertices=wsum[2], tri_tests=wsum[3])
+        row = dict(ms=ms, plain_ms=engine_ms(k_arr, k_meta), timed_by=src,
+                   prim_tests=wsum[0], ciphers=wsum[1], vertices=wsum[2],
+                   tri_tests=wsum[3], **mega_bounds(nbytes, work, wsum),
+                   **warp_stats(work, (("tri_tests", 3), ("ciphers", 1))))
         if what == "mesh":
             numbers["K1c"].update(library_ms=None, lanes=480000,
                                   triangles=k_meta.num_tris, **row)
         else:
             numbers["K1c"].update({f"ico5_{k}": v for k, v in row.items()})
         print(f"  K1c {what} ({k_meta.num_tris} triangles), pathtrace 480000 "
-              f"lanes: {ms:.4f} ms by {src}, bound {b_ms:.5f} ms by {b_by}, "
-              f"engine {row['plain_ms']:.3f} ms, {wsum[3]} triangle tests",
-              flush=True)
+              f"lanes: {ms:.4f} ms by {src}, bound {row['bound_ms']:.5f} ms "
+              f"by {row['bound_by']} (float32 rate "
+              f"{row['bound_f32_rate_ms']:.5f}, warp maximum "
+              f"{row['bound_warp_max_ms']:.5f}), engine "
+              f"{row['plain_ms']:.3f} ms, {wsum[3]} triangle tests; a warp's "
+              f"maximum {row['warp_max_tri_tests']:.1f} against a lane's "
+              f"mean {row['lane_mean_tri_tests']:.1f}", flush=True)
+        del work
 
     # K1b: the textured launch on texture_scene, beside K1a's time on
     # softdof above; its plain version is the wavefront engine with the
     # texture stack on the same lanes.
     ms, src = kernel_ms(lambda: megakernel.mega_render(
         t_arr, t_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
-    wsum = mega_work(t_arr, t_meta)
-    b_ms, b_by = bound(480000 * (12 + 16), mega_ops(wsum))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for lo in range(0, 480000, 65536):
-        render_batch_wavefront(t_arr, t_meta, cfg_pt, bpx[lo:lo + 65536],
-                               bpy[lo:lo + 65536], bsid[lo:lo + 65536], rbg)
-    end.record()
-    end.synchronize()
-    numbers["K1b"].update(ms=ms, plain_ms=start.elapsed_time(end),
-                          bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                          timed_by=src, lanes=480000, prim_tests=wsum[0],
-                          ciphers=wsum[1], vertices=wsum[2],
-                          checker_tests=wsum[4])
+    work, wsum = mega_work(t_arr, t_meta)
+    numbers["K1b"].update(ms=ms, plain_ms=engine_ms(t_arr, t_meta),
+                          library_ms=None, timed_by=src, lanes=480000,
+                          prim_tests=wsum[0], ciphers=wsum[1],
+                          vertices=wsum[2], checker_tests=wsum[4],
+                          **mega_bounds(480000 * (12 + 16), work, wsum),
+                          **mega_ptxas("mega_kernelILb1ELb0E", t_arr, t_meta,
+                                       cfg_pt))
+    k1 = numbers["K1b"]
     print(f"  K1a+K1b texture_scene, pathtrace 480000 lanes: {ms:.4f} ms by "
           f"{src} (K1a on softdof {numbers['K1a']['ms']:.4f} ms), bound "
-          f"{b_ms:.5f} ms by {b_by}, engine {numbers['K1b']['plain_ms']:.3f} "
-          f"ms, {wsum[4]} checker tests on {wsum[2]} vertices", flush=True)
+          f"{k1['bound_ms']:.5f} ms by {k1['bound_by']} (float32 rate "
+          f"{k1['bound_f32_rate_ms']:.5f}, warp maximum "
+          f"{k1['bound_warp_max_ms']:.5f}), engine {k1['plain_ms']:.3f} ms, "
+          f"{wsum[4]} checker tests on {wsum[2]} vertices; "
+          f"{k1['registers']} registers, spills {k1['spill_store_bytes']}/"
+          f"{k1['spill_load_bytes']} bytes", flush=True)
+    del work
 
     # K1d: the gathering launch on caustics_scene with the default maps
     # (photonmap, max_bounce 5, rbg), beside K1a's time on softdof above;
@@ -1493,22 +1657,27 @@ def main():
     ms, src = kernel_ms(lambda: megakernel.mega_render(
         c_arr, c_meta, cfg_photon, bpx, bpy, bsid, rbg, photon_maps=pmaps),
         "mega_kernel", 5)
-    wsum = mega_work(c_arr, c_meta, cfg_photon, pmaps)
+    work, wsum = mega_work(c_arr, c_meta, cfg_photon, pmaps)
     ctab = pmaps[1]
-    b_ms, b_by = bound(
-        480000 * (12 + 4 * 4 + 4 * 19)
-        + 4 * (ctab.ctable.numel() + ctab.cbounds.numel()),
-        mega_ops(wsum) + wsum[5] * OPS_PER_PHOTON + wsum[6] * OPS_PER_PCLUSTER)
-    numbers["K1d"].update(ms=ms, plain_ms=photon_plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None, timed_by=src,
-                          lanes=480000, prim_tests=wsum[0], ciphers=wsum[1],
-                          vertices=wsum[2], photon_tests=wsum[5],
-                          cluster_tests=wsum[6])
+    numbers["K1d"].update(
+        ms=ms, plain_ms=photon_plain_ms, library_ms=None, timed_by=src,
+        lanes=480000, prim_tests=wsum[0], ciphers=wsum[1], vertices=wsum[2],
+        photon_tests=wsum[5], cluster_tests=wsum[6],
+        **mega_bounds(480000 * (12 + 4 * 4 + 4 * 19)
+                      + 4 * (ctab.ctable.numel() + ctab.cbounds.numel()),
+                      work, wsum),
+        **mega_ptxas("mega_kernelILb0ELb1E", c_arr, c_meta, cfg_photon))
+    k1 = numbers["K1d"]
     print(f"  K1a+K1d caustics_scene, photonmap 480000 lanes: {ms:.4f} ms by "
           f"{src} (K1a on softdof {numbers['K1a']['ms']:.4f} ms), bound "
-          f"{b_ms:.5f} ms by {b_by}, engine {photon_plain_ms:.3f} ms, "
+          f"{k1['bound_ms']:.5f} ms by {k1['bound_by']} (float32 rate "
+          f"{k1['bound_f32_rate_ms']:.5f}, warp maximum "
+          f"{k1['bound_warp_max_ms']:.5f}), engine {photon_plain_ms:.3f} ms, "
           f"{wsum[5]} photon tests, {wsum[6]} cluster tests on {wsum[2]} "
-          "vertices", flush=True)
+          f"vertices; {k1['registers']} registers, spills "
+          f"{k1['spill_store_bytes']}/{k1['spill_load_bytes']} bytes",
+          flush=True)
+    del work
 
     # K5 on the records of phase 2c's dispatch. The bound counts, for each
     # query with a record, the rows of the clusters within r of that query
@@ -1575,52 +1744,94 @@ def main():
                              rays=n, prim_tests=tests)
     torch.cuda.synchronize()
 
-    # K3 on ico5 and K4a/K4b on ico6 at the 480,000 camera rays of
-    # mesh_scene at 800x600 (and, for K4b, their shadow rays); K3 also on
-    # mesh_scene's own 320 triangles, the shape of its launches in 4f and
-    # 4m. The tiled route sorts rays by coherence_order before each walk,
-    # so the kernels are timed on sorted rays; the two-phase K4a is also
-    # timed whole.
+    # K3 on ico5 and on mesh_scene's own 320 triangles (the shape of its
+    # launches in 4f and 4m), K4a/K4b on ico6, at the 480,000 camera rays of
+    # mesh_scene at 800x600 (and, for K4b, their shadow rays). The tiled
+    # route walks rays in coherence order, so K4a/K4b are timed on sorted
+    # rays; the dense route walks them as they come, and so is K3 timed.
     n_cam = cp.shape[0]
     t_big = torch.full((n_cam,), BIG, device="cuda")
 
-    def k3_row(c16_, n_tris):
-        fp = c16_.shape[0]
-        b_ms, b_by = bound(n_cam * (24 + 4 + 12) + fp * 64,
-                           n_cam * fp * OPS_PER_TRI)
-        k_ms, src = kernel_ms(lambda: mesh_sweep.sweep_closest(
-            cp, cd, t_big, c16_), "sweep_kernel", 10)
-        return dict(ms=k_ms, bound_ms=b_ms, bound_by=b_by, timed_by=src,
-                    triangles=n_tris, tri_tests=n_cam * fp)
+    def clusters_within(p_, d_, cb, reach, ties=False):
+        """Per ray, the clusters of boxes cb whose widened entry bound is
+        below reach (at or below it with ties): those any exact walk must
+        sweep (tiles.ray_cluster_entry, the kernels' own box test)."""
+        out = []
+        for k in range(0, p_.shape[0], 1 << 13):
+            lo, ok = tiles.ray_cluster_entry(p_[k:k + (1 << 13)],
+                                             d_[k:k + (1 << 13)], cb)
+            r = reach[k:k + (1 << 13), None]
+            out.append((ok & ((lo <= r) if ties else (lo < r))).sum(1))
+        return torch.cat(out)
 
-    numbers["K3"] = dict(
-        max_abs_err=mesh_err["K3"], **k3_row(c16, m5.num_tris),
-        plain_ms=cuda_ms(lambda: stream_closest(cp, cd, t_big, plain5), 1),
-        library_ms=None, wrapper_ms=cuda_ms(
-            lambda: mesh_sweep.sweep_closest(cp, cd, t_big, c16), 10),
-        rays=n_cam)
+    def k3_row(mesh_):
+        """K3 on the camera rays: time, clusters a ray and for its warp's
+        slowest ray, and its bound: the tests of the clusters whose entry
+        bound lies at or below the ray's final reach (the runner-up's t, or
+        BIGFLOAT where it has none), beside the dense sweep's (every
+        row)."""
+        walk = mesh_sweep.walk_of(mesh_)
+        leaf = mesh_sweep.WALK_LEAF
+        n_leaves = walk.tree.shape[0] // 2
+        n_cl = walk.rows.shape[0] // leaf
+        cb = walk.tree[n_leaves:n_leaves + n_cl, :6]
+        c16_ = mesh_.stream_c16
+        steps = torch.zeros(n_cam, dtype=torch.int32, device="cuda")
+        out = mesh_sweep.sweep_closest(cp, cd, t_big, c16_, walk=walk,
+                                       steps=steps)
+        tab = mesh_sweep.unpack_coeff16(c16_)
+        r2 = out[2].clamp_min(0).long()
+        t2 = _chunk_test(cp[:, None], cd[:, None], tab.coeff[r2][:, None],
+                         tab.const[r2][:, None])[:, 0, 0]
+        need = clusters_within(cp, cd, cb, torch.where(out[2] >= 0, t2,
+                                                       t_big), ties=True)
+        check(bool((need <= steps).all()), f"K3 {mesh_.tri_v.shape[0]} "
+              "triangles: every ray visited the clusters it needs")
+        tests = int(need.sum(dtype=torch.int64).item()) * leaf
+        nbytes = (n_cam * (24 + 4 + 12) + 4 * (walk.rows.numel()
+                                               + walk.gid.numel()
+                                               + walk.tree.numel()))
+        b_ms, b_by = bound(nbytes, tests * OPS_PER_TRI)
+        def run():
+            return mesh_sweep.sweep_closest(cp, cd, t_big, c16_, walk=walk)
+
+        k_ms, src = kernel_ms(run, "walk_kernel", 10)
+        n_w = n_cam - n_cam % 32
+        visited = int(steps.sum(dtype=torch.int64).item())
+        return dict(
+            ms=k_ms, bound_ms=b_ms, bound_by=b_by, timed_by=src,
+            wrapper_ms=cuda_ms(run, 10), clusters=n_cl,
+            triangles=mesh_.tri_v.shape[0], tri_tests=tests,
+            clusters_visited=visited, mean_ray_clusters=visited / n_cam,
+            warp_ray_clusters=steps[:n_w].view(-1, 32).amax(1).double()
+            .mean().item(), max_ray_clusters=int(steps.max().item()),
+            bound_dense_ms=bound(n_cam * 40 + c16_.numel() * 4,
+                                 n_cam * c16_.shape[0] * OPS_PER_TRI)[0])
+
     ms_arr, _ = compile_scene(mesh_base, device="cuda")
-    numbers["K3"]["mesh_scene"] = k3_row(ms_arr.mesh.stream_c16, 320)
-    print(f"  K3 on mesh_scene (320 triangles): "
-          f"{json.dumps(numbers['K3']['mesh_scene'])}", flush=True)
+    rows3 = {}
+    for what, mesh_ in (("ico5", mesh5), ("mesh_scene", ms_arr.mesh)):
+        r = rows3[what] = k3_row(mesh_)
+        print(f"  K3 {what} ({r['triangles']} triangles) camera rays: "
+              f"{r['ms']:.4f} ms by {r['timed_by']}, bound "
+              f"{r['bound_ms']:.5f} ms by {r['bound_by']} (dense sweep's "
+              f"{r['bound_dense_ms']:.5f}), {r['mean_ray_clusters']:.3f} "
+              f"clusters a ray, {r['warp_ray_clusters']:.3f} for its "
+              f"warp's slowest, at most {r['max_ray_clusters']}", flush=True)
+    numbers["K3"] = dict(
+        max_abs_err=mesh_err["K3"], **rows3["ico5"],
+        plain_ms=cuda_ms(lambda: stream_closest(cp, cd, t_big, plain5), 1),
+        library_ms=None, rays=n_cam, mesh_scene=rows3["mesh_scene"],
+        **ptxas_info("tiles", "walk_kernelILi2E"))
+    print(f"  K3 ptxas: {ptxas_info('tiles', 'walk_kernelILi2E')}",
+          flush=True)
     del ms_arr
 
     lo6 = m6t.tile_cbounds[:, :3].amin(0)
     hi6 = m6t.tile_cbounds[:, 3:6].amax(0)
     fp6 = m6t.tile_c16T.shape[0] * 8
     tree6 = m6t.tile_tree
-
-    def clusters_within(p_, d_, reach):
-        """Per ray, the clusters whose widened entry bound is below reach:
-        those any exact walk must sweep (tiles.ray_cluster_entry, the
-        kernels' own box test)."""
-        out = []
-        for k in range(0, p_.shape[0], 1 << 13):
-            lo, ok = tiles.ray_cluster_entry(p_[k:k + (1 << 13)],
-                                             d_[k:k + (1 << 13)],
-                                             m6t.tile_cbounds)
-            out.append((ok & (lo < reach[k:k + (1 << 13), None])).sum(1))
-        return torch.cat(out)
+    cb6 = m6t.tile_cbounds
 
     for name, (p_, d_, t_) in (("K4a", (cp, cd, t_big)), ("K4b", shadow6)):
         any_hit = name == "K4b"
@@ -1641,16 +1852,17 @@ def main():
         # reach of the runner-up (the any hit: every cluster within the
         # budget of a ray left open, one for an occluded ray).
         if any_hit:
-            need = torch.where(out, 1, clusters_within(ps, ds, ts))
+            need = torch.where(out, 1, clusters_within(ps, ds, cb6, ts))
             need_win = work // 256
         else:
             # The runner-up's t, from its row as the sweep computes it.
             r2 = out[2].clamp_min(0).long()
             t2 = _chunk_test(ps[:, None], ds[:, None], tm6.coeff[r2][:, None],
                              tm6.const[r2][:, None])[:, 0, 0]
-            need = clusters_within(ps, ds, torch.where(out[2] >= 0, t2, ts))
+            need = clusters_within(ps, ds, cb6,
+                                   torch.where(out[2] >= 0, t2, ts))
             del r2, t2
-            need_win = clusters_within(ps, ds, out[0])
+            need_win = clusters_within(ps, ds, cb6, out[0])
         check(bool((need <= steps).all()), f"{name}: every ray visited the "
               "clusters it needs")
         if any_hit:
@@ -1670,7 +1882,7 @@ def main():
             + tree6.numel() * 4
         b_ms, b_by = bound(nbytes, tests * OPS_PER_TRI)
         bw_ms, _ = bound(nbytes, tests_win * OPS_PER_TRI)
-        kname = "walk_kernel<true>" if any_hit else "walk_kernel<false>"
+        kname = "walk_kernel<kAnyHit>" if any_hit else "walk_kernel<kTiled>"
         k_ms, src = kernel_ms(lambda: tiles.tiled_sweep_kernel(
             ps, ds, ts, tm6, m6t.tile_c16T, any_hit=any_hit, tree=tree6),
             "walk_kernel", 10)
@@ -1687,8 +1899,8 @@ def main():
             mean_ray_clusters=visited / n, warp_ray_clusters=warp_clusters,
             max_ray_clusters=int(steps.max().item()), tri_tests=tests,
             tri_tests_win=tests_win,
-            **ptxas_info("tiles", "walk_kernelILb1E" if any_hit
-                         else "walk_kernelILb0E"))
+            **ptxas_info("tiles", "walk_kernelILi1E" if any_hit
+                         else "walk_kernelILi0E"))
         print(f"  {name} ({kname}): {k_ms:.4f} ms by {src}, bound "
               f"{b_ms:.5f} ms (runner-up reach; winner reach "
               f"{bw_ms:.5f} ms), {visited / n:.3f} clusters a ray, "
@@ -1730,8 +1942,9 @@ def main():
             tab = g_arr.kernel
             nbytes += 4 * (tab.mesh_rows.numel() + tab.mesh_attr.numel()
                            + tab.mesh_cb.numel())
-        b_ms, b_by = bound(nbytes, wsum[0] * OPS_PER_TEST
-                           + wsum[1] * OPS_PER_CIPHER + wsum[3] * OPS_PER_TRI)
+        f32 = wsum[0] * OPS_PER_TEST + wsum[3] * OPS_PER_TRI
+        b_ms, b_by = bound(nbytes, f32, wsum[1] * OPS_PER_CIPHER)
+        b_old = bound(nbytes, f32 + wsum[1] * OPS_PER_CIPHER)[0]
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1740,9 +1953,9 @@ def main():
         end.record()
         end.synchronize()
         row = dict(ms=ms, plain_ms=start.elapsed_time(end), bound_ms=b_ms,
-                   bound_by=b_by, timed_by=src, lanes=n_l,
-                   prim_tests=wsum[0], ciphers=wsum[1], vertices=wsum[2],
-                   tri_tests=wsum[3])
+                   bound_by=b_by, bound_f32_rate_ms=b_old, timed_by=src,
+                   lanes=n_l, prim_tests=wsum[0], ciphers=wsum[1],
+                   vertices=wsum[2], tri_tests=wsum[3])
         if what == "spot":
             numbers["K6"].update(library_ms=None, **row)
         else:
@@ -1780,9 +1993,7 @@ def main():
     numbers["K6"]["grad_path"] = {f"{w} {r}": v
                                   for (w, r), v in grad_cells.items()}
     numbers["K6"].update(ptxas_info("adjoint", "adjoint_kernel"))
-    numbers["K1a"].update(ptxas_info("megakernel", "mega_kernelILb0ELb0E"))
-    print(f"  K6 ptxas: {ptxas_info('adjoint', 'adjoint_kernel')}; K1a "
-          f"ptxas: {ptxas_info('megakernel', 'mega_kernelILb0ELb0E')}",
+    print(f"  K6 ptxas: {ptxas_info('adjoint', 'adjoint_kernel')}",
           flush=True)
     torch.cuda.synchronize()
 
@@ -1834,7 +2045,7 @@ def main():
                 "qaray_tpu/ops/pallas_pathtrace.py:1614"),
         "K5": ("qaray_tpu_torch/csrc/photon.cu",
                "qaray_tpu/ops/pallas_photon.py:164"),
-        "K3": ("qaray_tpu_torch/csrc/mesh.cu",
+        "K3": ("qaray_tpu_torch/csrc/tiles.cu",
                "qaray_tpu/ops/pallas_mesh.py:143"),
         "K4a": ("qaray_tpu_torch/csrc/tiles.cu",
                 "qaray_tpu/ops/pallas_tiles.py:385"),

@@ -1,21 +1,35 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
-// compile csrc/megakernel.cu and csrc/adjoint.cu as C++ and run them one
-// lane at a time on the CPU (ops/_build.load_host). The CPU tests use it to hold the kernel
-// source's arithmetic to the plain PyTorch version where there is no card
-// and no nvcc. It says nothing about what nvcc accepts or how fast the
-// kernel is. Not thread-safe: the launch geometry lives in globals.
+// compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu) as C++
+// and run them on the CPU (ops/_build.load_host). The CPU tests use it to
+// hold a source's arithmetic to the plain PyTorch version where there is
+// no card and no nvcc. It says nothing about what nvcc accepts or how fast
+// the kernel is.
+//
+// A launch runs its grid in host blocks of qr_host_set_block threads (1 by
+// default), one block after another. A block of one thread runs on the
+// calling thread, and __syncthreads has nothing to wait for. A larger
+// block runs each of its threads on a std::thread of its own, with a
+// std::barrier for __syncthreads, __syncthreads_or and __syncthreads_count
+// and the dynamic shared memory shared among them, so that code which
+// hands work between a block's threads runs as it does on the card. Not
+// reentrant: the launch geometry lives in globals.
 #pragma once
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
+#include <barrier>
+#include <thread>
+#include <vector>
+
 #define __device__
 #define __global__
 #define __host__
 #define __forceinline__ inline
 #define __constant__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct float4 {
   float x, y, z, w;
@@ -23,11 +37,27 @@ struct float4 {
 struct dim3 {
   unsigned x, y, z;
 };
-static dim3 threadIdx, blockIdx, blockDim;
+static thread_local dim3 threadIdx, blockIdx;
+static dim3 blockDim;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 static int qr_host_error = cudaSuccess;
+static unsigned qr_host_block = 1;
+static std::barrier<>* qr_host_bar = nullptr;
+// The accumulators of __syncthreads_or and __syncthreads_count: call k of
+// a block uses slot k % 3, and thread 0 clears the slot of call k + 1
+// before it arrives at call k's barrier, when every thread has read that
+// slot's last value (call k - 2).
+static std::atomic<int> qr_host_sum[3];
+static thread_local unsigned qr_host_sum_calls = 0;
+
+// Threads a host block (tests only).
+extern "C" int qr_host_set_block(int threads) {
+  if (threads < 1) return cudaErrorInvalidValue;
+  qr_host_block = (unsigned)threads;
+  return cudaSuccess;
+}
 
 template <class T>
 int cudaFuncSetAttribute(T, int, int) {
@@ -43,7 +73,20 @@ int cudaMemcpyToSymbol(T& dst, const void* src, size_t n) {
   memcpy(&dst, src, n);
   return cudaSuccess;
 }
-inline void __syncthreads() {}
+inline void __syncthreads() {
+  if (qr_host_bar) qr_host_bar->arrive_and_wait();
+}
+inline int __syncthreads_count(int pred) {
+  if (!qr_host_bar) return pred != 0;
+  const unsigned k = qr_host_sum_calls++ % 3;
+  if (threadIdx.x == 0) qr_host_sum[(k + 1) % 3].store(0);
+  if (pred) qr_host_sum[k].fetch_add(1);
+  qr_host_bar->arrive_and_wait();
+  return qr_host_sum[k].load();
+}
+inline int __syncthreads_or(int pred) {
+  return __syncthreads_count(pred) > 0;
+}
 template <class T>
 T __ldg(const T* p) {
   return *p;
@@ -53,10 +96,20 @@ inline float __uint_as_float(unsigned a) {
   memcpy(&f, &a, 4);
   return f;
 }
+inline unsigned __float_as_uint(float f) {
+  unsigned a;
+  memcpy(&a, &f, 4);
+  return a;
+}
 inline float atomicAdd(float* a, float v) {
-  const float old = *a;
-  *a = old + v;
+  std::atomic_ref<float> r(*a);
+  float old = r.load();
+  while (!r.compare_exchange_weak(old, old + v)) {
+  }
   return old;
+}
+inline int atomicAdd(int* a, int v) {
+  return std::atomic_ref<int>(*a).fetch_add(v);
 }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline int min(int a, int b) { return a < b ? a : b; }
@@ -64,18 +117,43 @@ inline int min(int a, int b) { return a < b ? a : b; }
 // A block's dynamic shared memory: the card's 227 KB.
 #define QR_HOST_SMEM_FLOATS (227 * 256)
 #define QR_SHARED_FLOATS(name) static float name[QR_HOST_SMEM_FLOATS]
-// A launch runs every thread of the grid in turn as a block of its own, so
-// each stages the tables it reads and __syncthreads has nothing to wait for.
-#define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg)           \
-  do {                                                                   \
-    if ((size_t)(smem) > sizeof(float) * QR_HOST_SMEM_FLOATS) {          \
-      qr_host_error = cudaErrorInvalidValue;                             \
-      break;                                                             \
-    }                                                                    \
-    blockDim.x = 1;                                                      \
-    threadIdx.x = 0;                                                     \
-    for (unsigned b_ = 0; b_ < (unsigned)(blocks) * (threads); ++b_) {   \
-      blockIdx.x = b_;                                                   \
-      kernel(arg);                                                       \
-    }                                                                    \
-  } while (0)
+
+// Runs kernel(arg) over `blocks` blocks of `threads` card threads, as
+// blocks of qr_host_block host threads.
+template <class K, class A>
+void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
+                    size_t smem, const A& arg) {
+  if (smem > sizeof(float) * QR_HOST_SMEM_FLOATS) {
+    qr_host_error = cudaErrorInvalidValue;
+    return;
+  }
+  const unsigned nb = qr_host_block;
+  const unsigned total = blocks * threads;
+  blockDim.x = nb;
+  for (unsigned b = 0; b < (total + nb - 1) / nb; ++b) {
+    if (nb == 1) {
+      blockIdx.x = b;
+      threadIdx.x = 0;
+      kernel(arg);
+      continue;
+    }
+    std::barrier<> bar((ptrdiff_t)nb);
+    qr_host_bar = &bar;
+    for (auto& slot : qr_host_sum) slot.store(0);
+    std::vector<std::thread> team;
+    for (unsigned t = 0; t < nb; ++t)
+      team.emplace_back([&, t] {
+        blockIdx.x = b;
+        threadIdx.x = t;
+        qr_host_sum_calls = 0;
+        kernel(arg);
+        bar.arrive_and_drop();
+      });
+    for (auto& th : team) th.join();
+    qr_host_bar = nullptr;
+  }
+}
+
+#define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg) \
+  qr_host_launch(kernel, (unsigned)(blocks), (unsigned)(threads), \
+                 (size_t)(smem), arg)

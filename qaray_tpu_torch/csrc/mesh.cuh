@@ -1,5 +1,5 @@
 // Triangle sweep predicate and cluster cull shared by the mesh kernels:
-// K3 (mesh.cu), K4a/K4b (tiles.cu) and the megakernel's mesh sweep K1c
+// the walks K3, K4a and K4b (tiles.cu) and the megakernel's mesh sweep K1c
 // (megakernel.cu, adjoint.cu).
 //
 // The predicate is qaray_tpu/ops/pallas_mesh.py::_sweep_kernel's math

@@ -18,10 +18,12 @@ Called only by the kernels' wrappers for CUDA tensors; nothing here runs
 when the package is imported.
 
 load_host is apart from all that: it compiles a kernel source with g++
-against csrc/host/cuda_runtime.h, a stand-in that runs a launch one lane at
-a time on the CPU, so that tests without a card can hold the source's
-arithmetic to the plain version (ops/megakernel.mega_render_host,
-ops/adjoint.adjoint_render_host). No entry point of the port uses it.
+against csrc/host/cuda_runtime.h, a stand-in that runs a launch on the CPU
+one lane at a time or in blocks of threads (qr_host_set_block), so that
+tests without a card can hold the source's arithmetic to the plain version
+(ops/megakernel.mega_render_host, ops/adjoint.adjoint_render_host,
+ops/tiles.tiled_sweep_host, ops/mesh_sweep.sweep_host). No entry point of
+the port uses it.
 """
 
 import ctypes
@@ -34,8 +36,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = {"adjoint": "adjoint.cu", "analytic": "analytic.cu",
-           "megakernel": "megakernel.cu", "mesh": "mesh.cu",
-           "photon": "photon.cu", "tiles": "tiles.cu"}
+           "megakernel": "megakernel.cu", "photon": "photon.cu",
+           "tiles": "tiles.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
@@ -103,8 +105,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_host(name: str) -> ctypes.CDLL:
-    """`name`'s source compiled for the CPU by g++ (-O1, no FMA contraction,
-    as the card's build has none), loaded; raises RuntimeError without g++
+    """`name`'s source compiled for the CPU by g++ (C++20 for the host
+    blocks' std::barrier; -O1, no FMA contraction, as the card's build has
+    none), loaded; raises RuntimeError without g++
     or for a source that does not go through csrc/host/cuda_runtime.h's
     macros (the megakernel and the adjoint do)."""
     gxx = shutil.which("g++")
@@ -117,8 +120,9 @@ def load_host(name: str) -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [gxx, "-x", "c++", "-std=c++17", "-O1", "-ffp-contract=off",
-               "-shared", "-fPIC", "-Wno-unknown-pragmas", f"-I{stub}",
+        cmd = [gxx, "-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off",
+               "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
+               f"-I{stub}",
                "-o", str(tmp), str(CSRC / SOURCES[name])]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -46,6 +46,8 @@ from qaray_tpu_torch.core.rng import fold_words
 from qaray_tpu_torch.diff import DiffParams, extract_params, splice_params
 from qaray_tpu_torch.photon.gather import radius2
 from qaray_tpu_torch.scene.arrays import (
+    LIGHT_AMBIENT,
+    LIGHT_DIRECT,
     MTL_COLS,
     MTL_TEX_COLS,
     SceneArrays,
@@ -80,7 +82,9 @@ def _kernel(host: bool = False):
                      "K1b footprint offsets")
         _fns[host] = _build.bind(
             lib, "qr_mega_render",
-            "pppipppipiiipppifpuuiiiiiiipppipppppppifpp")
+            "pppipppipiiipppifpuuiiiiiiipppipppppippifpp")
+        if host:
+            _fns["host_block"] = _build.bind(lib, "qr_host_set_block", "i")
     return _fns[host]
 
 
@@ -148,11 +152,13 @@ def mega_render(scene: SceneArrays, meta: SceneMeta, cfg, px, py, sample_ids,
     key_words: 2 threefry words, or the 4 words of a jax 'rbg' key, which
     fold to (0, 0) as in the reference (core.rng.fold_words). photon_maps:
     the clustered (global, caustics) PhotonMapData. work: optional int32
-    [B, 7] tensor the kernel fills with each lane's primitive tests,
+    [B, 8] tensor the kernel fills with each lane's primitive tests,
     threefry ciphers, shaded vertices, triangle tests and checker tests,
-    and when it gathers its photon tests and caustics cluster tests (the
-    last two columns are left as they were otherwise; CUDA only; for
-    roofline bounds).
+    when it gathers its photon tests and caustics cluster tests (columns 5
+    and 6 are left as they were otherwise), and in column 7 its
+    soft-shadow estimates that went on past shadow_spp samples
+    (CUDA only; for roofline bounds). A soft-shadow sample's work counts
+    to its lane, whichever thread of the block ran it.
     """
     _check_lanes(px, py, sample_ids)
     gather = gathers(cfg, photon_maps)
@@ -236,18 +242,28 @@ class _MegaRender(torch.autograd.Function):
 
 
 def mega_render_host(scene: SceneArrays, meta: SceneMeta, cfg, px, py,
-                     sample_ids, key_words, work=None, photon_maps=None):
-    """mega_render's kernel source run on the CPU, one lane at a time, on CPU
-    tensors (_build.load_host), with its records gathered by the plain
-    version of K5. For tests without a card: it holds the source's
-    arithmetic to the plain version; no entry point calls it and it counts
-    no launch."""
+                     sample_ids, key_words, work=None, photon_maps=None,
+                     block: int = 1):
+    """mega_render's kernel source run on the CPU on CPU tensors
+    (_build.load_host), in blocks of `block` threads (one std::thread each,
+    sharing the block's shared memory and barriers; 1: one lane at a time),
+    with its records gathered by the plain version of K5. For tests without
+    a card: it holds the source's arithmetic to the plain version and its
+    blocks' pooled work to one thread's; no entry point calls it and it
+    counts no launch."""
     _check_lanes(px, py, sample_ids)
     if px.device.type != "cpu":
         raise ValueError("mega_render_host takes CPU tensors")
-    return _launch(_kernel(host=True), None, scene, meta, cfg, px, py,
-                   sample_ids, key_words, work,
-                   photon_maps if gathers(cfg, photon_maps) else None)
+    fn = _kernel(host=True)
+    from qaray_tpu_torch.ops import _build
+
+    _build.check(_fns["host_block"](block), "host block size")
+    try:
+        return _launch(fn, None, scene, meta, cfg, px, py, sample_ids,
+                       key_words, work,
+                       photon_maps if gathers(cfg, photon_maps) else None)
+    finally:
+        _fns["host_block"](1)
 
 
 def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
@@ -281,9 +297,9 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
     r, g, b, t0 = (torch.empty(n, dtype=torch.float32, device=dev)
                    for _ in range(4))
     if work is not None and (work.device != dev or work.dtype != torch.int32
-                             or work.shape != (n, 7)
+                             or work.shape != (n, 8)
                              or not work.is_contiguous()):
-        raise ValueError("work must be a contiguous int32 [B, 7] tensor on "
+        raise ValueError("work must be a contiguous int32 [B, 8] tensor on "
                          "the lanes' device")
     mesh = (tabs.mesh_rows, tabs.mesh_attr, tabs.mesh_cb)
     if meta.mesh_mega != (tabs.mesh_rows is not None):
@@ -339,6 +355,8 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
             *(t.data_ptr() if n_clusters else None for t in mesh), n_clusters,
             r.data_ptr(), g.data_ptr(), b.data_ptr(),
             t0.data_ptr(), work.data_ptr() if work is not None else None,
+            int(any(k not in (LIGHT_AMBIENT, LIGHT_DIRECT) and soft
+                    for k, soft in zip(meta.light_kinds, meta.light_soft))),
             *((cmap.ctable.data_ptr(), cmap.cbounds.data_ptr(),
                cmap.cbounds.shape[0], radius2(cmap.radius), pout.data_ptr())
               if photon_maps is not None else (None, None, 0, 0.0, None)),

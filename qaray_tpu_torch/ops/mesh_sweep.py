@@ -1,18 +1,29 @@
-"""Dense triangle sweep kernel (K3, csrc/mesh.cu) beside its plain version.
+"""Culled mesh sweep kernel (K3, csrc/tiles.cu walk_kernel<kDense>)
+beside its plain version.
 
 Counterpart of qaray_tpu/ops/pallas_mesh.py (pallas_sweep_closest ->
-_sweep_kernel): every ray against every triangle of the world mesh, with
-the linear-in-t predicate of ops/mesh_stream.py, folding each ray's
-closest triangle row and its runner-up. With t_cur set to a shadow ray's
-budget the same sweep is the any-hit test (ops/trace.py, as the JAX
-package's trace_shadow does on the TPU).
+_sweep_kernel): each ray's closest triangle and runner-up over a world
+mesh, with the linear-in-t predicate of ops/mesh_stream.py. The Pallas
+kernel sweeps every row for every ray; here one CUDA thread walks one ray
+over a tree of Morton clusters of WALK_LEAF rows (build_walk), the same
+walk as the tiled route's K4a, and folds (t, world triangle id)
+lexicographically, so the result is the dense sweep's on every ray:
+t of the first of {(t_cur, -1)} and every hit, its id where that t is
+below t_cur, and the second's id where its t is below BIGFLOAT. With t_cur
+set to a shadow ray's budget, the any hit (sweep_occluded) stops a ray at
+its first occluder (ops/trace.py, as the JAX package's trace_shadow does
+on the TPU).
 
-The wrappers take the [Fp, 16] coefficient table of pack_coeff16. For
-tensors on the CPU they run the plain versions, stream_closest and
-stream_any_hit (ops/mesh_stream.py), on the same coefficients; for CUDA
-tensors they launch the kernel, never falling back from one to the
-other. `launches` counts kernel launches.
+The wrappers take the dense [Fp, 16] coefficient table of pack_coeff16 and
+the walk's tables (SweepWalk, the compiled scene's stream_rows, stream_gid
+and stream_tree: walk_of). For tensors on the CPU they run the plain
+versions, stream_closest and stream_any_hit (ops/mesh_stream.py), on the
+dense table; for CUDA tensors they launch the kernel on the walk's tables,
+never falling back from one to the other. `launches` counts kernel
+launches.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,19 +39,34 @@ from qaray_tpu_torch.ops.mesh_stream import (
 # route. Kept so that the compiled meta equals the JAX package's.
 PALLAS_MESH_MAX_TRIS = 65536
 ROW_ALIGN = 128  # pack_coeff16 pads rows to a multiple of this
+# Rows a cluster of the walk: a ray tests a visited cluster's rows in
+# full, and mesh_scene's 320 triangles make 5 such clusters (2 of 256). On
+# the card it beat leaves of 256 rows on mesh_scene and on ico5 (PERF.md).
+WALK_LEAF = 64
 
 launches = {"K3": 0}
 
-_fn = []
+_fns = {}
 
 
-def _kernel():
-    if not _fn:
+class SweepWalk(NamedTuple):
+    """The walk's tables: the dense rows in Morton order, WALK_LEAF to a
+    cluster, each row's world triangle id, and the clusters' tree."""
+
+    rows: torch.Tensor  # [C * WALK_LEAF, 16] pack_coeff16 rows, Morton order
+    gid: torch.Tensor  # [C * WALK_LEAF] int32 world triangle id (-1 padding)
+    tree: torch.Tensor  # [2L, 8] tiles.cluster_tree of the clusters' boxes
+
+
+def _lib(host: bool = False):
+    """qr_mesh_walk of the CUDA library, or with host=True of the same
+    source built for the CPU (_build.load_host; tests only)."""
+    if host not in _fns:
         from qaray_tpu_torch.ops import _build
 
-        lib = _build.load("mesh")
-        _fn.append(_build.bind(lib, "qr_mesh_sweep", "ppppiiipppp"))
-    return _fn[0]
+        lib = (_build.load_host if host else _build.load)("tiles")
+        _fns[host] = _build.bind(lib, "qr_mesh_walk", "ppppppiiiippppppp")
+    return _fns[host]
 
 
 def pack_coeff16(stream_coeff, stream_const) -> np.ndarray:
@@ -65,6 +91,24 @@ def unpack_coeff16(coeff16) -> StreamTris:
     return StreamTris(coeff16[:, 0:9].reshape(-1, 3, 3), coeff16[:, 9:13])
 
 
+def build_walk(tri_v) -> SweepWalk:
+    """The walk's tables of world triangles tri_v [F, 3, 3] (CPU tensors):
+    ops/mesh_tiles.build_tiles' Morton clusters of WALK_LEAF rows, whose
+    coefficients are pack_coeff16's numbers row for row."""
+    from qaray_tpu_torch.ops.mesh_tiles import build_tiles
+    from qaray_tpu_torch.ops.tiles import cluster_tree
+
+    tm = build_tiles(tri_v, cluster=WALK_LEAF)
+    rows = pack_coeff16(tm.coeff, tm.const)[: tm.coeff.shape[0]]
+    return SweepWalk(torch.from_numpy(np.ascontiguousarray(rows)), tm.gid,
+                     cluster_tree(tm.cbounds))
+
+
+def walk_of(mesh) -> SweepWalk:
+    """The compiled scene's walk tables (scene.arrays.MeshArrays)."""
+    return SweepWalk(mesh.stream_rows, mesh.stream_gid, mesh.stream_tree)
+
+
 def _check(p, d, t_cur, coeff16):
     dev = p.device
     for t in (d, t_cur, coeff16):
@@ -85,47 +129,98 @@ def _check(p, d, t_cur, coeff16):
                          "Fp a multiple of 128 (pack_coeff16)")
 
 
+def _check_walk(walk, device):
+    if walk is None:
+        raise ValueError("the kernel walks the compiled scene's tables: "
+                         "pass walk=walk_of(scene.mesh)")
+    rows, gid, tree = walk
+    leaves = tree.shape[0] // 2
+    if (any(t.device != device for t in (rows, gid, tree))
+            or rows.dtype != torch.float32 or rows.ndim != 2
+            or rows.shape[1] != 16 or rows.shape[0] % WALK_LEAF
+            or gid.dtype != torch.int32 or gid.shape != rows.shape[:1]
+            or tree.dtype != torch.float32 or tree.shape != (2 * leaves, 8)
+            or leaves & (leaves - 1) or leaves * WALK_LEAF < rows.shape[0]
+            or not all(t.is_contiguous() for t in (rows, gid, tree))):
+        raise ValueError("walk must be build_walk's tables (contiguous "
+                         "float32 rows, int32 gid, a cluster_tree of their "
+                         "clusters) on the rays' device")
+
+
 def _plain_chunk(coeff16):
     return 256 if coeff16.shape[0] % 256 == 0 else ROW_ALIGN
 
 
-def _launch(p, d, t_cur, coeff16, any_hit):
+def _launch(fn, p, d, t_cur, walk, any_hit, steps, stream):
     n = p.shape[0]
     dev = p.device
     t = torch.empty(n, dtype=torch.float32, device=dev)
     row = torch.empty(n, dtype=torch.int32, device=dev)
     row2 = torch.empty(n, dtype=torch.int32, device=dev)
+    flag = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
         from qaray_tpu_torch.ops import _build
 
         p, d, t_cur = p.contiguous(), d.contiguous(), t_cur.contiguous()
-        rc = _kernel()(p.data_ptr(), d.data_ptr(), t_cur.data_ptr(),
-                       coeff16.data_ptr(), coeff16.shape[0], n,
-                       int(any_hit), t.data_ptr(), row.data_ptr(),
-                       row2.data_ptr(),
-                       torch.cuda.current_stream().cuda_stream)
-        _build.check(rc, "K3 mesh sweep")
+        rc = fn(p.data_ptr(), d.data_ptr(), t_cur.data_ptr(),
+                walk.rows.data_ptr(), walk.gid.data_ptr(),
+                walk.tree.data_ptr(), n, walk.tree.shape[0] // 2, WALK_LEAF,
+                int(any_hit), t.data_ptr(), row.data_ptr(), row2.data_ptr(),
+                flag.data_ptr(),
+                steps.data_ptr() if steps is not None else None, None,
+                stream)
+        _build.check(rc, "K3 mesh walk")
+    return flag if any_hit else (t, row, row2)
+
+
+def _run(p, d, t_cur, walk, any_hit, steps):
+    _check_walk(walk, p.device)
+    if steps is not None and (steps.device != p.device
+                              or steps.dtype != torch.int32
+                              or steps.shape != t_cur.shape
+                              or not steps.is_contiguous()):
+        raise ValueError("steps must be contiguous int32 [B] on the rays' "
+                         "device")
+    out = _launch(_lib(), p, d, t_cur, walk, any_hit, steps,
+                  torch.cuda.current_stream().cuda_stream)
+    if p.shape[0]:
         launches["K3"] += 1
-    return t, row, row2
+    return out
 
 
-def sweep_closest(p, d, t_cur, coeff16):
+def sweep_closest(p, d, t_cur, coeff16, walk=None, steps=None):
     """Closest triangle below t_cur per ray: (t [B], row [B] or -1, row2
-    [B] runner-up or -1). Rows index coeff16 (the world triangle ids of the
-    dense route)."""
+    [B] runner-up or -1), the dense sweep's (t, row, row2) on every ray.
+    Rows index coeff16 (the world triangle ids). walk: the compiled scene's
+    tables (walk_of), which the kernel reads; steps: optional int32 [B]
+    filled on the card with the clusters each ray visited."""
     _check(p, d, t_cur, coeff16)
     if p.device.type == "cpu":
         return stream_closest(p, d, t_cur, unpack_coeff16(coeff16),
                               chunk=_plain_chunk(coeff16))
-    return _launch(p, d, t_cur, coeff16, any_hit=False)
+    return _run(p, d, t_cur, walk, False, steps)
 
 
-def sweep_occluded(p, d, t_max, coeff16):
+def sweep_occluded(p, d, t_max, coeff16, walk=None, steps=None):
     """Occluded [B] bool: some triangle has BIAS < t < t_max. On the card,
-    K3 seeded with t_max that stops a block once all its rays are
-    occluded."""
+    the walk stops a ray at its first occluder."""
     _check(p, d, t_max, coeff16)
     if p.device.type == "cpu":
         return stream_any_hit(p, d, t_max, unpack_coeff16(coeff16),
                               chunk=_plain_chunk(coeff16))
-    return _launch(p, d, t_max, coeff16, any_hit=True)[1] >= 0
+    return _run(p, d, t_max, walk, True, steps)
+
+
+def sweep_host(p, d, t_cur, walk, any_hit=False):
+    """The kernel source (csrc/tiles.cu) built for the CPU by g++
+    (_build.load_host) and run one ray at a time on CPU tensors: the outputs
+    of sweep_closest or sweep_occluded, and the clusters each ray visited.
+    For tests that hold the source to the plain version where there is no
+    card; counts no launch."""
+    for t in (p, d, t_cur):
+        if t.device.type != "cpu":
+            raise ValueError("sweep_host takes CPU tensors")
+    _check_walk(walk, p.device)
+    steps = torch.zeros(p.shape[0], dtype=torch.int32)
+    return _launch(_lib(host=True), p, d, t_cur, walk, any_hit, steps,
+                   None), steps

@@ -21,7 +21,8 @@ the kernel's one-ray slab test, swept front to back in lock step until the
 same stopping rule holds. Its visiting order is sorted, the kernel's the
 tree's, so only exact ties can differ. tiled_sweep_kernel runs it for
 tensors on the CPU and launches K4a/K4b for CUDA tensors, never falling
-back from one to the other. `launches` counts kernel launches.
+back from one to the other. `launches` counts kernel launches. The same
+source walks the dense route's clusters for K3 (ops/mesh_sweep.py).
 """
 
 import numpy as np

@@ -7,7 +7,8 @@ mesh through the route the compiler chose, read from the meta alone:
 
     meta.mesh_tiled   tiled cluster walk: K4a (two-phase) / K4b
                       (ops/tiles.py)
-    meta.mesh_stream  dense sweep: K3 (ops/mesh_sweep.py)
+    meta.mesh_stream  the dense sweep's function: K3's culled walk
+                      (ops/mesh_sweep.py)
 
 This is the route the JAX package takes on the TPU. On CUDA tensors the
 kernels run, on the CPU their plain versions on the same route. The
@@ -103,9 +104,12 @@ def _tiled_closest(scene, meta, p, d, t_cur):
 
 
 def _stream_closest(scene, meta, p, d, t_cur):
-    """K3's dense sweep, then the exact re-test of its rows."""
-    _, gid, gid2 = mesh_sweep.sweep_closest(p, d, t_cur,
-                                            scene.mesh.stream_c16)
+    """K3's walk (the dense sweep's function), then the exact re-test of
+    its rows. The rays walk in the order they come: on the card a
+    coherence sort costs more than the walk gains from it (PERF.md)."""
+    m = scene.mesh
+    _, gid, gid2 = mesh_sweep.sweep_closest(p, d, t_cur, m.stream_c16,
+                                            walk=mesh_sweep.walk_of(m))
     tri_v = scene.mesh.tri_v
     first = (*exact_winner(p, d, gid, tri_v), gid)
     second = (*exact_winner(p, d, gid2, tri_v), gid2)
@@ -269,5 +273,6 @@ def trace_shadow(scene: SceneArrays, meta: SceneMeta, p, d, t_max):
                                          scene.mesh.tile_c16T, any_hit=True,
                                          tree=scene.mesh.tile_tree)
         return occluded | occ_s[torch.argsort(perm)]
-    return occluded | mesh_sweep.sweep_occluded(p, d, budget,
-                                                scene.mesh.stream_c16)
+    m = scene.mesh
+    return occluded | mesh_sweep.sweep_occluded(p, d, budget, m.stream_c16,
+                                                walk=mesh_sweep.walk_of(m))

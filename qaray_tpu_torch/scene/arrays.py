@@ -84,10 +84,14 @@ class MeshArrays(NamedTuple):
     # Packed fat-node layout of the BVH (scene/bvh.pack_bvh).
     pnodes: Optional[torch.Tensor] = None  # [Ni, 16] float32
     ltri: Optional[torch.Tensor] = None  # [F, 12] float32
-    # Dense sweep route (ops/mesh_stream.py; K3 reads stream_c16).
+    # Dense sweep route (ops/mesh_stream.py, its plain version reading
+    # stream_c16; K3 walks stream_tree over stream_rows, ops/mesh_sweep.py).
     stream_coeff: Optional[torch.Tensor] = None  # [Fp, 3, 3] n, A, B
     stream_const: Optional[torch.Tensor] = None  # [Fp, 4] k, A0, B0, |n|
     stream_c16: Optional[torch.Tensor] = None  # [Fp16, 16] (pack_coeff16)
+    stream_rows: Optional[torch.Tensor] = None  # [Fw, 16] Morton order
+    stream_gid: Optional[torch.Tensor] = None  # [Fw] world triangle id
+    stream_tree: Optional[torch.Tensor] = None  # [2L, 8] (cluster_tree)
     # Tiled cluster route (ops/mesh_tiles.py; K4a/K4b read tile_c16T and
     # walk tile_tree).
     tile_coeff: Optional[torch.Tensor] = None  # [Fp, 3, 3] Morton order

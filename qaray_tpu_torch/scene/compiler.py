@@ -242,6 +242,7 @@ class SceneCompiler:
         from qaray_tpu_torch.ops.mesh_stream import build_stream
         from qaray_tpu_torch.ops.mesh_sweep import (
             PALLAS_MESH_MAX_TRIS,
+            build_walk,
             pack_coeff16,
         )
 
@@ -260,8 +261,11 @@ class SceneCompiler:
             tables.update(stream_coeff=stream.coeff,
                           stream_const=stream.const)
             if num <= PALLAS_MESH_MAX_TRIS:
-                tables["stream_c16"] = pack_coeff16(stream.coeff,
-                                                    stream.const)
+                walk = build_walk(wv)
+                tables.update(stream_c16=pack_coeff16(stream.coeff,
+                                                      stream.const),
+                              stream_rows=walk.rows, stream_gid=walk.gid,
+                              stream_tree=walk.tree)
         else:
             from qaray_tpu_torch.ops.mesh_tiles import build_tiles
             from qaray_tpu_torch.ops.tiles import cluster_tree, pack_coeffT

@@ -51,8 +51,8 @@ def from_numpy_arrays(tree, meta, device="cuda"):
 
     mesh = instances = None
     if meta.num_mesh_instances:
-        # The tiled walk's cluster tree has no JAX counterpart: it is built
-        # from the cluster boxes, as the port's compiler builds it.
+        # The walks' trees (and the dense route's Morton rows) have no JAX
+        # counterpart: they are built as the port's compiler builds them.
         mesh = MeshArrays(**{f: None if getattr(tree.mesh, f, None) is None
                              else dev(getattr(tree.mesh, f))
                              for f in MeshArrays._fields})
@@ -60,6 +60,13 @@ def from_numpy_arrays(tree, meta, device="cuda"):
             from qaray_tpu_torch.ops.tiles import cluster_tree
 
             mesh = mesh._replace(tile_tree=cluster_tree(mesh.tile_cbounds))
+        if mesh.stream_c16 is not None:
+            from qaray_tpu_torch.ops.mesh_sweep import build_walk
+
+            walk = build_walk(np.asarray(tree.mesh.tri_v))
+            mesh = mesh._replace(stream_rows=dev(walk.rows),
+                                 stream_gid=dev(walk.gid),
+                                 stream_tree=dev(walk.tree))
         instances = group(MeshInstances, tree.instances)
 
     arrays = SceneArrays(

@@ -8,7 +8,8 @@ is absent:
 Every case carries the `gpu` marker and skips without a CUDA device.
 Bars: tests/test_pallas.py for K2a-K2c, tests/test_megakernel.py::_compare
 for K1a against the wavefront engine (which itself runs on K2b/K2c);
-tests/test_pallas_tiles.py for K3 and K4a/K4b against their plain versions,
+tests/test_pallas_tiles.py for K3 and K4a/K4b against their plain versions
+(and K3 equal to the dense sweep on every ray),
 with K4a's runner-up, exact below t_cur, equal to tiled_sweep's on > 99 %
 of the rays where that has one, and no hole where rays aimed at an
 icosphere's vertices fall back to it; the wavefront engine on ico6 (K4a,
@@ -183,12 +184,45 @@ def test_k3_matches_plain(cuda):
     p, d, t_max = _mesh_rays(1 << 16, 5)
     t_cur = torch.full_like(t_max, 1e30)
     plain = StreamTris(m.stream_coeff, m.stream_const)
+    walk = mesh_sweep.walk_of(m)
     before = mesh_sweep.launches["K3"]
-    got = mesh_sweep.sweep_closest(p, d, t_cur, m.stream_c16)
+    got = mesh_sweep.sweep_closest(p, d, t_cur, m.stream_c16, walk=walk)
     _row_bars(stream_closest(p, d, t_cur, plain), got)
-    occ = mesh_sweep.sweep_occluded(p, d, t_max, m.stream_c16)
+    occ = mesh_sweep.sweep_occluded(p, d, t_max, m.stream_c16, walk=walk)
     assert torch.equal(occ, stream_any_hit(p, d, t_max, plain))
     assert mesh_sweep.launches["K3"] == before + 2
+
+
+def test_k3_equals_plain(cuda):
+    """K3's walk against the dense sweep (stream_closest, stream_any_hit)
+    on ico4 and ico5: equal (t, row, row2) and occlusion on every ray of
+    random rays, of rays whose t_cur falls short of every hit (the runner-up
+    beyond t_cur) and of rays aimed at the icosphere's vertices (exact ties
+    in t, which go to the lower triangle id)."""
+    for subdiv in (4, 5):
+        arr, meta = compile_scene(_ico_scene(subdiv), device="cuda")
+        m = arr.mesh
+        walk = mesh_sweep.walk_of(m)
+        plain = StreamTris(m.stream_coeff, m.stream_const)
+        p, d, t_max = _mesh_rays(1 << 16, 6)
+        corners = m.tri_v.reshape(-1, 3)
+        gen = torch.Generator(device="cuda").manual_seed(subdiv)
+        u = torch.randn((1 << 16, 3), device="cuda", generator=gen)
+        c = torch.tensor([0.0, 50.0, 5.1], device="cuda")
+        pv = c + 24.0 * u / u.norm(dim=1, keepdim=True)
+        aim = corners[torch.randint(0, corners.shape[0], (1 << 16,),
+                                    device="cuda", generator=gen)]
+        dv = (aim - pv) / (aim - pv).norm(dim=1, keepdim=True)
+        big = torch.full_like(t_max, 1e30)
+        short = t_max * 0.1  # t_cur below 4: short of most hits
+        for p_, d_, t_ in ((p, d, big), (p, d, short), (pv, dv, big)):
+            want = stream_closest(p_, d_, t_, plain)
+            got = mesh_sweep.sweep_closest(p_, d_, t_, m.stream_c16,
+                                           walk=walk)
+            for a, b in zip(want, got):
+                assert torch.equal(a, b)
+        occ = mesh_sweep.sweep_occluded(p, d, t_max, m.stream_c16, walk=walk)
+        assert torch.equal(occ, stream_any_hit(p, d, t_max, plain))
 
 
 def _row2_bar(want, got):

@@ -20,6 +20,9 @@ from qaray_tpu.ops.pallas_pathtrace import mega_render as jax_mega_render
 from qaray_tpu_torch.integrators.engine import IntegratorConfig
 from qaray_tpu_torch.ops import megakernel
 from qaray_tpu_torch.integrators import engine
+from qaray_tpu_torch.scene.compiler import compile_scene
+from qaray_tpu_torch.scene.desc import LightDesc
+from qaray_tpu_torch.scene.xml_parser import load_scene
 from test_torch_engine import compare, lanes, scenes
 
 KW = dict(integrator="pathtrace", max_bounce=3, shadow_spp=4,
@@ -105,7 +108,7 @@ def test_kernel_source_on_the_host_matches_engine(name, integrator):
     cfg = IntegratorConfig(integrator=integrator, max_bounce=4, shadow_spp=4,
                            shadow_spp_max=8)
     px, py, sid = (torch.tensor(a) for a in lanes((64, 48), 2))
-    work = torch.zeros((px.shape[0], 7), dtype=torch.int32)
+    work = torch.zeros((px.shape[0], 8), dtype=torch.int32)
     before = dict(megakernel.launches)
     rad_k, t0_k = megakernel.mega_render_host(tarr, tmeta, cfg, px, py, sid,
                                               (0, 3), work=work)
@@ -115,7 +118,7 @@ def test_kernel_source_on_the_host_matches_engine(name, integrator):
     rad_k, t0_k, rad_p, t0_p = (a.numpy() for a in (rad_k, t0_k, rad_p, t0_p))
     rel = np.abs(rad_p - rad_k).max(-1) / (1.0 + np.abs(rad_p).max(-1))
     mean_err = np.abs(rad_p.mean(0) - rad_k.mean(0)).max()
-    tests, ciphers, vertices, tri_tests, checkers, *photon = (
+    tests, ciphers, vertices, tri_tests, checkers, *photon, tails = (
         work.sum(0).tolist())
     assert tests > 0 and ciphers > 0 and vertices > 0
     assert photon == [0, 0]  # written only by the gathering kernel (K1d)
@@ -135,3 +138,71 @@ def test_kernel_source_on_the_host_matches_engine(name, integrator):
     else:
         compare(rad_p, t0_p, rad_k, t0_k)
         assert checkers == 0
+
+
+@pytest.mark.parametrize("integrator", ["pathtrace", "photonmap"])
+@pytest.mark.parametrize("name", ["softdof", "mesh"])
+def test_kernel_source_in_blocks_matches_one_thread(name, integrator):
+    """csrc/megakernel.cu compiled by g++ and run in blocks of 32 threads,
+    one std::thread each with the block's shared memory and barriers
+    (mega_render_host(block=32)), against the same source run one thread a
+    block: the block pools its soft-shadow samples across its threads, so
+    its radiance, t0 and per-lane work counters (the pooled samples counted
+    to their lanes) must equal the one-thread run's bit for bit. 32x24 x 2
+    spp, shadow_spp 4 -> 8, max_bounce 4: lanes die at different bounces
+    and some soft-shadow estimates go on past 4 samples. mesh_scene has no
+    soft light of its own: a point light of size 3 is added to it, so that
+    the pooled shadow rays sweep the mesh (K1c)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    desc = load_scene(f"tests/assets/{name}_scene.xml")
+    desc.camera.img_width, desc.camera.img_height = 32, 24
+    if name == "mesh":
+        desc.lights.append(LightDesc(
+            "point", "soft", intensity=np.full(3, 900.0),
+            position=np.array([10.0, 30.0, 40.0]), size=3.0))
+    tarr, tmeta = compile_scene(desc, device="cpu")
+    cfg = IntegratorConfig(integrator=integrator, max_bounce=4, shadow_spp=4,
+                           shadow_spp_max=8)
+    px, py, sid = (torch.tensor(a) for a in lanes((32, 24), 2))
+    out = {}
+    for block in (1, 32):
+        work = torch.zeros((px.shape[0], 8), dtype=torch.int32)
+        rad, t0 = megakernel.mega_render_host(tarr, tmeta, cfg, px, py, sid,
+                                              (0, 3), work=work, block=block)
+        out[block] = (rad, t0, work)
+    for a, b in zip(out[1], out[32]):
+        assert torch.equal(a, b)
+    work = out[32][2]
+    vertices, tails = work[:, 2], work[:, 7]
+    assert len(torch.unique(vertices)) > 2  # paths end at different bounces
+    assert 0 < int(tails.sum()) < int(vertices.sum())
+    assert int(work[:, 1].sum()) > 0 and int(work[:, 0].sum()) > 0
+    if name == "mesh":
+        assert int(work[:, 3].sum()) > 0
+
+
+def test_kernel_source_without_pool_matches_pooled():
+    """The launch sizes the block's soft-shadow pool from the meta's light
+    kinds, the kernel picks soft lights from the staged tables. Where the
+    meta says no light is soft but the tables hold one, the block has no
+    pool: its lanes leave the bounce loop on their own and the soft light
+    takes the per-lane loop (light_visibility). Run in blocks of 32 threads
+    (g++ build, as test_kernel_source_in_blocks_matches_one_thread), it
+    ends and gives the pooled launch's radiance, t0 and work bit for bit."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    _, _, tarr, tmeta = scenes("softdof", (32, 24))
+    assert any(tmeta.light_soft)
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=4,
+                           shadow_spp=4, shadow_spp_max=8)
+    px, py, sid = (torch.tensor(a) for a in lanes((32, 24), 2))
+    out = []
+    for meta in (tmeta, tmeta._replace(light_soft=(0,) * tmeta.num_lights)):
+        work = torch.zeros((px.shape[0], 8), dtype=torch.int32)
+        rad, t0 = megakernel.mega_render_host(tarr, meta, cfg, px, py, sid,
+                                              (0, 3), work=work, block=32)
+        out.append((rad, t0, work))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert int(out[1][2][:, 7].sum()) > 0

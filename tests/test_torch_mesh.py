@@ -21,6 +21,8 @@
 Inputs are made with numpy from fixed seeds.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -357,6 +359,76 @@ def test_k4_source_on_the_host_matches_plain():
                                      tree=tree, any_hit=True)
     assert torch.equal(occ_h, occ_p) and bool(occ_h.any())
     assert torch.equal(work, 256 * steps)
+
+
+def _vertex_rays(n, seed, jitter):
+    """ico4's triangles and n rays from a sphere of radius 3 aimed at its
+    vertices, jittered by `jitter`."""
+    v, f = icosphere(4)
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(n, 3))
+    p = 3.0 * u / np.linalg.norm(u, axis=1, keepdims=True)
+    aim = v[rng.integers(0, v.shape[0], n)] + jitter * rng.normal(
+        size=(n, 3))
+    d = (aim - p) / np.linalg.norm(aim - p, axis=1, keepdims=True)
+    return v[f].astype(np.float32), p.astype(np.float32), d.astype(
+        np.float32)
+
+
+def _k3_case(what):
+    """Triangles, rays and t_cur of one of the K3 host test's ray sets."""
+    v, p, d, t_max = _soup()
+    if what == "soup":
+        return v, p, d, np.full(p.shape[0], BIG, np.float32)
+    if what == "soup budgets":
+        return v, p, d, t_max
+    if what == "short":
+        rng = np.random.default_rng(5)
+        return v, p, d, rng.uniform(1.0, 10.0, p.shape[0]).astype(np.float32)
+    vt, pv, dv = _vertex_rays(4096, 6, 0.0)
+    return vt, pv, dv, np.full(pv.shape[0], BIG, np.float32)
+
+
+@pytest.mark.parametrize("what", ["soup", "soup budgets", "short",
+                                  "vertices"])
+def test_k3_source_on_the_host_matches_plain(what):
+    """csrc/tiles.cu's K3 walk compiled by g++ and run one ray at a time
+    (mesh_sweep.sweep_host) against the plain dense sweep
+    (stream_closest / stream_any_hit on pack_coeff16's table): equal
+    (t, row, row2) on every ray and equal occlusion, on a random soup with
+    t_cur unbounded and at finite budgets, on rays whose t_cur falls short
+    of every hit (the runner-up is then the nearest hit beyond t_cur), and
+    on rays aimed at ico4's vertices, where hits tie exactly in t and the
+    lower world triangle id must win. The walk's rows are the dense rows
+    bit for bit, and every visited cluster count is within the tree."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    tri, pp, dd, tc = _k3_case(what)
+    st = mesh_stream.build_stream(tri)
+    c16 = torch.tensor(mesh_sweep.pack_coeff16(st.coeff, st.const))
+    walk = mesh_sweep.build_walk(tri)
+    g = walk.gid.numpy()
+    assert np.array_equal(walk.rows.numpy()[g >= 0], c16.numpy()[g[g >= 0]])
+    tp, td, tt = (torch.tensor(a) for a in (pp, dd, tc))
+    want = mesh_sweep.sweep_closest(tp, td, tt, c16)
+    got, steps = mesh_sweep.sweep_host(tp, td, tt, walk)
+    for name, a, b in zip(("t", "row", "row2"), want, got):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    assert int(steps.max()) <= walk.rows.shape[0] // mesh_sweep.WALK_LEAF
+    occ, _ = mesh_sweep.sweep_host(tp, td, tt, walk, any_hit=True)
+    assert torch.equal(occ, mesh_sweep.sweep_occluded(tp, td, tt, c16))
+    if what == "short":
+        assert bool((want[1] < 0).all())
+        assert int((want[2] >= 0).sum()) > 100
+    if what == "vertices":
+        # The sweep's own t of each runner-up: ties with the winner's t.
+        r2 = want[2].clamp_min(0).long()
+        tab = mesh_sweep.unpack_coeff16(c16)
+        t2 = mesh_stream._chunk_test(tp[:, None], td[:, None],
+                                     tab.coeff[r2][:, None],
+                                     tab.const[r2][:, None])
+        assert int(((want[1] >= 0) & (want[2] >= 0)
+                    & (t2[:, 0, 0] == want[0])).sum()) > 0
 
 
 def test_k4_wrapper_matches_pallas_interpret():
