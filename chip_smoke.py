@@ -31,7 +31,17 @@ Phases, each fatal on failure:
           photon-mapped megakernel dispatch, Morton-sorted as gather_apply
           sorts them, and the same at radius 50 where counts exceed 100
           (sums within 1e-5 relative, 1e-7 absolute; counts exact; the share
-          of bit-equal lanes printed);
+          of bit-equal lanes printed), and K5 launched as gather_apply
+          launches it (a warp to each of the leading queries with a
+          record, their count in device memory) equal to the launch that
+          reads every query's flag, bit for bit;
+       d. K1c's own mesh functions (the megakernel's tree walk, run on
+          given rays by qr_mega_mesh_probe) against the in-order fold over
+          the same rows (megakernel.mesh_probe_plain) on ico5: 2^20 rays,
+          half random around the icosphere, half aimed exactly at its
+          vertices, a third with an analytic t equal to their mesh hit's
+          and a third with a budget equal to it: (t, normal, front,
+          material row, occluded) equal on every ray;
   3. the megakernel against the wavefront engine, with the
      tests/test_megakernel.py bars:
        a. K1a: softdof_scene.xml at 200x150, 2 samples per pixel,
@@ -112,8 +122,8 @@ Phases, each fatal on failure:
           share printed;
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time, and the device's idle
-     share in one Renderer.render() of 4a, 4c, 4g, 4e and 4k; K6's at the
-     gradient path's shape of 4m. The bounds of the kernels that run
+     share in one Renderer.render() of 4a, 4c, 4d, 4g, 4e and 4k; K6's at
+     the gradient path's shape of 4m. The bounds of the kernels that run
      threefry (K1a-K1d, K6) count the ciphers' integer operations at the
      card's integer rate beside the float32 operations at the float32 rate
      (and print the float32-rate figure of earlier PRs); K1a-K1d also give
@@ -121,6 +131,13 @@ Phases, each fatal on failure:
      warp's maximum against a lane's mean of the counters, the share of
      soft-shadow estimates that went past shadow_spp, and each
      instantiation's registers, spills, shared memory and blocks an SM.
+     K1c's bound counts the triangle tests the exact function needs
+     (k1c_need: the leaves of its tree at or below each closest hit's final
+     t, one leaf an occluded shadow ray, those within budget of an open
+     one, on the plain version's rays), and its rows print the leaves a
+     lane visits and for a warp's slowest lane; K6's mesh bound is counted
+     the same way. K5 is timed as gather_apply launches it, with the warps
+     launched and the clusters a query visits.
      K3 on ico5 and on mesh_scene (the shape of its launches), on rays in
      the order they come as the dense route walks them: clusters a ray and
      for the warp's slowest ray, and its bound from the clusters within
@@ -559,6 +576,85 @@ class ForbidPlain:
         return False
 
 
+def clusters_within(p_, d_, cb, reach, ties=False):
+    """Per ray, the clusters of boxes cb whose widened entry bound is below
+    reach (at or below it with ties): those any exact walk must sweep
+    (tiles.ray_cluster_entry, the kernels' own box test)."""
+    from qaray_tpu_torch.ops import tiles
+
+    out = []
+    for k in range(0, p_.shape[0], 1 << 13):
+        lo, ok = tiles.ray_cluster_entry(p_[k:k + (1 << 13)],
+                                         d_[k:k + (1 << 13)], cb)
+        r = reach[k:k + (1 << 13), None]
+        out.append((ok & ((lo <= r) if ties else (lo < r))).sum(1))
+    return torch.cat(out)
+
+
+def k1c_need(arr, meta, cfg, px, py, sid, words):
+    """The triangle tests the exact K1c function needs on these lanes,
+    whatever walks it. The plain version (the wavefront engine, in
+    65,536-lane batches) runs the lanes' paths; it traces every lane at
+    every bounce and masks the dead ones later, so the count follows each
+    lane's alive flag as the megakernel's loop does (from the closest hits
+    and the vertex function's continuation flags) and takes a lane's mesh
+    queries while it is alive: for a closest hit the rows of the K1c
+    tree's leaves whose entry bound lies at or below its final t (ties may
+    win on their row), for a shadow ray (one a lane and light) one leaf
+    where it is occluded and the leaves within its budget where it is not.
+    Returns (closest-hit rows, any-hit rows)."""
+    from qaray_tpu_torch.core.constants import BIAS
+    from qaray_tpu_torch.integrators import engine
+    from qaray_tpu_torch.ops import megakernel, mesh_sweep
+
+    tabs = arr.kernel
+    leaf = megakernel.MEGA_LEAF
+    n_leaves = tabs.mesh_tree.shape[0] // 2
+    cb = tabs.mesh_tree[n_leaves:n_leaves + tabs.mesh_rows.shape[0] // leaf,
+                        :6]
+    total = [0, 0]
+    state = {}
+    closest, occluded = mesh_sweep.sweep_closest, mesh_sweep.sweep_occluded
+    vertex_fn = engine._VERTEX_FNS[cfg.integrator]
+
+    def count_closest(p, d, t_cur, c16, **kw):
+        out = closest(p, d, t_cur, c16, **kw)
+        need = clusters_within(p, d, cb, out[0], ties=True)
+        total[0] += int(need[state["alive"]].sum(dtype=torch.int64)) * leaf
+        return out
+
+    def count_occluded(p, d, budget, c16, **kw):
+        occ = occluded(p, d, budget, c16, **kw)
+        if budget.shape != state["lit"].shape:
+            raise AssertionError("k1c_need counts one shadow ray a lane")
+        need = torch.where(occ, 1, clusters_within(p, d, cb, budget))
+        need = torch.where((budget > BIAS) & state["lit"], need, 0)
+        total[1] += int(need.sum(dtype=torch.int64)) * leaf
+        return occ
+
+    def vertex(scene, meta_, cfg_, hits, *args, **kw):
+        state["lit"] = state["alive"] & hits["hit"]
+        out = vertex_fn(scene, meta_, cfg_, hits, *args, **kw)
+        state["alive"] = state["lit"] & out[3]
+        return out
+
+    mesh_sweep.sweep_closest = count_closest
+    mesh_sweep.sweep_occluded = count_occluded
+    engine._VERTEX_FNS[cfg.integrator] = vertex
+    try:
+        for lo in range(0, px.shape[0], 65536):
+            s_ = slice(lo, lo + 65536)
+            state["alive"] = torch.ones(px[s_].shape[0], dtype=torch.bool,
+                                        device=px.device)
+            engine.render_batch_wavefront(arr, meta, cfg, px[s_], py[s_],
+                                          sid[s_], words)
+    finally:
+        mesh_sweep.sweep_closest, mesh_sweep.sweep_occluded = (closest,
+                                                                occluded)
+        engine._VERTEX_FNS[cfg.integrator] = vertex_fn
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels run only on a GPU",
@@ -714,6 +810,7 @@ def main():
     light = light / light.norm()
     mesh_err = {"K3": 0.0, "K4a": 0.0, "K4b": 0.0}
     mesh5 = a5.mesh
+    tabs5 = a5.kernel  # K1c's tables of ico5 (phase 2d)
     walk5 = mesh_sweep.walk_of(mesh5)
     # K3's walk is the dense sweep's function: equal (t, row, row2) on every
     # ray, also where t_cur falls short of every hit (the runner-up is then
@@ -838,6 +935,7 @@ def main():
     print(f"  {q5.shape[0]} queries, {int(valid.sum())} with a record "
           f"({valid.double().mean().item():.4f})", flush=True)
     k5_err = 0.0
+    n5 = (a5 > 0.5).sum(dtype=torch.int32).reshape(1)
     for radius in (pmaps[0].radius, 50.0):
         got = photon.photon_gather(pmaps[0].ctable, pmaps[0].cbounds, radius,
                                    q5, a5)
@@ -851,6 +949,13 @@ def main():
                   "sums within 1e-5 relative (1e-7 absolute)")
             k5_err = max(k5_err, (g_ - w_).abs().max().item())
         check(torch.equal(want[2], got[2]), f"K5 r {r_:g}: counts exact")
+        # As gather_apply launches it: a warp to each of the leading
+        # queries with a record, their count in device memory.
+        got_c = photon.photon_gather(pmaps[0].ctable, pmaps[0].cbounds,
+                                     radius, q5, a5, count=n5)
+        check(all(torch.equal(x, y) for x, y in zip(got, got_c)),
+              f"K5 r {r_:g}: the counted launch gives the flagged one's "
+              "sums and counts bit for bit")
         same = torch.ones_like(valid)
         for w_, g_ in zip(want, got):
             same &= (w_ == g_).reshape(w_.shape[0], -1).all(-1)
@@ -862,6 +967,40 @@ def main():
                   "lanes")
         del got, want
     numbers["K5"] = {"max_abs_err": k5_err}
+    torch.cuda.synchronize()
+
+    print("phase 2d: K1c's mesh functions (the megakernel's tree walk, "
+          "qr_mega_mesh_probe) vs the in-order fold, ico5, 2^20 rays",
+          flush=True)
+    n1c = 1 << 20
+    pr, dr, tr = mesh_rays(n1c // 2, 21)
+    pv, dv = vertex_rays(mesh5.tri_v, n1c // 2, 22)
+    pr, dr = torch.cat([pr, pv]), torch.cat([dr, dv])
+    big1 = torch.full((n1c,), BIG, device="cuda")
+    t_m, row_m, _ = megakernel.mesh_fold_plain(tabs5.mesh_rows, pr, dr, big1,
+                                               big1)
+    third = torch.arange(n1c, device="cuda") % 3
+    t_r = torch.cat([tr, tr])
+    # A third with an analytic t equal to the mesh hit's (the analytic
+    # winner keeps it), a third with a budget equal to it (not occluded).
+    t_a = torch.where(third == 0, big1, torch.where(third == 1, t_r, t_m))
+    t_b = torch.where(third == 0, t_m, torch.where(third == 1, big1, t_r))
+    pwork = torch.zeros((n1c, 2), dtype=torch.int32, device="cuda")
+    got = megakernel.mesh_probe(tabs5, pr, dr, t_a, t_b, work=pwork)
+    want = megakernel.mesh_probe_plain(tabs5.mesh_rows, tabs5.mesh_attr, pr,
+                                       dr, t_a, t_b)
+    for name, w_, g_ in zip(("t", "normal", "front", "material row",
+                             "occluded"), want, got):
+        check(torch.equal(w_, g_), f"K1c probe: {name} equal to the fold's "
+              "on every ray")
+    ties = int(((third == 2) & (row_m >= 0)).sum())
+    check(ties > 10000, f"K1c probe: {ties} rays tie the analytic t")
+    print(f"  equal on {n1c} rays ({ties} analytic ties, "
+          f"{int(got[4].sum())} occluded); triangle tests a ray: closest "
+          f"{pwork[:, 0].double().mean().item():.2f}, any hit "
+          f"{pwork[:, 1].double().mean().item():.2f}, of "
+          f"{tabs5.mesh_rows.shape[0]} rows", flush=True)
+    del pr, dr, pv, dv, got, want, pwork, t_m, row_m
     torch.cuda.synchronize()
 
     # -- 3. the megakernel against the engine --------------------------------
@@ -1490,14 +1629,19 @@ def main():
                                work=work, photon_maps=maps)
         return work, work.sum(0, dtype=torch.int64).tolist()
 
-    def mega_bounds(nbytes, work, wsum):
+    def mega_bounds(nbytes, work, wsum, tri_need=None):
         """The launch's bound from its counters, recounted: the largest of
         its bytes at PEAK_BYTES, its float32 operations at PEAK_OPS and its
-        ciphers' integer operations at PEAK_INT_OPS. Beside it the figure
-        of PRs 1-6 (every operation at PEAK_OPS) and the recounted bound
-        with each lane's counters raised to its warp's maximum (lanes in
-        launch order, 32 to a warp): what one thread a lane pays where a
-        warp waits for its slowest lane."""
+        ciphers' integer operations at PEAK_INT_OPS; with tri_need, the
+        triangle tests the exact function needs (k1c_need) in place of
+        those the kernel counted. Beside it the figure of PRs 1-6 (every
+        operation at PEAK_OPS) and the bound from the kernel's own counters
+        with each lane's raised to its warp's maximum (lanes in launch
+        order, 32 to a warp): what one thread a lane pays where a warp
+        waits for its slowest lane."""
+        if tri_need is not None:
+            wsum = list(wsum)
+            wsum[3] = tri_need
         f32, i32 = mega_ops(wsum)
         b_ms, b_by = bound(nbytes, f32, i32)
         n_w = work.shape[0] - work.shape[0] % 32
@@ -1576,8 +1720,8 @@ def main():
                           **warp_stats(work, (("ciphers", 1),
                                               ("prim_tests", 0),
                                               ("vertices", 2))),
-                          **mega_ptxas("mega_kernelILb0ELb0E", s_arr, s_meta,
-                                       cfg_pt))
+                          **mega_ptxas("mega_kernelILb0ELb0ELb0E", s_arr,
+                                       s_meta, cfg_pt))
     k1 = numbers["K1a"]
     print(f"  K1a softdof, pathtrace 480000 lanes: {ms:.4f} ms by {src}, "
           f"bound {k1['bound_ms']:.5f} ms by {k1['bound_by']} (bytes "
@@ -1599,33 +1743,56 @@ def main():
 
     # K1c: the same launch on mesh_scene (320 triangles) and its ico5
     # (20,480); its plain version is the wavefront engine on the same lanes.
+    # Its bound counts the triangle tests the exact function needs
+    # (k1c_need), the same figure for any walk; the kernel's own count of
+    # leaf rows tested gives the leaves a lane visits.
+    k1c_ptx = ptxas_info("megakernel", "mega_kernelILb0ELb0ELb1E")
     for what in ("mesh", "ico5"):
         k_arr, k_meta = mesh_arr[what]
         ms, src = kernel_ms(lambda: megakernel.mega_render(
             k_arr, k_meta, cfg_pt, bpx, bpy, bsid, rbg), "mega_kernel", 5)
         work, wsum = mega_work(k_arr, k_meta)
+        need_c, need_a = k1c_need(k_arr, k_meta, cfg_pt, bpx, bpy, bsid, rbg)
         tab = k_arr.kernel
+        leaf = megakernel.MEGA_LEAF
         nbytes = (480000 * (12 + 16) + 4 * (tab.mesh_rows.numel()
                                             + tab.mesh_attr.numel()
-                                            + tab.mesh_cb.numel()))
+                                            + tab.mesh_tree.numel()))
+        n_w = work.shape[0] - work.shape[0] % 32
+        leaves = work[:n_w, 3].double().view(-1, 32) / leaf
         row = dict(ms=ms, plain_ms=engine_ms(k_arr, k_meta), timed_by=src,
                    prim_tests=wsum[0], ciphers=wsum[1], vertices=wsum[2],
-                   tri_tests=wsum[3], **mega_bounds(nbytes, work, wsum),
+                   tri_tests=wsum[3], tri_tests_needed=need_c + need_a,
+                   tri_tests_needed_closest=need_c,
+                   tri_tests_needed_any=need_a, leaf_rows=leaf,
+                   lane_leaves=leaves.mean().item(),
+                   warp_max_leaves=leaves.amax(1).mean().item(),
+                   bound_kernel_count_ms=mega_bounds(nbytes, work,
+                                                     wsum)["bound_ms"],
+                   **mega_bounds(nbytes, work, wsum, need_c + need_a),
                    **warp_stats(work, (("tri_tests", 3), ("ciphers", 1))))
         if what == "mesh":
             numbers["K1c"].update(library_ms=None, lanes=480000,
-                                  triangles=k_meta.num_tris, **row)
+                                  triangles=k_meta.num_tris, **k1c_ptx,
+                                  **row)
         else:
             numbers["K1c"].update({f"ico5_{k}": v for k, v in row.items()})
         print(f"  K1c {what} ({k_meta.num_tris} triangles), pathtrace 480000 "
               f"lanes: {ms:.4f} ms by {src}, bound {row['bound_ms']:.5f} ms "
-              f"by {row['bound_by']} (float32 rate "
-              f"{row['bound_f32_rate_ms']:.5f}, warp maximum "
-              f"{row['bound_warp_max_ms']:.5f}), engine "
-              f"{row['plain_ms']:.3f} ms, {wsum[3]} triangle tests; a warp's "
+              f"by {row['bound_by']} from {need_c + need_a} triangle tests "
+              f"the function needs ({need_c} closest, {need_a} any hit; "
+              f"float32 rate {row['bound_f32_rate_ms']:.5f}; from the "
+              f"kernel's own {wsum[3]} tests "
+              f"{row['bound_kernel_count_ms']:.5f}, with lanes at their "
+              f"warp's maximum {row['bound_warp_max_ms']:.5f}), engine "
+              f"{row['plain_ms']:.3f} ms; leaves of {leaf} rows a lane "
+              f"{row['lane_leaves']:.3f}, for a warp's slowest lane "
+              f"{row['warp_max_leaves']:.3f}; triangle tests a warp's "
               f"maximum {row['warp_max_tri_tests']:.1f} against a lane's "
               f"mean {row['lane_mean_tri_tests']:.1f}", flush=True)
         del work
+    print(f"  K1c ptxas (mega_kernel<false, false, true>): "
+          f"{k1c_ptx}", flush=True)
 
     # K1b: the textured launch on texture_scene, beside K1a's time on
     # softdof above; its plain version is the wavefront engine with the
@@ -1638,8 +1805,8 @@ def main():
                           prim_tests=wsum[0], ciphers=wsum[1],
                           vertices=wsum[2], checker_tests=wsum[4],
                           **mega_bounds(480000 * (12 + 16), work, wsum),
-                          **mega_ptxas("mega_kernelILb1ELb0E", t_arr, t_meta,
-                                       cfg_pt))
+                          **mega_ptxas("mega_kernelILb1ELb0ELb0E", t_arr,
+                                       t_meta, cfg_pt))
     k1 = numbers["K1b"]
     print(f"  K1a+K1b texture_scene, pathtrace 480000 lanes: {ms:.4f} ms by "
           f"{src} (K1a on softdof {numbers['K1a']['ms']:.4f} ms), bound "
@@ -1666,7 +1833,7 @@ def main():
         **mega_bounds(480000 * (12 + 4 * 4 + 4 * 19)
                       + 4 * (ctab.ctable.numel() + ctab.cbounds.numel()),
                       work, wsum),
-        **mega_ptxas("mega_kernelILb0ELb1E", c_arr, c_meta, cfg_photon))
+        **mega_ptxas("mega_kernelILb0ELb1ELb0E", c_arr, c_meta, cfg_photon))
     k1 = numbers["K1d"]
     print(f"  K1a+K1d caustics_scene, photonmap 480000 lanes: {ms:.4f} ms by "
           f"{src} (K1a on softdof {numbers['K1a']['ms']:.4f} ms), bound "
@@ -1697,20 +1864,38 @@ def main():
     b_ms, b_by = bound(q5.shape[0] * (4 + 28) + qa.shape[0] * 12
                        + 4 * cb.numel() + near5 * 128 * 9 * 4,
                        tests5 * OPS_PER_PHOTON)
+    # Timed as gather_apply launches it: the queries with a record first,
+    # their count in device memory, a warp to each.
+    work5 = torch.zeros(q5.shape[0], dtype=torch.int32, device="cuda")
+    photon.photon_gather(g5.ctable, g5.cbounds, g5.radius, q5, a5,
+                         count=n5, work=work5)
+    visits = work5[a5 > 0.5].double()
     ms, src = kernel_ms(lambda: photon.photon_gather(
+        g5.ctable, g5.cbounds, g5.radius, q5, a5, count=n5),
+        "gather_kernel", 20)
+    ms_flags, _ = kernel_ms(lambda: photon.photon_gather(
         g5.ctable, g5.cbounds, g5.radius, q5, a5), "gather_kernel", 20)
     numbers["K5"].update(
-        ms=ms, plain_ms=cuda_ms(lambda: photon.photon_gather_plain(
+        ms=ms, ms_flags=ms_flags,
+        plain_ms=cuda_ms(lambda: photon.photon_gather_plain(
             g5.ctable, g5.cbounds, g5.radius, q5, a5), 1),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, timed_by=src,
         wrapper_ms=cuda_ms(lambda: photon.photon_gather(
-            g5.ctable, g5.cbounds, g5.radius, q5, a5), 20),
+            g5.ctable, g5.cbounds, g5.radius, q5, a5, count=n5), 20),
         queries=q5.shape[0], active=int(qa.shape[0]), photon_tests=tests5,
-        clusters_near=near5, photons=int(gmap.valid.sum()))
+        clusters_near=near5, photons=int(gmap.valid.sum()),
+        warps_launched=photon.gather_warps(q5.shape[0]),
+        query_clusters=visits.mean().item(),
+        query_clusters_max=int(visits.max().item()),
+        clusters=g5.cbounds.shape[0])
     print(f"  K5 {q5.shape[0]} queries ({qa.shape[0]} with a record): "
-          f"{ms:.5f} ms by {src}, bound {b_ms:.6f} ms by {b_by}, plain "
-          f"{numbers['K5']['plain_ms']:.3f} ms, {tests5} photon tests",
-          flush=True)
+          f"{ms:.5f} ms by {src} (every query's flag read: {ms_flags:.5f} "
+          f"ms), bound {b_ms:.6f} ms by {b_by}, plain "
+          f"{numbers['K5']['plain_ms']:.3f} ms, {tests5} photon tests; "
+          f"{numbers['K5']['warps_launched']} warps launched, a warp to "
+          f"each of the {qa.shape[0]} queries with a record, which visits "
+          f"{visits.mean().item():.3f} of {g5.cbounds.shape[0]} clusters "
+          f"(at most {int(visits.max().item())})", flush=True)
 
     n2 = 1 << 16  # one wavefront batch of primary rays
     n_sh = 1 << 20  # its first 16 soft-shadow rays per lane
@@ -1751,18 +1936,6 @@ def main():
     # rays; the dense route walks them as they come, and so is K3 timed.
     n_cam = cp.shape[0]
     t_big = torch.full((n_cam,), BIG, device="cuda")
-
-    def clusters_within(p_, d_, cb, reach, ties=False):
-        """Per ray, the clusters of boxes cb whose widened entry bound is
-        below reach (at or below it with ties): those any exact walk must
-        sweep (tiles.ray_cluster_entry, the kernels' own box test)."""
-        out = []
-        for k in range(0, p_.shape[0], 1 << 13):
-            lo, ok = tiles.ray_cluster_entry(p_[k:k + (1 << 13)],
-                                             d_[k:k + (1 << 13)], cb)
-            r = reach[k:k + (1 << 13), None]
-            out.append((ok & ((lo <= r) if ties else (lo < r))).sum(1))
-        return torch.cat(out)
 
     def k3_row(mesh_):
         """K3 on the camera rays: time, clusters a ray and for its warp's
@@ -1938,11 +2111,14 @@ def main():
         n_par = adjoint.param_layout(g_meta.num_materials,
                                      g_meta.num_lights)
         nbytes = n_l * (12 + 12) + 4 * n_par
+        tri_need = wsum[3]
         if g_meta.mesh_mega:
             tab = g_arr.kernel
             nbytes += 4 * (tab.mesh_rows.numel() + tab.mesh_attr.numel()
-                           + tab.mesh_cb.numel())
-        f32 = wsum[0] * OPS_PER_TEST + wsum[3] * OPS_PER_TRI
+                           + tab.mesh_tree.numel())
+            # The replay's mesh queries are the forward's: K1c's count.
+            tri_need = sum(k1c_need(g_arr, g_meta, cfg_gp, gx, gy, gs, rbg))
+        f32 = wsum[0] * OPS_PER_TEST + tri_need * OPS_PER_TRI
         b_ms, b_by = bound(nbytes, f32, wsum[1] * OPS_PER_CIPHER)
         b_old = bound(nbytes, f32 + wsum[1] * OPS_PER_CIPHER)[0]
         start = torch.cuda.Event(enable_timing=True)
@@ -1955,7 +2131,8 @@ def main():
         row = dict(ms=ms, plain_ms=start.elapsed_time(end), bound_ms=b_ms,
                    bound_by=b_by, bound_f32_rate_ms=b_old, timed_by=src,
                    lanes=n_l, prim_tests=wsum[0], ciphers=wsum[1],
-                   vertices=wsum[2], tri_tests=wsum[3])
+                   vertices=wsum[2], tri_tests=wsum[3],
+                   tri_tests_needed=tri_need)
         if what == "spot":
             numbers["K6"].update(library_ms=None, **row)
         else:
@@ -1992,13 +2169,15 @@ def main():
               flush=True)
     numbers["K6"]["grad_path"] = {f"{w} {r}": v
                                   for (w, r), v in grad_cells.items()}
-    numbers["K6"].update(ptxas_info("adjoint", "adjoint_kernel"))
-    print(f"  K6 ptxas: {ptxas_info('adjoint', 'adjoint_kernel')}",
-          flush=True)
+    numbers["K6"].update(ptxas_info("adjoint", "adjoint_kernelILb0E"))
+    numbers["K6"]["mesh_ptxas"] = ptxas_info("adjoint",
+                                             "adjoint_kernelILb1E")
+    print(f"  K6 ptxas: {ptxas_info('adjoint', 'adjoint_kernelILb0E')}, "
+          f"with the mesh {numbers['K6']['mesh_ptxas']}", flush=True)
     torch.cuda.synchronize()
 
-    # Device busy share of one Renderer.render() at the 4a, 4c, 4g, 4e and
-    # 4k settings (4k on phase 4k's renderer, whose maps are built).
+    # Device busy share of one Renderer.render() at the 4a, 4c, 4d, 4g, 4e
+    # and 4k settings (4k on phase 4k's renderer, whose maps are built).
     def profile_render(what, desc, param, r=None):
         if r is None:
             r = Renderer(param, device="cuda")
@@ -2029,6 +2208,7 @@ def main():
 
     profile_render("softdof defaults", scene, RendererParam())
     profile_render("mesh_scene defaults", mesh_base, RendererParam())
+    profile_render("ico5 defaults", ico5, RendererParam())
     profile_render("texture_scene defaults", tex_desc, RendererParam())
     profile_render("ico6 1 spp", ico6, RendererParam(spp_min=1, spp_max=1))
     profile_render("caustics_scene photon map defaults", caus_desc, p_photon,

@@ -87,10 +87,10 @@ struct Params {
   int width;
   int max_bounce;
   int shadow_spp, shadow_spp_max;
-  const float4* mrows;  // K1c's mesh tables, n_clusters 0 without a mesh
+  const float4* mrows;  // K1c's mesh tables, n_leaves 0 without a mesh
   const float4* mattr;
-  const float* mcb;
-  int n_clusters;
+  const float* mtree;
+  int n_leaves, leaf_rows;
   const float* ct;  // [n, 3] radiance cotangent
   float* hooks;     // [NUM_HOOKS, max_bounce + 1, n] scratch
   float* out;       // [n_rows, n_params] block sums, zeroed by the caller
@@ -117,7 +117,8 @@ __device__ __forceinline__ void store_hooks(float* hk, size_t stride, V3 e,
 
 // Replay of lane `lane`'s path (mega_kernel<false, false>'s pathtrace
 // branch) and its reverse sweep, adding into the block's sums g.
-__device__ void adjoint_lane(const Params& P, const Shared& S, float* g,
+template <class PT>
+__device__ void adjoint_lane(const PT& P, const Shared& S, float* g,
                              int lane) {
   Work w{0, 0, 0, 0, 0, 0, 0};
   const int nb = P.max_bounce + 1;
@@ -149,7 +150,7 @@ __device__ void adjoint_lane(const Params& P, const Shared& S, float* g,
     Hit hit = closest_hit<false>(S.prim, S.kinds, P.num_prims, p, d);
     w.tests += P.num_prims;
     int mesh_row = -1;
-    if (P.n_clusters > 0) mesh_closest(P, p, d, hit, &mesh_row, w);
+    if constexpr (PT::kMesh) mesh_closest(P, p, d, hit, &mesh_row, w);
     if (!(hit.t < QR_BIGFLOAT)) {
       // radiance += beta * (background at bounce 0, environment after).
       add3_to(g + eb + (bounce == 0 ? 0 : 3), mul3(beta, ct));
@@ -359,7 +360,9 @@ __device__ void adjoint_lane(const Params& P, const Shared& S, float* g,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) adjoint_kernel(const Params P) {
+template <bool kMesh>
+__global__ void __launch_bounds__(kThreads)
+    adjoint_kernel(const WithMesh<Params, kMesh> P) {
   QR_SHARED_FLOATS(smem);
   float* g = smem;  // the block's [n_params] sums, then the scene tables
   for (int i = threadIdx.x; i < P.n_params; i += blockDim.x) g[i] = 0.0f;
@@ -371,6 +374,20 @@ __global__ void __launch_bounds__(kThreads) adjoint_kernel(const Params P) {
   // and folds them onto the rows).
   float* out = P.out + (size_t)(blockIdx.x % P.n_rows) * P.n_params;
   for (int i = threadIdx.x; i < P.n_params; i += blockDim.x) out[i] += g[i];
+}
+
+// The instantiation with the world mesh compiled in or out.
+template <bool kMesh>
+int launch(const Params& P, size_t smem, void* stream) {
+  using PM = WithMesh<Params, kMesh>;
+  void (*const kernel)(const PM) = adjoint_kernel<kMesh>;
+  if (smem > 48 * 1024) {
+    const int rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc) return rc;
+  }
+  QR_LAUNCH(kernel, P.n_rows, kThreads, smem, stream, PM{P});
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -385,8 +402,9 @@ extern "C" int qr_adjoint_render(
     int num_lights, float light_norm, const float* cam, uint32_t key0,
     uint32_t key1, int width, int max_bounce, int shadow_spp,
     int shadow_spp_max, const float* mrows, const float* mattr,
-    const float* mcb, int n_clusters, const float* ct, float* hooks,
-    float* out, int n_rows, int n_params, int* work, void* stream) {
+    const float* mtree, int n_leaves, int leaf_rows, const float* ct,
+    float* hooks, float* out, int n_rows, int n_params, int* work,
+    void* stream) {
   if (num_mtls > MAX_ROWS || num_lights > MAX_LIGHTS ||
       n_params != G_ROW * num_mtls + 3 * num_lights + 6 ||
       n_rows != (n + kThreads - 1) / kThreads || max_bounce < 0)
@@ -395,16 +413,10 @@ extern "C" int qr_adjoint_render(
            light, lkind, lsoft, num_lights, light_norm, cam, key0, key1,
            width, max_bounce, shadow_spp, shadow_spp_max,
            reinterpret_cast<const float4*>(mrows),
-           reinterpret_cast<const float4*>(mattr), mcb, n_clusters, ct, hooks,
-           out, n_rows, n_params, work};
+           reinterpret_cast<const float4*>(mattr), mtree, n_leaves,
+           leaf_rows, ct, hooks, out, n_rows, n_params, work};
   const size_t smem = 4 * (size_t)n_params +
                       table_bytes(num_prims, num_mtls, MTL_COLS, num_lights);
-  if (smem > 48 * 1024) {
-    const int rc = (int)cudaFuncSetAttribute(
-        adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc) return rc;
-  }
-  QR_LAUNCH(adjoint_kernel, n_rows, kThreads, smem, stream, P);
-  return (int)cudaGetLastError();
+  return n_leaves > 0 ? launch<true>(P, smem, stream)
+                      : launch<false>(P, smem, stream);
 }

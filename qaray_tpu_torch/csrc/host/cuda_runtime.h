@@ -1,18 +1,20 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
-// compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu) as C++
-// and run them on the CPU (ops/_build.load_host). The CPU tests use it to
-// hold a source's arithmetic to the plain PyTorch version where there is
-// no card and no nvcc. It says nothing about what nvcc accepts or how fast
-// the kernel is.
+// compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu,
+// photon.cu) as C++ and run them on the CPU (ops/_build.load_host). The
+// CPU tests use it to hold a source's arithmetic to the plain PyTorch
+// version where there is no card and no nvcc. It says nothing about what
+// nvcc accepts or how fast the kernel is.
 //
 // A launch runs its grid in host blocks of qr_host_set_block threads (1 by
 // default), one block after another. A block of one thread runs on the
 // calling thread, and __syncthreads has nothing to wait for. A larger
 // block runs each of its threads on a std::thread of its own, with a
-// std::barrier for __syncthreads, __syncthreads_or and __syncthreads_count
-// and the dynamic shared memory shared among them, so that code which
-// hands work between a block's threads runs as it does on the card. Not
-// reentrant: the launch geometry lives in globals.
+// barrier (QrHostBarrier) for __syncthreads, __syncthreads_or and
+// __syncthreads_count and the dynamic shared memory shared among them, so
+// that code which hands work between a block's threads runs as it does on
+// the card. A block of 32 is a warp: __ballot_sync gathers its threads'
+// votes at the block's barrier. Not reentrant: the launch geometry lives
+// in globals.
 #pragma once
 #include <math.h>
 #include <stddef.h>
@@ -20,7 +22,7 @@
 #include <string.h>
 
 #include <atomic>
-#include <barrier>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -28,6 +30,7 @@
 #define __global__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __constant__ static
 #define __launch_bounds__(...)
 
@@ -44,11 +47,42 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 static int qr_host_error = cudaSuccess;
 static unsigned qr_host_block = 1;
-static std::barrier<>* qr_host_bar = nullptr;
-// The accumulators of __syncthreads_or and __syncthreads_count: call k of
-// a block uses slot k % 3, and thread 0 clears the slot of call k + 1
-// before it arrives at call k's barrier, when every thread has read that
-// slot's last value (call k - 2).
+// A block's barrier: the last of its threads to arrive opens the next
+// phase; the others yield a while, then sleep until it does (a host block
+// of 32 threads that ballots as a warp passes a barrier every few
+// operations, which a sleep and a wake-up each time would slow tenfold).
+struct QrHostBarrier {
+  explicit QrHostBarrier(int n) : expected(n) {}
+  void arrive(bool drop) {
+    std::unique_lock<std::mutex> lk(m);
+    const int ph = phase.load();
+    if (drop)
+      --expected;
+    else
+      ++arrived;
+    if (arrived == expected) {
+      arrived = 0;
+      phase.store(ph + 1);
+      phase.notify_all();
+      return;
+    }
+    lk.unlock();
+    if (drop) return;
+    for (int k = 0; k < 64 && phase.load() == ph; ++k)
+      std::this_thread::yield();
+    while (phase.load() == ph) phase.wait(ph);
+  }
+  void arrive_and_wait() { arrive(false); }
+  void arrive_and_drop() { arrive(true); }
+  std::mutex m;
+  int expected, arrived = 0;
+  std::atomic<int> phase{0};
+};
+static QrHostBarrier* qr_host_bar = nullptr;
+// The accumulators of __syncthreads_or, __syncthreads_count and
+// __ballot_sync: call k of a block uses slot k % 3, and thread 0 clears
+// the slot of call k + 1 before it arrives at call k's barrier, when every
+// thread has read that slot's last value (call k - 2).
 static std::atomic<int> qr_host_sum[3];
 static thread_local unsigned qr_host_sum_calls = 0;
 
@@ -87,6 +121,18 @@ inline int __syncthreads_count(int pred) {
 inline int __syncthreads_or(int pred) {
   return __syncthreads_count(pred) > 0;
 }
+// A warp's vote: bit threadIdx.x % 32 set where pred holds, over the host
+// block (which must be the warp, 32 threads, for the card's answer).
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int bit = (int)(1u << (threadIdx.x % 32));
+  if (!qr_host_bar) return pred ? (unsigned)bit : 0u;
+  const unsigned k = qr_host_sum_calls++ % 3;
+  if (threadIdx.x == 0) qr_host_sum[(k + 1) % 3].store(0);
+  if (pred) qr_host_sum[k].fetch_or(bit);
+  qr_host_bar->arrive_and_wait();
+  return (unsigned)qr_host_sum[k].load();
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 template <class T>
 T __ldg(const T* p) {
   return *p;
@@ -137,7 +183,7 @@ void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
       kernel(arg);
       continue;
     }
-    std::barrier<> bar((ptrdiff_t)nb);
+    QrHostBarrier bar((int)nb);
     qr_host_bar = &bar;
     for (auto& slot : qr_host_sum) slot.store(0);
     std::vector<std::thread> team;

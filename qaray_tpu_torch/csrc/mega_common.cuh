@@ -1,7 +1,7 @@
 // Device code shared by the path-trace megakernel (megakernel.cu: K1a-K1d)
 // and the fused adjoint (adjoint.cu: K6): the scene tables' layout and
 // their staging in shared memory, the per-lane work counters, the counted
-// threefry draws, the Halton jitter, the local frame, the world-mesh sweep
+// threefry draws, the Halton jitter, the local frame, the world-mesh hit
 // (K1c), shadow rays and the lights' intensities with their soft-shadow
 // draws, one soft-shadow sample at a time. The adjoint replays the
 // megakernel's paths draw for draw, so both must run this very code.
@@ -10,13 +10,14 @@
 // its Params struct, which has to carry the tables stage_tables copies
 // (prim, kinds, prim_mtl, mtl, light, lkind, lsoft, cam and their counts
 // num_prims, num_mtls, num_lights), shadow_spp, shadow_spp_max and K1c's
-// mrows, mattr, mcb and n_clusters.
+// mrows, mattr, mtree, n_leaves and leaf_rows, and the compile-time flag
+// kMesh (WithMesh).
 #pragma once
 #include <stdint.h>
 
 #include "analytic.cuh"
-#include "mesh.cuh"
 #include "threefry.cuh"
+#include "walk.cuh"
 
 namespace {
 
@@ -144,57 +145,120 @@ __device__ __forceinline__ V3 to_local_frame(V3 n, V3 s) {
             u.x * x.z + u.y * y.z + u.z * n.z};
 }
 
-// Any hit on the world mesh with BIAS < t < t_max (K1c).
+// K1c, the world-mesh hit: one thread walks its ray over the tree of the
+// mesh's leaves (walk.cuh), P.leaf_rows consecutive rows of the
+// Morton-ordered table a leaf, and tests a leaf's rows kMeshStep at a
+// time. The function is the in-order sweep's over every row (the JAX
+// package's _closest_hit mesh fold, `take = t < t_b`, and _shadow_occluded),
+// whatever order the walk visits the leaves in.
+
+// Rows a leaf's step tests together (a divisor of QR_ROWS_A_STEP): the
+// megakernel holds its whole path's state beside them, and at 8 rows a
+// step its registers spill further.
+constexpr int kMeshStep = 4;
+
+// A kernel's Params with the world mesh compiled in or out (kMesh): the
+// functions here read PT::kMesh, so that an instantiation for scenes
+// without a mesh holds none of the walk, whose registers would make the
+// megakernel spill.
+template <class Base, bool kMeshOn>
+struct WithMesh : Base {
+  static constexpr bool kMesh = kMeshOn;
+};
+
+// Node k's entry bound on the mesh tree, its box read through the
+// read-only cache.
 template <class PT>
-__device__ bool mesh_occluded(const PT& P, V3 p, V3 d, float t_max,
-                              Work& w) {
-  const RaySlab s = ray_slab(p, d);
-  for (int c = 0; c < P.n_clusters; ++c) {
-    if (!box_may_hit(P.mcb + 8 * c, s, t_max)) continue;
-    for (int j = 0; j < QR_CLUSTER; ++j) {
-      float t, a, b, dn;
-      ++w.tri_tests;
-      if (tri_hit(load_row_ldg(P.mrows, c * QR_CLUSTER + j), p, d, t, a, b,
-                  dn) &&
-          t < t_max)
-        return true;
-    }
-  }
-  return false;
+__device__ __forceinline__ bool mesh_enter(const PT& P, const RaySlab& s,
+                                           int k, float& e) {
+  float box[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) box[j] = __ldg(P.mtree + 8 * k + j);
+  return box_entry(box, s, INFINITY, e);
 }
 
-// Closest world-mesh hit below h.t folded into h (K1c): t, the unnormalized
-// smooth normal, the front flag; *mrow gets the winner's material row.
+// Any hit on the world mesh with BIAS < t < t_max. The answer does not
+// depend on the order of the rows, so the walk stops at its first occluder.
 template <class PT>
-__device__ void mesh_closest(const PT& P, V3 p, V3 d, Hit& h, int* mrow,
-                             Work& w) {
+__device__ __forceinline__ bool mesh_occluded(const PT& P, V3 p, V3 d,
+                                              float t_max, Work& w) {
   const RaySlab s = ray_slab(p, d);
-  for (int c = 0; c < P.n_clusters; ++c) {
-    if (!box_may_hit(P.mcb + 8 * c, s, h.t)) continue;
-    for (int j = 0; j < QR_CLUSTER; ++j) {
-      const int row = c * QR_CLUSTER + j;
-      float t, a, b, dn;
-      ++w.tri_tests;
-      if (!tri_hit(load_row_ldg(P.mrows, row), p, d, t, a, b, dn) ||
-          !(t < h.t))
-        continue;
-      const TriRow at = load_row_ldg(P.mattr, row);
-      const float cc = 1.0f - a - b;
-      h.t = t;
-      h.n = V3{a * at.q0.x + b * at.q0.w + cc * at.q1.z,
-               a * at.q0.y + b * at.q1.x + cc * at.q1.w,
-               a * at.q0.z + b * at.q1.y + cc * at.q2.x};
-      h.front = dn <= 0.0f;
-      *mrow = (int)at.q2.y;
-    }
-  }
+  bool occ = false;
+  tree_walk<false>(
+      P.n_leaves, t_max,
+      [&](int k, float& e) { return mesh_enter(P, s, k, e); },
+      [&](int leaf, float) {
+        const int base = leaf * P.leaf_rows;
+        for (int r = base; r < base + P.leaf_rows; r += kMeshStep) {
+          float t[kMeshStep];
+          bool hit[kMeshStep];
+          test_rows<kMeshStep>(P.mrows, r, p, d, t, hit);
+          w.tri_tests += kMeshStep;
+#pragma unroll
+          for (int k = 0; k < kMeshStep; ++k)
+            occ = occ || (hit[k] && t[k] < t_max);
+          if (occ) return true;
+        }
+        return false;
+      });
+  return occ;
+}
+
+// Closest world-mesh hit folded into h: of the analytic winner, counted as
+// row -1, and every mesh row that hits, the first by (t, row). A mesh row
+// so replaces the analytic winner only at a strictly smaller t, and of
+// mesh rows at equal t the lower one wins, as the in-order sweep with
+// `t < h.t` gives. The walk keeps nodes whose entry bound is at or below
+// the best t, where a tie may still win on its row. The winner's t, its
+// unnormalized smooth normal a*n0 + b*n1 + c*n2 and its front flag come
+// from its own row, tested again (not counted); *mrow gets its material
+// row.
+template <class PT>
+__device__ __forceinline__ void mesh_closest(const PT& P, V3 p, V3 d,
+                                             Hit& h, int* mrow, Work& w) {
+  const RaySlab s = ray_slab(p, d);
+  float tb = h.t;
+  int rb = -1;
+  tree_walk<true>(
+      P.n_leaves, tb,
+      [&](int k, float& e) { return mesh_enter(P, s, k, e); },
+      [&](int leaf, float) {
+        const int base = leaf * P.leaf_rows;
+        for (int r = base; r < base + P.leaf_rows; r += kMeshStep) {
+          float t[kMeshStep];
+          bool hit[kMeshStep];
+          test_rows<kMeshStep>(P.mrows, r, p, d, t, hit);
+          w.tri_tests += kMeshStep;
+#pragma unroll
+          for (int k = 0; k < kMeshStep; ++k) {
+            if (hit[k] && (t[k] < tb || (t[k] == tb && r + k < rb))) {
+              tb = t[k];
+              rb = r + k;
+            }
+          }
+        }
+        return false;
+      });
+  if (rb < 0) return;
+  float t, a, b, dn;
+  tri_hit(load_row_ldg(P.mrows, rb), p, d, t, a, b, dn);
+  const TriRow at = load_row_ldg(P.mattr, rb);
+  const float cc = 1.0f - a - b;
+  h.t = t;
+  h.n = V3{a * at.q0.x + b * at.q0.w + cc * at.q1.z,
+           a * at.q0.y + b * at.q1.x + cc * at.q1.w,
+           a * at.q0.z + b * at.q1.y + cc * at.q2.x};
+  h.front = dn <= 0.0f;
+  *mrow = (int)at.q2.y;
 }
 
 template <class PT>
 __device__ __forceinline__ bool shadow(const PT& P, const Shared& S, V3 p,
                                        V3 d, float t_max, Work& w) {
-  return occluded(S.prim, S.kinds, P.num_prims, p, d, t_max, &w.tests) ||
-         (P.n_clusters > 0 && mesh_occluded(P, p, d, t_max, w));
+  const bool occ =
+      occluded(S.prim, S.kinds, P.num_prims, p, d, t_max, &w.tests);
+  if constexpr (PT::kMesh) return occ || mesh_occluded(P, p, d, t_max, w);
+  return occ;
 }
 
 // UniformBall quirk point from attempts (r1, r2, r2): `pick` already chosen,

@@ -41,22 +41,29 @@
 // per-primitive and per-light kind tables read at run time, uniform across
 // a warp; the sum over lights keeps blinn_direct's order.
 //
-// K1c, the mesh sweep: world-baked triangles in Morton order, 256 to a
-// cluster with an AABB each (scene/compiler.py, build_mega_mesh). Inside
-// the bounce loop each thread walks the clusters in order, culls each one
-// against its own ray (mesh.cuh's widened slab test; the Pallas kernel
-// bounds a whole ray block instead) below its current best t, and sweeps
-// the survivors' rows with the predicate K3 uses, folding t, the smooth
-// normal a*n0 + b*n1 + c*n2 from the attribute table, the front flag and
-// the material row. Shadow rays stop at the first occluder. The tables
-// stay in global memory, read through the read-only path: a lane's rows
-// are the same as its warp neighbours' (coherent rays cull alike), so they
-// come from L1. Bounded by operations too: about 40 per triangle test,
-// counted per lane in `work`.
+// K1c, the mesh hit: world-baked triangles in Morton order
+// (scene/compiler.py, build_mega_mesh), their runs of leaf_rows rows the
+// leaves of a box tree (build_mega_tree). Inside the bounce loop each
+// thread walks its own ray over the tree, nearest child first, without a
+// stack (walk.cuh, the walk of K3 and K4; the Pallas kernel culls 256-row
+// clusters in order for a whole ray block), prunes at its best t and tests
+// a leaf's rows with the predicate K3 uses, folding (t, row) in the
+// in-order sweep's order, so the winner, its smooth normal a*n0 + b*n1 +
+// c*n2 from the attribute table, the front flag and the material row are
+// the sweep's. Shadow rays stop at the first occluder. The tables stay in
+// global memory, read through the read-only path: a lane's rows are its
+// warp neighbours' (coherent rays walk alike), so they come from L1.
+// Bounded by operations too: about 40 per triangle test, counted per lane
+// in `work`. The mesh is a flag of the instantiations,
+// mega_kernel<kTex, kPhoton, kMesh>: the walk's registers would make the
+// kernel spill (ptxas caps it at 128 for 4 blocks an SM), so scenes
+// without a mesh run instantiations without its code, as before it was
+// written. qr_mega_mesh_probe runs the same two functions on given rays,
+// for tests.
 //
-// K1b, checker textures: the kernel is compiled twice, mega_kernel<false>
-// for untextured scenes (K1a as it was, no texture code in it) and
-// mega_kernel<true> for scenes whose live material textures are all
+// K1b, checker textures: a flag of the instantiations, mega_kernel<false,
+// ...> for untextured scenes (K1a as it was, no texture code in it) and
+// mega_kernel<true, ...> for scenes whose live material textures are all
 // procedural checkers. There the material rows carry 16 more columns per
 // slot (102 in all, still in shared memory), the closest-hit fold keeps the
 // winner's uv (atan2f/asinf, as K2b and the engine compute it), and at the
@@ -73,9 +80,9 @@
 // Operations again: 32 checker tests a textured slot at a primary vertex,
 // one at a later vertex, counted in `work`.
 //
-// K1d, photon gathering (photonmap with -use-photon-map): a third
-// instantiation flag, mega_kernel<kTex, true>, so scenes without maps run
-// the kernels they ran before. At every diffuse-selected vertex the lane
+// K1d, photon gathering (photonmap with -use-photon-map): another
+// instantiation flag, mega_kernel<kTex, true, kMesh>, so scenes without maps
+// run the kernels they ran before. At every diffuse-selected vertex the lane
 // sweeps the caustics map for its own hit point (photon.cuh's per-thread
 // sweep: lanes are not spatially sorted, so each culls the map's clusters
 // against its own point, and reads the rows, 64 KB at the default 1,000
@@ -84,16 +91,16 @@
 // flag where more than GATHER_K (100) photons lay in the radius: there the
 // estimate needs the radius cap, which the Renderer gets by rendering the
 // lane again on the wavefront engine. A diffuse-selected vertex after a
-// diffuse bounce also gathers the global map; the path ends there, so a
-// lane has at most one such vertex, and the kernel writes that vertex's
-// 17-field record (p, n, v, beta*diffuse, beta*specular, glossiness,
-// valid) straight to its output planes instead of sweeping the global map
-// from incoherent lanes: the wrapper Morton-sorts the records and gathers
-// them with K5 (ops/photon.gather_apply). The primary vertex's irr0 flag
-// (a photon surface) is the fb debug plane. Output planes are zeroed by
-// the wrapper; the kernel writes only the ones a lane sets. Operations
-// again: about 20 a photon test, counted with the cluster tests in the
-// last two columns of `work`.
+// diffuse bounce also gathers the global map; the path ends there, so a lane
+// has at most one such vertex, and the kernel writes that vertex's 17-field
+// record (p, n, v, beta*diffuse, beta*specular, glossiness, valid) straight
+// to its output planes instead of sweeping the global map from incoherent
+// lanes: the wrapper Morton-sorts the records and gathers them with K5
+// (ops/photon.gather_apply). The primary vertex's irr0 flag (a photon
+// surface) is the fb debug plane. Output planes are zeroed by the wrapper;
+// the kernel writes only the ones a lane sets. Operations again: about 20 a
+// photon test, counted with the cluster tests in the last two columns of
+// `work`.
 //
 // Random draws are bit-exact with jax.random (threefry2x32 key words):
 // the per-lane key is fold(base, rid * 65536 + sid) in wrapping 32-bit
@@ -166,8 +173,9 @@ struct Params {
   int has_dof, has_glossy;
   const float4* mrows;  // [Fp, 16] mesh sweep coefficients (Morton order)
   const float4* mattr;  // [Fp, 16] corner normals (0-8), material row (9)
-  const float* mcb;     // [C, 8] cluster AABBs
-  int n_clusters;       // 0: no mesh
+  const float* mtree;   // [2 * n_leaves, 8] boxes of the leaves' tree
+  int n_leaves;         // 0: no mesh
+  int leaf_rows;        // rows a leaf
   float* r;
   float* g;
   float* b;
@@ -426,9 +434,9 @@ __device__ V3 textured(const float* tx, V3 color, float u, float v,
 // in scenes with no soft light, a lane leaves the loop when its path ends
 // and no barrier is taken; soft lights, should the tables have one, then
 // take light_visibility's per-lane loop.
-template <bool kTex, bool kPhoton>
+template <bool kTex, bool kPhoton, bool kMesh>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-    mega_kernel(const Params P) {
+    mega_kernel(const WithMesh<Params, kMesh> P) {
   QR_SHARED_FLOATS(smem);
   const int mtl_cols = kTex ? P.mtl_cols : MTL_COLS;
   const Pool Q = pool_at(
@@ -498,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       Hit hit = closest_hit<kTex>(S.prim, S.kinds, P.num_prims, p, d);
       w.tests += P.num_prims;
       int mesh_row = -1;
-      if (P.n_clusters > 0) mesh_closest(P, p, d, hit, &mesh_row, w);
+      if constexpr (kMesh) mesh_closest(P, p, d, hit, &mesh_row, w);
       const bool is_hit = hit.t < QR_BIGFLOAT;
       if (bounce == 0) t0 = is_hit ? hit.t : QR_BIGFLOAT;
       if (!is_hit) {
@@ -821,17 +829,24 @@ extern "C" int qr_mega_set_tex_offsets(const float* xs, const float* ys) {
 
 namespace {
 
-template <bool kTex, bool kPhoton>
+template <bool kTex, bool kPhoton, bool kMesh>
 int launch(const Params& P, size_t smem, void* stream) {
-  void (*const kernel)(const Params) = mega_kernel<kTex, kPhoton>;
+  using PM = WithMesh<Params, kMesh>;
+  void (*const kernel)(const PM) = mega_kernel<kTex, kPhoton, kMesh>;
   if (smem > 48 * 1024) {
     int rc = (int)cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc) return rc;
   }
   QR_LAUNCH(kernel, (P.n + kThreads - 1) / kThreads, kThreads, smem, stream,
-            P);
+            PM{P});
   return (int)cudaGetLastError();
+}
+
+template <bool kTex, bool kPhoton>
+int launch(const Params& P, size_t smem, void* stream) {
+  return P.n_leaves > 0 ? launch<kTex, kPhoton, true>(P, smem, stream)
+                        : launch<kTex, kPhoton, false>(P, smem, stream);
 }
 
 }  // namespace
@@ -850,8 +865,9 @@ extern "C" int qr_mega_render(
     const int* lkind, const int* lsoft, int num_lights, float light_norm,
     const float* cam, uint32_t key0, uint32_t key1, int width, int photonmap,
     int max_bounce, int shadow_spp, int shadow_spp_max, int has_dof,
-    int has_glossy, const float* mrows, const float* mattr, const float* mcb,
-    int n_clusters, float* r, float* g, float* b, float* t0, int* work,
+    int has_glossy, const float* mrows, const float* mattr,
+    const float* mtree, int n_leaves, int leaf_rows, float* r, float* g,
+    float* b, float* t0, int* work,
     int soft_lights, const float* ctab, const float* ccb,
     int n_cclusters, float cr2, float* pout, void* stream) {
   if (tex_mask ? mtl_cols != MT_TEXBASE + TEX_STRIDE * NUM_SLOTS
@@ -866,8 +882,8 @@ extern "C" int qr_mega_render(
            cam, key0, key1, width, photonmap, max_bounce, shadow_spp,
            shadow_spp_max, has_dof, has_glossy,
            reinterpret_cast<const float4*>(mrows),
-           reinterpret_cast<const float4*>(mattr), mcb, n_clusters, r, g, b,
-           t0, work, pool_w,
+           reinterpret_cast<const float4*>(mattr), mtree, n_leaves,
+           leaf_rows, r, g, b, t0, work, pool_w,
            reinterpret_cast<const float4*>(ctab), ccb, n_cclusters, cr2,
            pout};
   const size_t smem =
@@ -878,4 +894,78 @@ extern "C" int qr_mega_render(
                     : launch<false, true>(P, smem, stream);
   return tex_mask ? launch<true, false>(P, smem, stream)
                   : launch<false, false>(P, smem, stream);
+}
+
+namespace {
+
+// K1c's two functions on given rays (qr_mega_mesh_probe).
+struct ProbeParams {
+  const float* p;
+  const float* d;
+  const float* t_a;    // [n] the analytic winner's t (row -1)
+  const float* t_max;  // [n] the any hit's budget
+  int n;
+  const float4* mrows;
+  const float4* mattr;
+  const float* mtree;
+  int n_leaves, leaf_rows;
+  float* t;    // [n] the closest hit's t
+  float* nrm;  // [n, 3] its normal (the mesh winner's; else 0, 0, 1)
+  int* front;  // [n] its front flag
+  int* mrow;   // [n] the mesh winner's material row, -1 where none
+  int* occ;    // [n] the any hit
+  int* work;   // optional [n, 2]: triangle tests, closest and any hit
+};
+
+__global__ void __launch_bounds__(kThreads)
+    mesh_probe_kernel(const ProbeParams P) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P.n) return;
+  const V3 p{P.p[3 * i], P.p[3 * i + 1], P.p[3 * i + 2]};
+  const V3 d{P.d[3 * i], P.d[3 * i + 1], P.d[3 * i + 2]};
+  Hit h;
+  h.t = P.t_a[i];
+  h.prim = 0;
+  h.n = V3{0.0f, 0.0f, 1.0f};
+  h.front = true;
+  int mrow = -1;
+  Work wc{}, wa{};
+  mesh_closest(P, p, d, h, &mrow, wc);
+  const bool occ = mesh_occluded(P, p, d, P.t_max[i], wa);
+  P.t[i] = h.t;
+  P.nrm[3 * i] = h.n.x;
+  P.nrm[3 * i + 1] = h.n.y;
+  P.nrm[3 * i + 2] = h.n.z;
+  P.front[i] = h.front;
+  P.mrow[i] = mrow;
+  P.occ[i] = occ;
+  if (P.work) {
+    P.work[2 * i] = wc.tri_tests;
+    P.work[2 * i + 1] = wa.tri_tests;
+  }
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes; tests and measurements, no path calls
+// it): K1c's mesh_closest and mesh_occluded, one thread a ray, on the
+// megakernel's mesh tables, launched on `stream`; returns
+// cudaGetLastError(). n > 0 and n_leaves > 0 are the caller's job.
+extern "C" int qr_mega_mesh_probe(const float* p, const float* d,
+                                  const float* t_a, const float* t_max,
+                                  int n, const float* mrows,
+                                  const float* mattr, const float* mtree,
+                                  int n_leaves, int leaf_rows, float* t,
+                                  float* nrm, int* front, int* mrow, int* occ,
+                                  int* work, void* stream) {
+  if (n_leaves < 1 || (n_leaves & (n_leaves - 1)) ||
+      leaf_rows < QR_ROWS_A_STEP || leaf_rows % QR_ROWS_A_STEP)
+    return (int)cudaErrorInvalidValue;
+  const ProbeParams P{p, d, t_a, t_max, n,
+                      reinterpret_cast<const float4*>(mrows),
+                      reinterpret_cast<const float4*>(mattr), mtree, n_leaves,
+                      leaf_rows, t, nrm, front, mrow, occ, work};
+  QR_LAUNCH(mesh_probe_kernel, (n + kThreads - 1) / kThreads, kThreads, 0,
+            stream, P);
+  return (int)cudaGetLastError();
 }

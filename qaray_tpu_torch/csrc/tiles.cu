@@ -13,8 +13,9 @@
 // Here one thread walks one ray, 128 threads a block, over a binary tree
 // of the cluster boxes (ops/tiles.cluster_tree: heap order, node 1 the
 // root, node k's children 2k and 2k+1, leaf L + c cluster c). The walk
-// descends nearest child first with a per-thread stack and tests nodes
-// with mesh.cuh's widened one-ray slab test (box_entry), which
+// (walk.cuh's tree_walk, which the megakernel's K1c shares) descends
+// nearest child first without a stack and tests nodes with mesh.cuh's
+// widened one-ray slab test (box_entry), which
 // over-accepts and never drops a grazing hit. A node is pruned when its
 // entry bound lies beyond the ray's reach; a leaf sweeps its cluster's
 // coefficient rows with tri_hit, read through the read-only cache
@@ -50,7 +51,7 @@
 // whose meshes are small (ops/mesh_sweep.py).
 #include <cuda_runtime.h>
 
-#include "mesh.cuh"
+#include "walk.cuh"
 
 #ifndef QR_LAUNCH
 #define QR_SHARED_FLOATS(name) extern __shared__ float name[]
@@ -63,9 +64,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kNodeCols = 8;  // min xyz, max xyz, 2 pad
 constexpr int kSharedNodes = 1024;
-constexpr int kStack = 16;  // one pending sibling a level: 2^16 leaves
-// Rows loaded and tested together: their loads are in flight at once.
-constexpr int kRowsAStep = 8;
+constexpr int kMaxLeaves = 1 << 16;
 
 enum Mode { kTiled = 0, kAnyHit = 1, kDense = 2 };
 
@@ -85,27 +84,6 @@ struct WalkParams {
   int* work;   // optional [n]: triangle tests within the winner's reach
 };
 
-// Is a node whose entry bound is `ent` within `reach`? kDense keeps ties.
-template <int kMode>
-__device__ __forceinline__ bool within(float ent, float reach) {
-  return kMode == kDense ? ent <= reach : ent < reach;
-}
-
-// The nearest pending node still within reach, or 0 when none is left.
-template <int kMode>
-__device__ __forceinline__ int pop(const int* stack_node,
-                                   const float* stack_ent, int& sp,
-                                   float reach, float& ent) {
-  while (sp > 0) {
-    --sp;
-    if (within<kMode>(stack_ent[sp], reach)) {
-      ent = stack_ent[sp];
-      return stack_node[sp];
-    }
-  }
-  return 0;
-}
-
 template <int kMode>
 __global__ void __launch_bounds__(kThreads) walk_kernel(const WalkParams P) {
   QR_SHARED_FLOATS(top);
@@ -118,72 +96,35 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const WalkParams P) {
   const V3 rd{P.d[3 * i], P.d[3 * i + 1], P.d[3 * i + 2]};
   const float t_in = P.tcur[i];
   const RaySlab s = ray_slab(rp, rd);
-  auto box = [&](int k) {
-    return k < P.shared_nodes ? top + kNodeCols * k
-                              : P.nodes + kNodeCols * k;
-  };
-  // A node's entry bound, if the ray may hit its box at all.
-  auto enter = [&](int k, float reach, float& e) {
-    return box_entry(box(k), s, INFINITY, e) && within<kMode>(e, reach);
+  auto enter = [&](int k, float& e) {
+    return box_entry(k < P.shared_nodes ? top + kNodeCols * k
+                                        : P.nodes + kNodeCols * k,
+                     s, INFINITY, e);
   };
 
   // The top-2: rb, r2 are sorted rows (kTiled) or gids (kDense). t2 is
-  // the closest walks' reach.
+  // the closest walks' reach, t_in the any hit's.
   float tb = t_in, t2 = kMode == kDense ? QR_BIGFLOAT : t_in;
   int rb = -1, r2 = -1;
   bool occ = false, capped = false;
   int visited = 0, need = 0;
-  int stack_node[kStack];
-  float stack_ent[kStack];
-  int sp = 0;
-  float ent = 0.0f;
-  const float reach0 = kMode == kDense ? t2 : t_in;
-  int node = (kMode == kDense || t_in > QR_BIAS) && enter(1, reach0, ent)
-                 ? 1 : 0;
-  while (node) {
-    // Descend to the nearest leaf within reach.
-    while (node && node < P.n_leaves) {
-      const float reach = kMode == kAnyHit ? t_in : t2;
-      const int c = 2 * node;
-      float e0, e1;
-      const bool h0 = enter(c, reach, e0);
-      const bool h1 = enter(c + 1, reach, e1);
-      if (h0 && h1) {
-        const bool near0 = e0 <= e1;
-        stack_node[sp] = near0 ? c + 1 : c;
-        stack_ent[sp] = near0 ? e1 : e0;
-        ++sp;
-        node = near0 ? c : c + 1;
-        ent = near0 ? e0 : e1;
-      } else if (h0 || h1) {
-        node = h0 ? c : c + 1;
-        ent = h0 ? e0 : e1;
-      } else {
-        node = pop<kMode>(stack_node, stack_ent, sp, reach, ent);
-      }
-    }
-    if (!node) break;
+  const float t_any = t_in;
+  const float& reach = kMode == kAnyHit ? t_any : t2;
+  auto visit = [&](int leaf, float ent) {
     if (kMode == kTiled && P.max_steps && visited == P.max_steps) {
       capped = true;
-      break;
+      return true;
     }
     ++visited;
     if (kMode != kTiled || ent < tb) need += P.leaf_rows;
-    const int base = (node - P.n_leaves) * P.leaf_rows;
-    for (int r = base; r < base + P.leaf_rows; r += kRowsAStep) {
-      TriRow c[kRowsAStep];
-#pragma unroll
-      for (int k = 0; k < kRowsAStep; ++k) c[k] = load_row_ldg(P.rows, r + k);
-      float t[kRowsAStep];
-      bool hit[kRowsAStep];
-#pragma unroll
-      for (int k = 0; k < kRowsAStep; ++k) {
-        float a, b, dn;
-        hit[k] = tri_hit(c[k], rp, rd, t[k], a, b, dn);
-      }
+    const int base = leaf * P.leaf_rows;
+    for (int r = base; r < base + P.leaf_rows; r += QR_ROWS_A_STEP) {
+      float t[QR_ROWS_A_STEP];
+      bool hit[QR_ROWS_A_STEP];
+      test_rows(P.rows, r, rp, rd, t, hit);
       // Folded in row order, as one row at a time would fold them.
 #pragma unroll
-      for (int k = 0; k < kRowsAStep; ++k) {
+      for (int k = 0; k < QR_ROWS_A_STEP; ++k) {
         if (!hit[k]) continue;
         if (kMode == kAnyHit) {
           occ = occ || t[k] < t_in;
@@ -211,12 +152,12 @@ __global__ void __launch_bounds__(kThreads) walk_kernel(const WalkParams P) {
           }
         }
       }
-      if (occ) break;
+      if (occ) return true;
     }
-    if (occ) break;
-    node = pop<kMode>(stack_node, stack_ent, sp,
-                      kMode == kAnyHit ? t_in : t2, ent);
-  }
+    return false;
+  };
+  if (kMode == kDense || t_in > QR_BIAS)
+    tree_walk<kMode == kDense>(P.n_leaves, reach, enter, visit);
 
   if (P.steps) P.steps[i] = visited;
   if (P.work) P.work[i] = need;
@@ -243,9 +184,9 @@ int launch(const WalkParams& P, void* stream) {
 }
 
 bool bad_tree(int n_leaves, int leaf_rows) {
-  return n_leaves < 1 || n_leaves > (1 << kStack) ||
-         (n_leaves & (n_leaves - 1)) || leaf_rows < kRowsAStep ||
-         leaf_rows % kRowsAStep;
+  return n_leaves < 1 || n_leaves > kMaxLeaves ||
+         (n_leaves & (n_leaves - 1)) || leaf_rows < QR_ROWS_A_STEP ||
+         leaf_rows % QR_ROWS_A_STEP;
 }
 
 int shared_nodes(int n_leaves) {

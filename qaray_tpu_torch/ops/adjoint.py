@@ -19,7 +19,7 @@ tests. `launches` counts kernel launches.
 import torch
 
 from qaray_tpu_torch.core.rng import fold_words
-from qaray_tpu_torch.ops.megakernel import MEGA_CLUSTER, _check_lanes
+from qaray_tpu_torch.ops.megakernel import _check_lanes, mesh_args
 
 launches = {"K6": 0}
 
@@ -68,7 +68,7 @@ def _kernel(host: bool = False):
 
         lib = (_build.load_host if host else _build.load)("adjoint")
         _fns[host] = _build.bind(lib, "qr_adjoint_render",
-                                 "pppipppipipppifpuuiiiipppipppiipp")
+                                 "pppipppipipppifpuuiiiipppiipppiipp")
     return _fns[host]
 
 
@@ -177,18 +177,7 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words, ct,
     if tabs.mtl.shape != (meta.num_materials, 22):
         raise ValueError("the kernel tables do not match the meta "
                          "(scene.arrays.with_kernel_tables)")
-    n_clusters = 0
-    mesh = (tabs.mesh_rows, tabs.mesh_attr, tabs.mesh_cb)
-    if meta.mesh_mega:
-        n_clusters = tabs.mesh_rows.shape[0] // MEGA_CLUSTER
-        for t, shape in zip(mesh, ((n_clusters * MEGA_CLUSTER, 16),
-                                   (n_clusters * MEGA_CLUSTER, 16),
-                                   (n_clusters, 8))):
-            if (t.device != dev or t.dtype != torch.float32
-                    or t.shape != shape or not t.is_contiguous()):
-                raise ValueError(f"mesh table {tuple(t.shape)} on {t.device}"
-                                 f": the kernel needs contiguous float32 "
-                                 f"{shape} on {dev}")
+    mesh = mesh_args(tabs, meta, dev)
     n_rows = (n + THREADS - 1) // THREADS
     out = torch.zeros((n_rows, n_params), dtype=torch.float32, device=dev)
     if n == 0:
@@ -210,7 +199,7 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words, ct,
         tabs.light_soft.data_ptr(), meta.num_lights, light_norm,
         tabs.cam.data_ptr(), k0, k1, meta.img_width, cfg.max_bounce,
         cfg.shadow_spp, cfg.shadow_spp_max,
-        *(t.data_ptr() if n_clusters else None for t in mesh), n_clusters,
+        *mesh,
         ct.data_ptr(), hooks.data_ptr(), out.data_ptr(), n_rows, n_params,
         work.data_ptr() if work is not None else None, stream,
     )

@@ -7,9 +7,10 @@ with its custom_vjp (_MegaRender). _pack_tables is
 scene.arrays.with_kernel_tables, run once when a scene is compiled. One
 launch renders one pathtrace or photonmap sample per lane: camera ray,
 every bounce's closest hit, shading, next-event shadow rays and all
-threefry draws. With a world mesh (meta.mesh_mega) the same launch sweeps
-its triangles in-kernel (K1c): `launches["K1c"]` counts those launches.
-On a scene whose live material textures are all checkers
+threefry draws. With a world mesh (meta.mesh_mega) the same launch traces
+its triangles in-kernel (K1c), each lane walking a tree of the
+Morton-ordered rows in leaves of MEGA_LEAF (build_mega_tree):
+`launches["K1c"]` counts those launches. On a scene whose live material textures are all checkers
 (scene.arrays.mega_textured) the launch is of the textured kernel, which
 computes the winner's uv, the primary hit's footprint and the checker
 samples itself (K1b): `launches["K1b"]` counts those. With photon maps
@@ -18,6 +19,11 @@ samples itself (K1b): `launches["K1b"]` counts those. With photon maps
 escalation planes and one global-map record per lane; the wrapper gathers
 the records with K5 (ops/photon.gather_apply), adds their contribution
 and ORs their escalation flags: `launches["K1d"]` counts those launches.
+
+K1c's own device functions also run on given rays through the probe
+mesh_probe (mesh_probe_host: the source under g++), whose plain version
+mesh_probe_plain is the in-order sweep over every row that K1c's walk must
+equal bit for bit; no path calls it.
 
 The plain version of K1a, K1b and K1c is the wavefront engine
 (integrators/engine.render_batch_wavefront) with its texture stack
@@ -42,6 +48,7 @@ maps and the photonmap flags carry no gradient.
 import numpy as np
 import torch
 
+from qaray_tpu_torch.core.constants import BIAS
 from qaray_tpu_torch.core.rng import fold_words
 from qaray_tpu_torch.diff import DiffParams, extract_params, splice_params
 from qaray_tpu_torch.photon.gather import radius2
@@ -59,7 +66,10 @@ launches = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0}
 
 NUM_REC = 17  # fields of a global-map gather record
 
-MEGA_CLUSTER = 256  # triangles per cull cluster
+MEGA_CLUSTER = 256  # rows a cluster of the JAX package's mesh tables
+# Rows a leaf of K1c's tree (build_mega_tree): mesh_scene's 320 triangles
+# make 5 such leaves and no padding row is tested.
+MEGA_LEAF = 64
 
 # Lanes a batch of the backward's engine run (bounds its saved tensors).
 BWD_BATCH = 65536
@@ -82,27 +92,36 @@ def _kernel(host: bool = False):
                      "K1b footprint offsets")
         _fns[host] = _build.bind(
             lib, "qr_mega_render",
-            "pppipppipiiipppifpuuiiiiiiipppipppppippifpp")
+            "pppipppipiiipppifpuuiiiiiiipppiipppppippifpp")
         if host:
             _fns["host_block"] = _build.bind(lib, "qr_host_set_block", "i")
     return _fns[host]
 
 
+def _morton_order(tri_v):
+    """The order of build_mega_mesh's rows: by the Morton code of each
+    triangle's centroid, stable."""
+    from qaray_tpu_torch.ops.mesh_tiles import _morton3
+
+    return np.argsort(_morton3(tri_v.mean(axis=1)), kind="stable")
+
+
 def build_mega_mesh(tri_v, tri_n, tri_mtl, cluster: int = MEGA_CLUSTER):
     """World-baked triangles -> (coeff16 [Fp,16], attr16 [Fp,16],
-    cbounds [C,8]) for the megakernel's mesh sweep (K1c).
+    cbounds [C,8]): the JAX package's megakernel mesh tables.
 
     Rows are Morton-ordered by centroid (tight cluster boxes); coeff16 is
     the pack_coeff16 layout; attr16 cols 0-8 hold the three (unnormalized,
     world) corner normals and col 9 the material table row. Padding rows
-    never hit (all-zero coefficients)."""
+    never hit (all-zero coefficients). K1c walks build_mega_tree's boxes
+    of the same rows; cbounds, the 256-row clusters' boxes, are the JAX
+    package's cull."""
     from qaray_tpu_torch.ops.mesh_stream import build_stream
     from qaray_tpu_torch.ops.mesh_sweep import pack_coeff16
-    from qaray_tpu_torch.ops.mesh_tiles import _morton3
 
     tri_v = np.asarray(tri_v, np.float32)
     num = tri_v.shape[0]
-    order = np.argsort(_morton3(tri_v.mean(axis=1)), kind="stable")
+    order = _morton_order(tri_v)
     sv = tri_v[order]
     sn = np.asarray(tri_n, np.float32)[order]
     sm = np.asarray(tri_mtl, np.int32)[order]
@@ -112,17 +131,69 @@ def build_mega_mesh(tri_v, tri_n, tri_mtl, cluster: int = MEGA_CLUSTER):
     attr = np.zeros((fp, 16), np.float32)
     attr[:num, 0:9] = sn.reshape(num, 9)
     attr[:num, 9] = sm.astype(np.float32)
-    nc = fp // cluster
+    return c16, attr, _leaf_boxes(sv, fp, cluster)
+
+
+def _leaf_boxes(sv, rows: int, leaf: int):
+    """[rows / leaf, 8] boxes (min xyz, max xyz, 0, 0) of the sorted
+    triangles sv in runs of `leaf` rows; a run of padding rows alone gets
+    the inverted box that no ray test accepts."""
+    nc = rows // leaf
     cb = np.zeros((nc, 8), np.float32)
     for c in range(nc):
-        rows = sv[c * cluster:(c + 1) * cluster]
-        if rows.size == 0:
+        run = sv[c * leaf:(c + 1) * leaf]
+        if run.size == 0:
             cb[c, 0:3] = 1.0
             cb[c, 3:6] = -1.0  # empty box: never hit
         else:
-            cb[c, 0:3] = rows.reshape(-1, 3).min(axis=0)
-            cb[c, 3:6] = rows.reshape(-1, 3).max(axis=0)
-    return c16, attr, cb
+            cb[c, 0:3] = run.reshape(-1, 3).min(axis=0)
+            cb[c, 3:6] = run.reshape(-1, 3).max(axis=0)
+    return cb
+
+
+def mega_tree_leaves(rows: int, leaf: int) -> int:
+    """Leaves of the K1c tree over `rows` rows in leaves of `leaf`: the
+    power of two at or above rows / leaf."""
+    return 1 << max(0, (rows // leaf - 1).bit_length())
+
+
+def build_mega_tree(tri_v, rows: int, leaf: int = MEGA_LEAF):
+    """The tree K1c walks: tiles.cluster_tree over the boxes of
+    build_mega_mesh's rows (`rows` of them, padding included) in leaves of
+    `leaf` consecutive rows, a CPU float32 [2L, 8] tensor with L =
+    mega_tree_leaves(rows, leaf). The rows keep their order, so a leaf c
+    holds rows c * leaf .. (c + 1) * leaf - 1."""
+    from qaray_tpu_torch.ops.tiles import cluster_tree
+
+    tri_v = np.asarray(tri_v, np.float32)
+    if rows % leaf or leaf % 8:
+        raise ValueError(f"{rows} rows in leaves of {leaf}: a leaf is a "
+                         "multiple of 8 rows that divides the table")
+    sv = tri_v[_morton_order(tri_v)]
+    return cluster_tree(torch.from_numpy(_leaf_boxes(sv, rows, leaf)))
+
+
+def mesh_args(tabs, meta: SceneMeta, device):
+    """K1c's arguments of the kernels' C entries (rows, attributes, tree,
+    leaves, leaf rows), after checking the tables against what the kernels
+    read; (None, None, None, 0, 0) without a megakernel mesh."""
+    if meta.mesh_mega != (tabs.mesh_rows is not None):
+        raise ValueError("the kernel tables do not match meta.mesh_mega "
+                         "(scene.arrays.with_kernel_tables)")
+    if not meta.mesh_mega:
+        return None, None, None, 0, 0
+    rows, leaf = tabs.mesh_rows.shape[0], MEGA_LEAF
+    n_leaves = mega_tree_leaves(rows, leaf)
+    for t, shape in ((tabs.mesh_rows, (rows, 16)),
+                     (tabs.mesh_attr, (rows, 16)),
+                     (tabs.mesh_tree, (2 * n_leaves, 8))):
+        if (t.device != device or t.dtype != torch.float32
+                or t.shape != shape or not t.is_contiguous()):
+            raise ValueError(f"mesh table {tuple(t.shape)} on {t.device}: "
+                             f"the kernel needs contiguous float32 {shape} "
+                             f"on {device}")
+    return (tabs.mesh_rows.data_ptr(), tabs.mesh_attr.data_ptr(),
+            tabs.mesh_tree.data_ptr(), n_leaves, leaf)
 
 
 def _check_lanes(px, py, sample_ids):
@@ -266,6 +337,151 @@ def mega_render_host(scene: SceneArrays, meta: SceneMeta, cfg, px, py,
         _fns["host_block"](1)
 
 
+# ---------------------------------------------------------------------------
+# K1c's world-mesh hit on given rays: the probe of the kernel's own device
+# functions, beside their plain version
+# ---------------------------------------------------------------------------
+
+
+def _probe_fn(host: bool = False):
+    """qr_mega_mesh_probe of the CUDA library, or with host=True of the
+    same source built for the CPU (_build.load_host; tests only)."""
+    key = ("probe", host)
+    if key not in _fns:
+        from qaray_tpu_torch.ops import _build
+
+        lib = (_build.load_host if host else _build.load)("megakernel")
+        _fns[key] = _build.bind(lib, "qr_mega_mesh_probe",
+                                "ppppipppiipppppp")
+    return _fns[key]
+
+
+def _tri_terms(p, d, rows):
+    """csrc/mesh.cuh tri_hit of rays (p, d) [..., 3] against coefficient
+    rows [..., 16] (broadcast): (hit, t, a, b, dn), with its operations in
+    its order."""
+    def dot(r, c):
+        return (r[..., 0] * rows[..., c] + r[..., 1] * rows[..., c + 1]
+                + r[..., 2] * rows[..., c + 2])
+
+    pn, dn = dot(p, 0), dot(d, 0)
+    pa, da = dot(p, 3), dot(d, 3)
+    pb, db = dot(p, 6), dot(d, 6)
+    safe = torch.where(torch.abs(dn) < 1e-30, torch.full_like(dn, 1e-30), dn)
+    t = (rows[..., 9] - pn) / safe
+    parallel = torch.abs(dn) < 1e-7 * rows[..., 12]
+    a = pa + t * da + rows[..., 10]
+    b = pb + t * db + rows[..., 11]
+    c = 1.0 - a - b
+    hit = ~parallel & (t > BIAS) & (a >= 0.0) & (b >= 0.0) & (c >= 0.0)
+    return hit, t, a, b, dn
+
+
+def mesh_fold_plain(rows, p, d, t_a, t_max, chunk: int = 256,
+                    rays: int = 1 << 16):
+    """The in-order sweep of mesh_probe_plain over coefficient rows [Fp,
+    16]: (t, the winning row [B] int64 (-1 where the analytic winner
+    stands), occluded [B]), `rays` rays against `chunk` rows at a time."""
+    tb = t_a.clone()
+    rb = torch.full(tb.shape, -1, dtype=torch.int64, device=p.device)
+    occ = torch.zeros(tb.shape, dtype=torch.bool, device=p.device)
+    for r0 in range(0, p.shape[0], rays):
+        s = slice(r0, r0 + rays)
+        ps, ds, tm = p[s, None], d[s, None], t_max[s, None]
+        for lo in range(0, rows.shape[0], chunk):
+            hit, t, *_ = _tri_terms(ps, ds, rows[None, lo:lo + chunk])
+            t_hit = torch.where(hit, t, torch.full_like(t, float("inf")))
+            t1, i1 = torch.min(t_hit, dim=1)  # the first row at the minimum
+            take = t1 < tb[s]
+            tb[s] = torch.where(take, t1, tb[s])
+            rb[s] = torch.where(take, lo + i1, rb[s])
+            occ[s] |= (hit & (t < tm)).any(dim=1)
+    return tb, rb, occ
+
+
+def mesh_probe_plain(rows, attr, p, d, t_a, t_max, chunk: int = 256):
+    """The plain version of K1c's world-mesh hit (csrc/mega_common.cuh
+    mesh_closest, mesh_occluded): the in-order sweep over every row of
+    build_mega_mesh's tables rows, attr [Fp, 16] for rays p, d [B, 3].
+
+    The closest hit folds each row into the analytic winner t_a [B] where
+    its t is strictly smaller, so the analytic winner (row -1) wins ties
+    and, of mesh rows at equal t, the lower. Returns (t [B], the winner's
+    unnormalized smooth normal [B, 3] (0, 0, 1 where no row wins), its
+    front flag [B], its material row [B] int32 (-1 where no row wins), and
+    occluded [B]: some row hits with BIAS < t < t_max)."""
+    _, rb, occ = mesh_fold_plain(rows, p, d, t_a, t_max, chunk)
+    won = rb >= 0
+    row = rb.clamp_min(0)
+    _, t, a, bb, dn = _tri_terms(p, d, rows[row])
+    at = attr[row]
+    cc = 1.0 - a - bb
+    nrm = torch.stack([a * at[:, k] + bb * at[:, k + 3] + cc * at[:, k + 6]
+                       for k in range(3)], dim=1)
+    up = torch.tensor([0.0, 0.0, 1.0], device=p.device)
+    return (torch.where(won, t, t_a), torch.where(won[:, None], nrm, up),
+            torch.where(won, dn <= 0.0, True),
+            torch.where(won, at[:, 9].to(torch.int32), -1), occ)
+
+
+def _probe_call(fn, stream, tabs, p, d, t_a, t_max, work):
+    n = p.shape[0]
+    dev = p.device
+    leaf = MEGA_LEAF
+    n_leaves = mega_tree_leaves(tabs.mesh_rows.shape[0], leaf)
+    if tabs.mesh_tree.shape != (2 * n_leaves, 8):
+        raise ValueError("mesh_tree does not match the rows and MEGA_LEAF")
+    for t in (p, d, t_a, t_max, tabs.mesh_rows, tabs.mesh_attr,
+              tabs.mesh_tree):
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"float32 tensors on {dev} only")
+    if work is not None and (work.shape != (n, 2) or work.device != dev
+                             or work.dtype != torch.int32
+                             or not work.is_contiguous()):
+        raise ValueError("work must be a contiguous int32 [B, 2] tensor")
+    p, d, t_a, t_max = (x.contiguous() for x in (p, d, t_a, t_max))
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    nrm = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    front, mrow, occ = (torch.empty(n, dtype=torch.int32, device=dev)
+                        for _ in range(3))
+    if n:
+        from qaray_tpu_torch.ops import _build
+
+        _build.check(fn(p.data_ptr(), d.data_ptr(), t_a.data_ptr(),
+                        t_max.data_ptr(), n, tabs.mesh_rows.data_ptr(),
+                        tabs.mesh_attr.data_ptr(), tabs.mesh_tree.data_ptr(),
+                        n_leaves, leaf, t.data_ptr(), nrm.data_ptr(),
+                        front.data_ptr(), mrow.data_ptr(), occ.data_ptr(),
+                        work.data_ptr() if work is not None else None,
+                        stream), "K1c mesh probe")
+    return t, nrm, front > 0, mrow, occ > 0
+
+
+def mesh_probe(tabs, p, d, t_a, t_max, work=None):
+    """K1c's world-mesh hit on given rays p, d [B, 3]: the megakernel's own
+    mesh_closest and mesh_occluded (qr_mega_mesh_probe) over the scene's
+    kernel tables tabs (scene.arrays.KernelTables) on a card, from the
+    analytic winner's t t_a [B] and the any hit's budget t_max [B]; its
+    plain version, mesh_probe_plain, for tensors on the CPU. Returns what
+    mesh_probe_plain returns. work: optional int32 [B, 2], the kernel's
+    triangle tests of the closest hit and of the any hit (CUDA only). For
+    tests and measurements: no path calls it, and it counts no launch."""
+    if p.device.type == "cpu":
+        return mesh_probe_plain(tabs.mesh_rows, tabs.mesh_attr, p, d, t_a,
+                                t_max)
+    return _probe_call(_probe_fn(), torch.cuda.current_stream().cuda_stream,
+                       tabs, p, d, t_a, t_max, work)
+
+
+def mesh_probe_host(tabs, p, d, t_a, t_max, work=None):
+    """mesh_probe's kernel source run on the CPU on CPU tensors
+    (_build.load_host), one ray at a time. For tests without a card."""
+    if p.device.type != "cpu":
+        raise ValueError("mesh_probe_host takes CPU tensors")
+    return _probe_call(_probe_fn(host=True), None, tabs, p, d, t_a, t_max,
+                       work)
+
+
 def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
             work, photon_maps):
     """Check the tables against what the kernel reads and call
@@ -301,10 +517,7 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
                              or not work.is_contiguous()):
         raise ValueError("work must be a contiguous int32 [B, 8] tensor on "
                          "the lanes' device")
-    mesh = (tabs.mesh_rows, tabs.mesh_attr, tabs.mesh_cb)
-    if meta.mesh_mega != (tabs.mesh_rows is not None):
-        raise ValueError("the kernel tables do not match meta.mesh_mega "
-                         "(scene.arrays.with_kernel_tables)")
+    mesh = mesh_args(tabs, meta, dev)
     # K1b: one bit per material slot with a live checker somewhere.
     tex_mask = 0
     if mega_textured(meta):
@@ -324,17 +537,6 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
             check_tables(pmap.ctable, pmap.cbounds, dev)
         cmap = photon_maps[1]
         pout = torch.zeros((2 + NUM_REC, n), dtype=torch.float32, device=dev)
-    n_clusters = 0
-    if meta.mesh_mega:
-        n_clusters = tabs.mesh_rows.shape[0] // MEGA_CLUSTER
-        for t, shape in zip(mesh, ((n_clusters * MEGA_CLUSTER, 16),
-                                   (n_clusters * MEGA_CLUSTER, 16),
-                                   (n_clusters, 8))):
-            if (t.device != dev or t.dtype != torch.float32
-                    or t.shape != shape or not t.is_contiguous()):
-                raise ValueError(f"mesh table {tuple(t.shape)} on {t.device}"
-                                 f": the kernel needs contiguous float32 "
-                                 f"{shape} on {dev}")
     if n:
         norm_power = 2 if cfg.integrator == "pathtrace" else 1
         light_norm = ((1.0 / meta.num_lights) ** norm_power
@@ -352,7 +554,7 @@ def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words,
             int(cfg.integrator == "photonmap"), cfg.max_bounce,
             cfg.shadow_spp, cfg.shadow_spp_max, int(meta.has_dof),
             int(meta.has_glossy),
-            *(t.data_ptr() if n_clusters else None for t in mesh), n_clusters,
+            *mesh,
             r.data_ptr(), g.data_ptr(), b.data_ptr(),
             t0.data_ptr(), work.data_ptr() if work is not None else None,
             int(any(k not in (LIGHT_AMBIENT, LIGHT_DIRECT) and soft

@@ -11,8 +11,11 @@ other lanes for the exact estimate.
 
 For tensors on the CPU photon_gather runs the plain version,
 photon_gather_plain, which sums the same terms in the same row order; for
-CUDA tensors it launches K5, never falling back from one to the other.
-`launches` counts kernel launches.
+CUDA tensors it launches K5 (a warp to each active query, culled against
+that query alone), never falling back from one to the other. gather_apply
+sorts the queries with a record to the front and passes their count in
+device memory, so that only those take a warp. `launches` counts kernel
+launches.
 """
 
 import math
@@ -28,16 +31,32 @@ from qaray_tpu_torch.photon.gather import radius2
 
 launches = {"K5": 0}
 
-_fn = []
+# K5's grid: blocks of GATHER_WARPS warps, a warp a query, at most
+# GATHER_MAX_BLOCKS blocks (16 blocks of 128 threads on each of the H100's
+# 132 SMs), which stride over the queries.
+GATHER_WARPS = 4
+GATHER_MAX_BLOCKS = 132 * 16
+HOST_BLOCKS = 2  # photon_gather_host's grid
+
+_fns = {}
 
 
-def _kernel():
-    if not _fn:
+def _kernel(host: bool = False):
+    """qr_photon_gather of the CUDA library, or with host=True of the same
+    source built for the CPU (_build.load_host; tests only)."""
+    if host not in _fns:
         from qaray_tpu_torch.ops import _build
 
-        lib = _build.load("photon")
-        _fn.append(_build.bind(lib, "qr_photon_gather", "ppppifipp"))
-    return _fn[0]
+        lib = (_build.load_host if host else _build.load)("photon")
+        _fns[host] = _build.bind(lib, "qr_photon_gather", "ppppifipippp")
+        if host:
+            _fns["host_block"] = _build.bind(lib, "qr_host_set_block", "i")
+    return _fns[host]
+
+
+def gather_warps(num: int) -> int:
+    """Warps of K5's grid for num queries."""
+    return min(-(-num // GATHER_WARPS), GATHER_MAX_BLOCKS) * GATHER_WARPS
 
 
 def check_tables(ctable, cbounds, device):
@@ -93,33 +112,86 @@ def photon_gather_plain(ctable, cbounds, radius, p, active=None):
     return acc[:, 0:3], acc[:, 3:6], cnt * act
 
 
-def photon_gather(ctable, cbounds, radius, p, active=None):
+def photon_gather(ctable, cbounds, radius, p, active=None, count=None,
+                  work=None):
     """Filtered power sums [B,3], direction sums [B,3] and in-radius counts
     [B] (float32) of the clustered map (ctable, cbounds) at query points p
     [B,3]; zeros where active [B] is false or 0. K5 on a card, the plain
-    version on the CPU."""
+    version on the CPU.
+
+    count: optional int32 tensor of one element on the queries' device, the
+    number of leading queries among which every active one lies (none after
+    it), so that the kernel gathers only those and no host sync is needed
+    (gather_apply). work: optional int32 [B], filled with the clusters each
+    query visited (CUDA only)."""
     num = p.shape[0]
     act = (torch.ones(num, dtype=torch.float32, device=p.device)
            if active is None else active.to(torch.float32))
     if p.device.type == "cpu":
         return photon_gather_plain(ctable, cbounds, radius, p, act)
+    out = _gather(_kernel(), torch.cuda.current_stream().cuda_stream,
+                  ctable, cbounds, radius, p, act, count, work)
+    if num:
+        launches["K5"] += 1
+    return out
+
+
+def photon_gather_host(ctable, cbounds, radius, p, active=None, count=None,
+                       work=None):
+    """photon_gather's kernel source run on the CPU on CPU tensors
+    (_build.load_host), each warp a block of 32 threads, in a grid of
+    HOST_BLOCKS blocks that strides over the queries (a host thread is
+    dear). For tests without a card: no entry point calls it and it counts
+    no launch."""
+    if p.device.type != "cpu":
+        raise ValueError("photon_gather_host takes CPU tensors")
+    num = p.shape[0]
+    act = (torch.ones(num, dtype=torch.float32)
+           if active is None else active.to(torch.float32))
+    fn = _kernel(host=True)
+    from qaray_tpu_torch.ops import _build
+
+    _build.check(_fns["host_block"](32), "host block size")
+    try:
+        return _gather(fn, None, ctable, cbounds, radius, p, act, count, work,
+                       HOST_BLOCKS)
+    finally:
+        _fns["host_block"](1)
+
+
+def _gather(fn, stream, ctable, cbounds, radius, p, act, count, work,
+            max_blocks=GATHER_MAX_BLOCKS):
+    """Check the tables and call qr_photon_gather `fn` on `stream` with at
+    most max_blocks blocks."""
     _check(ctable, cbounds, p, act)
-    out = torch.empty((num, 7), dtype=torch.float32, device=p.device)
+    num = p.shape[0]
+    dev = p.device
+    if count is not None and (count.device != dev
+                              or count.dtype != torch.int32
+                              or count.numel() != 1):
+        raise ValueError("count must be one int32 on the queries' device")
+    if work is not None and (work.device != dev or work.dtype != torch.int32
+                             or work.shape != (num,)
+                             or not work.is_contiguous()):
+        raise ValueError("work must be a contiguous int32 [B] tensor on "
+                         "the queries' device")
+    out = torch.empty((num, 7), dtype=torch.float32, device=dev)
     if num:
         from qaray_tpu_torch.ops import _build
 
         p, act = p.contiguous(), act.contiguous()
-        rc = _kernel()(p.data_ptr(), act.data_ptr(), ctable.data_ptr(),
-                       cbounds.data_ptr(), cbounds.shape[0],
-                       radius2(radius), num, out.data_ptr(),
-                       torch.cuda.current_stream().cuda_stream)
+        rc = fn(p.data_ptr(), act.data_ptr(), ctable.data_ptr(),
+                cbounds.data_ptr(), cbounds.shape[0], radius2(radius), num,
+                count.data_ptr() if count is not None else None,
+                min(gather_warps(num) // GATHER_WARPS, max_blocks),
+                out.data_ptr(),
+                work.data_ptr() if work is not None else None, stream)
         _build.check(rc, "K5 photon gather")
-        launches["K5"] += 1
     return out[:, 0:3], out[:, 3:6], out[:, 6]
 
 
 # ---------------------------------------------------------------------------
-# Record gathering: Morton-sort the queries, sweep with tight blocks
+# Record gathering: Morton-sort the queries, gather those with a record
 # ---------------------------------------------------------------------------
 
 
@@ -134,7 +206,7 @@ def _spread(v):
 def _morton_keys(p, valid):
     """[B,3] points -> 30-bit Morton codes over the valid points' box, as
     int64 tensors. Invalid lanes get 0x7FFFFFFF, so the sort packs them at
-    the tail, where whole blocks cull every cluster."""
+    the tail, past the valid lanes K5 gathers."""
     big = torch.tensor(BIGFLOAT, dtype=torch.float32, device=p.device)
     lo = torch.where(valid[:, None], p, big).amin(dim=0)
     hi = torch.where(valid[:, None], p, -big).amax(dim=0)
@@ -163,9 +235,10 @@ def gather_apply(gmap, rec):
     _, si = torch.sort(_morton_keys(packed[:, 0:3], valid), stable=True)
     ps = packed[si]
     act_s = ps[:, 16]
-    irr_sums, dirsum, cnt = photon_gather(gmap.ctable, gmap.cbounds,
-                                          gmap.radius,
-                                          ps[:, 0:3].contiguous(), act_s)
+    # The sort puts the lanes with a record first: K5 gathers only those.
+    irr_sums, dirsum, cnt = photon_gather(
+        gmap.ctable, gmap.cbounds, gmap.radius, ps[:, 0:3].contiguous(),
+        act_s, count=valid.sum(dtype=torch.int32).reshape(1))
     r2 = radius2(gmap.radius)
     irrad = irr_sums / float(np.float32(math.pi * 0.5) * np.float32(r2))
     # gather_blinn's combine (MtlBlinn_PhotonMap.cpp:426-458).

@@ -33,7 +33,7 @@ from qaray_tpu_torch.ops.mesh_stream import _chunk_test, merge_top2, top2
 from qaray_tpu_torch.ops.mesh_sweep import pack_coeff16, unpack_coeff16
 from qaray_tpu_torch.ops.mesh_tiles import CLUSTER, TiledMesh, coherence_order
 
-# The kernel's per-thread stack holds one pending node a tree level.
+# The most leaves a kernel's tree walk takes (csrc/walk.cuh, tiles.cu).
 MAX_LEAVES = 1 << 16
 # Ray-cluster pairs a pass of walk_plain: bounds its [rays, clusters]
 # tables (a pass holds a few [rays, clusters, 3] float32 tensors).

@@ -106,6 +106,8 @@ class MeshArrays(NamedTuple):
     mega_c16: Optional[torch.Tensor] = None  # pack_coeff16 rows
     mega_attr: Optional[torch.Tensor] = None  # n0/n1/n2 xyz + mtl row
     mega_cbounds: Optional[torch.Tensor] = None  # [C, 8] AABB (6) + pad
+    # K1c walks this tree of its rows' leaves (megakernel.build_mega_tree).
+    mega_tree: Optional[torch.Tensor] = None  # [2L, 8] (cluster_tree)
 
 
 class MeshInstances(NamedTuple):
@@ -185,11 +187,12 @@ class KernelTables(NamedTuple):
     cam: torch.Tensor  # [25] float32: camera, background, environment
     light_kind: torch.Tensor  # [max(L, 1)] int32
     light_soft: torch.Tensor  # [max(L, 1)] int32
-    # K1c's mesh tables as [Fp, 16] rows and [C, 8] boxes (views of
-    # MeshArrays.mega_*), None without a megakernel mesh.
+    # K1c's mesh tables as [Fp, 16] rows and the [2L, 8] tree of their
+    # leaves of ops.megakernel.MEGA_LEAF rows (views of MeshArrays.mega_*),
+    # None without a megakernel mesh.
     mesh_rows: Optional[torch.Tensor] = None
     mesh_attr: Optional[torch.Tensor] = None
-    mesh_cb: Optional[torch.Tensor] = None
+    mesh_tree: Optional[torch.Tensor] = None
 
 
 class SceneArrays(NamedTuple):
@@ -286,7 +289,7 @@ def with_kernel_tables(arrays: SceneArrays, meta: SceneMeta) -> SceneArrays:
         m = arrays.mesh
         mesh = dict(mesh_rows=m.mega_c16.reshape(-1, 16),
                     mesh_attr=m.mega_attr.reshape(-1, 16),
-                    mesh_cb=m.mega_cbounds)
+                    mesh_tree=m.mega_tree)
     return arrays._replace(kernel=KernelTables(
         mtl=f32(mtl), light=f32(light), cam=f32(cam_tab),
         light_kind=ints(meta.light_kinds),

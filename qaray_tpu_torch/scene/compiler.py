@@ -279,13 +279,18 @@ class SceneCompiler:
         if 0 < num <= _mega_stream_max_tris():
             distinct = tuple(sorted(int(m) for m in np.unique(mtl_all)))
             if len(distinct) <= 8:
-                from qaray_tpu_torch.ops.megakernel import build_mega_mesh
+                from qaray_tpu_torch.ops.megakernel import (
+                    build_mega_mesh,
+                    build_mega_tree,
+                )
 
                 c16, attr, cb = build_mega_mesh(wv, wn, mtl_all)
+                tree = build_mega_tree(wv, c16.shape[0])
                 if num > _mega_mesh_max_tris():
                     c16, attr = c16.reshape(-1, 128), attr.reshape(-1, 128)
                     self.mega_stream = True
-                tables.update(mega_c16=c16, mega_attr=attr, mega_cbounds=cb)
+                tables.update(mega_c16=c16, mega_attr=attr, mega_cbounds=cb,
+                              mega_tree=tree)
                 self.mega_mtls = distinct
         mesh = dict(
             tri_v=wv, tri_n=wn, tri_uv=np.concatenate(uv_l),

@@ -52,7 +52,8 @@ def from_numpy_arrays(tree, meta, device="cuda"):
     mesh = instances = None
     if meta.num_mesh_instances:
         # The walks' trees (and the dense route's Morton rows) have no JAX
-        # counterpart: they are built as the port's compiler builds them.
+        # counterpart: they are built as the port's compiler builds them
+        # (the tiled route's, K3's and K1c's).
         mesh = MeshArrays(**{f: None if getattr(tree.mesh, f, None) is None
                              else dev(getattr(tree.mesh, f))
                              for f in MeshArrays._fields})
@@ -67,6 +68,11 @@ def from_numpy_arrays(tree, meta, device="cuda"):
             mesh = mesh._replace(stream_rows=dev(walk.rows),
                                  stream_gid=dev(walk.gid),
                                  stream_tree=dev(walk.tree))
+        if mesh.mega_c16 is not None:
+            from qaray_tpu_torch.ops.megakernel import build_mega_tree
+
+            mesh = mesh._replace(mega_tree=dev(build_mega_tree(
+                np.asarray(tree.mesh.tri_v), mesh.mega_c16.numel() // 16)))
         instances = group(MeshInstances, tree.instances)
 
     arrays = SceneArrays(

@@ -1,0 +1,173 @@
+"""Device times of the port's kernels on one GPU at the main path's
+shapes, for comparing two trees in one call:
+
+- the megakernel at 480,000 pathtrace lanes (800x600, one sample a pixel,
+  max_bounce 5, shadows 16 -> 64, the Renderer's rbg key words) of softdof
+  (K1a), texture_scene (K1b), mesh_scene and its icosphere at ico5 (K1c),
+  and its photonmap launch on caustics_scene (softdof with a glass middle
+  sphere) with the default maps (K1d), as chip_smoke.py phase 5 launches
+  them;
+- K5 in that photonmap launch (its records through ops/photon.gather_apply);
+- K6 on mesh_scene at the gradient path's shape (131,072 lanes, the mean
+  loss's cotangent);
+- K3 on the camera rays of mesh_scene and of ico5, K4a and K4b on those of
+  ico6 (coherence-sorted, as the tiled route walks them; K4b on rays from
+  their hit points towards the point (10, 80, 60), budget its distance).
+
+    python -m qaray_tpu_torch.tools.kernel_times
+
+Each time is torch.profiler's device time of the kernel, the mean over 20
+launches after one that is not counted. The script reaches the package
+through the import path and uses only entry points older trees have, so
+that one copy of it times another tree's kernels in the same call:
+
+    PYTHONPATH=<tree> python qaray_tpu_torch/tools/kernel_times.py
+
+Prints the card's name and power limit and, last, one JSON line.
+"""
+
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+
+def device_ms(fn, kernel, reps=20):
+    """Mean device milliseconds a launch of the kernels whose name holds
+    `kernel`, fn launching one."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0) for e in seen)
+    count = sum(e.count for e in seen)
+    if not count or total <= 0:
+        raise SystemExit(f"the profiler recorded no {kernel} launch")
+    return total / count / 1e3
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    import qaray_tpu_torch
+    from qaray_tpu_torch.integrators import engine
+    from qaray_tpu_torch.integrators.engine import IntegratorConfig
+    from qaray_tpu_torch.ops import adjoint, megakernel, mesh_sweep, photon
+    from qaray_tpu_torch.ops import tiles
+    from qaray_tpu_torch.ops.mesh_tiles import TiledMesh, coherence_order
+    from qaray_tpu_torch.core.rng import key_words
+    from qaray_tpu_torch.photon.build import build_photon_maps
+    from qaray_tpu_torch.photon.cluster import cluster_photon_map
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+    from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.procedural import (
+        icosphere,
+        with_glass,
+        with_mesh,
+    )
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    assets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(qaray_tpu_torch.__file__))), "tests", "assets")
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5)
+    rbg = key_words("rbg", RendererParam().seed)
+    ids = torch.arange(800 * 600, device="cuda", dtype=torch.int32)
+    px, py, sid = ids % 800, ids // 800, ids * 0
+    out = {"card": card, "package": os.path.dirname(qaray_tpu_torch.__file__)}
+
+    def scene(name, edit=None):
+        desc = load_scene(os.path.join(assets, name))
+        if edit is not None:
+            desc = edit(desc)
+        desc.camera.img_width, desc.camera.img_height = 800, 600
+        return compile_scene(desc, device="cuda")
+
+    def mega(name, arr, meta, cfg_=cfg, maps=None):
+        before = megakernel.launches[name]
+        out[name if name not in out else f"{name}_ico5"] = device_ms(
+            lambda: megakernel.mega_render(arr, meta, cfg_, px, py, sid, rbg,
+                                           photon_maps=maps), "mega_kernel")
+        if megakernel.launches[name] == before:
+            raise SystemExit(f"no {name} launch")
+
+    mega("K1a", *scene("softdof_scene.xml"))
+    mega("K1b", *scene("texture_scene.xml"))
+    mesh_arr, mesh_meta = scene("mesh_scene.xml")
+    mega("K1c", mesh_arr, mesh_meta)
+    mega("K1c", *scene("mesh_scene.xml",
+                       lambda d: with_mesh(d, *icosphere(5), name="ico5")))
+    c_arr, c_meta = scene("softdof_scene.xml",
+                          lambda d: with_glass(d, "mid"))
+    p_photon = RendererParam(use_photon_map=True)
+    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+        maps = tuple(cluster_photon_map(m) for m in build_photon_maps(
+            c_arr, c_meta, p_photon))
+    cfg_ph = Renderer(p_photon, device="cuda").integrator_config()
+    mega("K1d", c_arr, c_meta, cfg_ph, maps)
+    out["K5"] = device_ms(lambda: megakernel.mega_render(
+        c_arr, c_meta, cfg_ph, px, py, sid, rbg, photon_maps=maps),
+        "gather_kernel")
+
+    # K6 on mesh_scene at the gradient path's shape.
+    cfg_g = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                             shadow_spp=16)
+    n_g = 1 << 17
+    g_ids = torch.arange(n_g, device="cuda", dtype=torch.int32)
+    ct = torch.full((n_g, 3), 1.0 / (3 * n_g), device="cuda")
+    out["K6_mesh"] = device_ms(lambda: adjoint.adjoint_render(
+        mesh_arr, mesh_meta, cfg_g, g_ids % 800, (g_ids // 800) % 600,
+        g_ids * 0, rbg, ct), "adjoint_kernel")
+
+    # K3 on camera rays as they come; K4a/K4b on ico6's, sorted.
+    for what, edit in (("mesh_scene", None),
+                       ("ico5", lambda d: with_mesh(d, *icosphere(5),
+                                                    name="ico5"))):
+        arr, meta = scene("mesh_scene.xml", edit)
+        p, d, *_ = engine.generate_camera_rays(arr, meta, px, py, sid, None)
+        p, d = p.contiguous(), d.contiguous()
+        t_big = torch.full((p.shape[0],), 1e30, device="cuda")
+        walk = mesh_sweep.walk_of(arr.mesh)
+        out[f"K3_{what}"] = device_ms(lambda: mesh_sweep.sweep_closest(
+            p, d, t_big, arr.mesh.stream_c16, walk=walk), "walk_kernel")
+    arr, meta = scene("mesh_scene.xml",
+                      lambda d: with_mesh(d, *icosphere(6), name="ico6"))
+    m = arr.mesh
+    tm = TiledMesh(m.tile_coeff, m.tile_const, m.tile_gid, m.tile_cbounds)
+    p, d, *_ = engine.generate_camera_rays(arr, meta, px, py, sid, None)
+    perm = coherence_order(p, d, m.tile_cbounds[:, :3].amin(0),
+                           m.tile_cbounds[:, 3:6].amax(0))
+    ps, ds = p[perm].contiguous(), d[perm].contiguous()
+    t_big = torch.full((ps.shape[0],), 1e30, device="cuda")
+    out["K4a"] = device_ms(lambda: tiles.tiled_sweep_kernel(
+        ps, ds, t_big, tm, m.tile_c16T, tree=m.tile_tree), "walk_kernel")
+    t_hit = tiles.tiled_sweep_kernel(ps, ds, t_big, tm, m.tile_c16T,
+                                     tree=m.tile_tree)[0]
+    hp = ps + ds * torch.where(t_hit < 1e29, t_hit, 0.0)[:, None]
+    light = torch.tensor([10.0, 80.0, 60.0], device="cuda")
+    to_l = light - hp
+    dist = to_l.norm(dim=1)
+    sd = (to_l / dist[:, None]).contiguous()
+    out["K4b"] = device_ms(lambda: tiles.tiled_sweep_kernel(
+        hp.contiguous(), sd, dist, tm, m.tile_c16T, any_hit=True,
+        tree=m.tile_tree), "walk_kernel")
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,197 @@
+"""Outputs of the kernels K1c, K5 and K6 at the main path's shapes, written
+by one tree and compared with another's, to hold a redesigned kernel to its
+parent bit for bit on one GPU.
+
+    PYTHONPATH=<tree> python qaray_tpu_torch/tools/parity_dump.py \
+        dump OUT.pt [--records FILE]
+    python qaray_tpu_torch/tools/parity_dump.py compare A.pt B.pt
+
+`dump` writes, for the tree on the import path:
+- K1c: radiance, primary depth and the 8 work counters of one megakernel
+  launch of 480,000 lanes (800x600, one sample a pixel, max_bounce 5, rbg
+  key words, shadows 16 -> 64), pathtrace and photonmap, on
+  tests/assets/mesh_scene.xml (320 triangles), on it with its icosphere at
+  ico5 (20,480) and on tests/assets/mirror_scene.xml;
+- K6: the loss and gradients of diff.render_value_and_grad's fast route
+  on mesh_scene at chip_smoke.py phase 4m's shape (131,072 lanes, sample
+  1), twice, and the adjoint's 4 work counters;
+- K5: the global-map records of one photon-mapped dispatch of
+  caustics_scene at 800x600 (softdof with a glass middle sphere, default
+  maps), Morton-sorted as gather_apply sorts them, and photon_gather's
+  sums and counts on them at r 0.2 and 50. With --records the records are
+  read from an earlier dump, so that both trees gather the same queries.
+
+`compare` prints, for each output, whether the two dumps hold the same
+bits (work column 3, K1c's and K6's triangle tests, is compared by its
+mean: a redesign of the mesh walk changes it), and one JSON line.
+"""
+
+import contextlib
+import json
+import os
+import sys
+import tempfile
+
+import torch
+
+K1C_SCENES = ("mesh", "ico5", "mirror")
+
+
+def dump(path, records=None):
+    import qaray_tpu_torch
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.core.rng import key_words
+    from qaray_tpu_torch.integrators.engine import IntegratorConfig
+    from qaray_tpu_torch.ops import adjoint, megakernel, photon
+    from qaray_tpu_torch.photon.build import build_photon_maps
+    from qaray_tpu_torch.photon.cluster import cluster_photon_map
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+    from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.procedural import (
+        icosphere,
+        with_glass,
+        with_mesh,
+    )
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+
+    assets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(qaray_tpu_torch.__file__))), "tests", "assets")
+
+    def scene(name, edit=None):
+        desc = load_scene(os.path.join(assets, name))
+        if edit is not None:
+            desc = edit(desc)
+        desc.camera.img_width, desc.camera.img_height = 800, 600
+        return compile_scene(desc, device="cuda")
+
+    rbg = key_words("rbg", RendererParam().seed)
+    ids = torch.arange(800 * 600, device="cuda", dtype=torch.int32)
+    px, py, sid = ids % 800, ids // 800, ids * 0
+    out = {"package": os.path.dirname(qaray_tpu_torch.__file__)}
+    edits = {"mesh": ("mesh_scene.xml", None),
+             "ico5": ("mesh_scene.xml",
+                      lambda d: with_mesh(d, *icosphere(5), name="ico5")),
+             "mirror": ("mirror_scene.xml", None)}
+    for what in K1C_SCENES:
+        arr, meta = scene(*edits[what])
+        assert meta.mesh_mega, what
+        for integ in ("pathtrace", "photonmap"):
+            cfg = IntegratorConfig(integrator=integ, max_bounce=5)
+            work = torch.zeros((ids.shape[0], 8), dtype=torch.int32,
+                               device="cuda")
+            rad, t0 = megakernel.mega_render(arr, meta, cfg, px, py, sid, rbg,
+                                             work=work)
+            out[f"K1c/{what}/{integ}"] = {"radiance": rad.cpu(),
+                                         "t0": t0.cpu(), "work": work.cpu()}
+        if what == "mesh":
+            cfg_g = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                                     shadow_spp=16)
+            n_g = 1 << 17
+            g = torch.arange(n_g, device="cuda", dtype=torch.int32)
+            gx, gy, gs = g % 800, (g // 800) % 600, torch.full_like(g, 1)
+            for k in range(2):
+                loss, grads = diff.render_value_and_grad(arr, meta, cfg_g, gx,
+                                                         gy, gs, rbg)
+                out[f"K6/mesh/run{k}"] = {
+                    "loss": loss.detach().cpu(),
+                    **{f"grad{i}": t.detach().cpu()
+                       for i, t in enumerate(grads)}}
+            work = torch.zeros((n_g, 4), dtype=torch.int32, device="cuda")
+            ct = torch.full((n_g, 3), 1.0 / (3 * n_g), device="cuda")
+            adjoint.adjoint_render(arr, meta, cfg_g, gx, gy, gs, rbg, ct,
+                                   work=work)
+            out["K6/mesh/work"] = {"work": work.cpu()}
+        del arr
+
+    if records is None:
+        c_arr, c_meta = scene("softdof_scene.xml",
+                              lambda d: with_glass(d, "mid"))
+        p_photon = RendererParam(use_photon_map=True)
+        with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+            maps = tuple(cluster_photon_map(m) for m in build_photon_maps(
+                c_arr, c_meta, p_photon))
+        cfg_ph = Renderer(p_photon, device="cuda").integrator_config()
+        captured = {}
+        gather_apply = photon.gather_apply
+
+        def capture(gmap, rec):
+            captured["rec"] = torch.stack(list(rec), dim=-1).clone()
+            return gather_apply(gmap, rec)
+
+        photon.gather_apply = capture
+        try:
+            megakernel.mega_render(c_arr, c_meta, cfg_ph, px, py, sid, rbg,
+                                   photon_maps=maps)
+        finally:
+            photon.gather_apply = gather_apply
+        packed = captured["rec"]
+        valid = packed[:, 16] > 0.5
+        _, order = torch.sort(photon._morton_keys(packed[:, 0:3], valid),
+                              stable=True)
+        g = maps[0]
+        records = {"q": packed[order, 0:3].cpu(),
+                   "act": packed[order, 16].cpu(), "ctable": g.ctable.cpu(),
+                   "cbounds": g.cbounds.cpu(),
+                   "radius": torch.tensor(float(g.radius))}
+    out["K5/records"] = records
+    q, act = records["q"].cuda(), records["act"].cuda()
+    tab, cb = records["ctable"].cuda(), records["cbounds"].cuda()
+    for r in (float(records["radius"]), 50.0):
+        sums = photon.photon_gather(tab, cb, r, q, act)
+        out[f"K5/r{r:g}"] = {"irradiance": sums[0].cpu(),
+                             "direction": sums[1].cpu(),
+                             "count": sums[2].cpu()}
+    torch.save(out, path)
+    print(f"wrote {path} from {out['package']}", flush=True)
+
+
+def compare(path_a, path_b):
+    a, b = torch.load(path_a), torch.load(path_b)
+    result = {}
+    for key in sorted(k for k in a if isinstance(a[k], dict)):
+        if key not in b:
+            continue
+        row = {}
+        for f, x in a[key].items():
+            y = b[key][f]
+            if f == "work":
+                other = [c for c in range(x.shape[1]) if c != 3]
+                row["work_except_tri_tests_equal"] = torch.equal(
+                    x[:, other], y[:, other])
+                if x.shape[1] > 3:
+                    row["tri_tests_mean"] = [x[:, 3].double().mean().item(),
+                                             y[:, 3].double().mean().item()]
+                continue
+            if x.dtype.is_floating_point:
+                same = torch.equal(x, y)
+                row[f"{f}_equal"] = same
+                if not same:
+                    row[f"{f}_max_abs_diff"] = (
+                        (x - y).abs().max().item() if x.shape == y.shape
+                        else None)
+            else:
+                row[f"{f}_equal"] = torch.equal(x, y)
+        result[key] = row
+        print(f"{key}: {json.dumps(row)}", flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+def main(argv):
+    if len(argv) >= 2 and argv[0] == "dump":
+        if not torch.cuda.is_available():
+            print("no CUDA device", file=sys.stderr)
+            return 2
+        records = None
+        if len(argv) == 4 and argv[2] == "--records":
+            records = torch.load(argv[3])["K5/records"]
+        dump(argv[1], records)
+        return 0
+    if len(argv) == 3 and argv[0] == "compare":
+        return compare(argv[1], argv[2])
+    print(__doc__, file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

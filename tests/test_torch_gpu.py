@@ -18,7 +18,10 @@ bars; tests/test_megakernel.py's mesh bars for K1c against the engine;
 test_mega_checker_textures_parity's bars for K1b against the engine with
 its texture stack. The wavefront route's texture stack and the Whitted
 family's integrators are held to the same code on the CPU. K5 against
-photon_gather_plain: sums within 1e-5 relative, counts exact; K1d against
+photon_gather_plain: sums within 1e-5 relative, counts exact, and its
+counted launch (gather_apply's) equal to the flagged one; K1c's own mesh
+functions (the megakernel's tree walk, qr_mega_mesh_probe) equal to the
+in-order fold over the same rows on every ray; K1d against
 the engine with its exact gathers: test_mega_photon_gather_parity's and
 test_mega_photon_escalation_flags_dense_lanes's bars on caustics_scene
 (softdof with a glass middle sphere). K6 against adjoint_render_plain:
@@ -223,6 +226,43 @@ def test_k3_equals_plain(cuda):
                 assert torch.equal(a, b)
         occ = mesh_sweep.sweep_occluded(p, d, t_max, m.stream_c16, walk=walk)
         assert torch.equal(occ, stream_any_hit(p, d, t_max, plain))
+
+
+def test_k1c_probe_equals_fold(cuda):
+    """K1c's own mesh_closest and mesh_occluded (qr_mega_mesh_probe: the
+    megakernel's tree walk) on ico5 (20,480 triangles) against the plain
+    in-order fold over the same rows: (t, normal, front, material row,
+    occluded) equal on every one of 2^20 rays, half of them random around
+    the icosphere and half aimed exactly at its vertices; a third of them
+    with an analytic t equal to their mesh hit's, a third with a budget
+    equal to it."""
+    arr, meta = compile_scene(_ico_scene(5), device="cuda")
+    tabs = arr.kernel
+    n = 1 << 20
+    p, d, t_max = _mesh_rays(n // 2, 11)
+    corners = arr.mesh.tri_v.reshape(-1, 3)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    u = torch.randn((n // 2, 3), device="cuda", generator=gen)
+    c = torch.tensor([0.0, 50.0, 5.1], device="cuda")
+    pv = c + 24.0 * u / u.norm(dim=1, keepdim=True)
+    aim = corners[torch.randint(0, corners.shape[0], (n // 2,),
+                                device="cuda", generator=gen)]
+    dv = (aim - pv) / (aim - pv).norm(dim=1, keepdim=True)
+    p, d = torch.cat([p, pv]), torch.cat([d, dv])
+    big = torch.full((n,), 1e30, device="cuda")
+    t_m, row_m, _ = megakernel.mesh_fold_plain(tabs.mesh_rows, p, d, big,
+                                               big)
+    third = torch.arange(n, device="cuda") % 3
+    t_rand = torch.cat([t_max, t_max])
+    t_a = torch.where(third == 0, big, torch.where(third == 1, t_rand, t_m))
+    t_b = torch.where(third == 0, t_m, torch.where(third == 1, big, t_rand))
+    got = megakernel.mesh_probe(tabs, p, d, t_a, t_b)
+    want = megakernel.mesh_probe_plain(tabs.mesh_rows, tabs.mesh_attr, p, d,
+                                       t_a, t_b)
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and torch.equal(w, g)
+    assert int(((third == 2) & (row_m >= 0)).sum()) > 10000
+    assert 0 < int(got[4].sum()) < n
 
 
 def _row2_bar(want, got):
@@ -534,6 +574,31 @@ def test_k5_matches_plain(cuda, radius):
     assert (got[2][act == 0] == 0).all()
     if radius > 1.0:
         assert (got[2] > 100).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("radius", [0.2, 50.0])
+def test_k5_count_equals_flags(cuda, radius):
+    """K5 launched as gather_apply launches it, on queries with a record
+    first and their count in device memory, gives the sums and counts of
+    the launch that reads every query's flag, bit for bit, and visits no
+    cluster for a query without a record."""
+    arr, meta = _caustics((48, 36))
+    gmap, _ = _small_maps(arr, meta)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = 1 << 15
+    q = gmap.pos[torch.randint(0, 400, (n,), device="cuda", generator=gen)]
+    q = q + 0.1 * torch.randn(q.shape, device="cuda", generator=gen)
+    act = (torch.rand(n, device="cuda", generator=gen) > 0.9).float()
+    order = torch.argsort((act < 0.5).to(torch.int32), stable=True)
+    q, act = q[order].contiguous(), act[order].contiguous()
+    count = (act > 0.5).sum(dtype=torch.int32).reshape(1)
+    work = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+    got = photon.photon_gather(gmap.ctable, gmap.cbounds, radius, q, act,
+                               count=count, work=work)
+    want = photon.photon_gather(gmap.ctable, gmap.cbounds, radius, q, act)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert (work[act < 0.5] == 0).all() and (work[act > 0.5] > 0).any()
 
 
 @pytest.mark.parametrize("radius", [0.2, 50.0])

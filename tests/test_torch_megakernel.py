@@ -206,3 +206,84 @@ def test_kernel_source_without_pool_matches_pooled():
     for a, b in zip(*out):
         assert torch.equal(a, b)
     assert int(out[1][2][:, 7].sum()) > 0
+
+
+def _probe_rays(tri_v, n, seed):
+    """n rays at a mesh tri_v [F, 3, 3] from a sphere of three radii around
+    its box (the inner one inside it): half aimed at points of the box,
+    half exactly at its vertices, where triangles tie in t."""
+    rng = np.random.default_rng(seed)
+    corners = tri_v.reshape(-1, 3)
+    lo, hi = corners.min(0), corners.max(0)
+    c, r = (lo + hi) / 2, np.linalg.norm(hi - lo) / 2
+    u = rng.normal(size=(n, 3))
+    p = c + (r * rng.choice([0.3, 1.5, 3.0], n))[:, None] * u / np.linalg.norm(
+        u, axis=1, keepdims=True)
+    aim = np.where((np.arange(n) % 2 == 0)[:, None],
+                   rng.uniform(lo, hi, (n, 3)),
+                   corners[rng.integers(0, corners.shape[0], n)])
+    d = (aim - p) / np.linalg.norm(aim - p, axis=1, keepdims=True)
+    return (torch.tensor(p, dtype=torch.float32),
+            torch.tensor(d, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("mesh", ["mesh", "ico3"])
+def test_k1c_probe_source_on_the_host_matches_fold(mesh):
+    """K1c's own mesh_closest and mesh_occluded (csrc/mega_common.cuh: the
+    tree walk), compiled by g++ as the megakernel's qr_mega_mesh_probe
+    (megakernel.mesh_probe_host), against the plain in-order fold over
+    build_mega_mesh's rows (mesh_probe_plain), on 3,072 rays of mesh_scene
+    (320 triangles, 5 leaves of 64 rows) and of its icosphere at ico3
+    (1,280, 20 leaves): (t, normal, front, material row, occluded) bit for
+    bit. A third of the rays carry an analytic t equal to their mesh hit's,
+    which the analytic winner keeps; a third a budget equal to it, which
+    that hit does not occlude. The plain fold's winners are JAX's dense
+    sweep's over the same rows (qaray_tpu's stream_closest)."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    from qaray_tpu.ops import mesh_stream as jms
+    from qaray_tpu_torch.scene.procedural import icosphere, with_mesh
+
+    desc = load_scene("tests/assets/mesh_scene.xml")
+    if mesh == "ico3":
+        desc = with_mesh(desc, *icosphere(3))
+    arr, meta = compile_scene(desc, device="cpu")
+    tabs = arr.kernel
+    tri_v = arr.mesh.tri_v.numpy()
+    p, d = _probe_rays(tri_v, 3072, 7)
+    n = p.shape[0]
+    big = torch.full((n,), 1e30)
+    t_m, row_m, _ = megakernel.mesh_fold_plain(tabs.mesh_rows, p, d, big, big)
+    hit = row_m >= 0
+    third = torch.arange(n) % 3
+    rng = np.random.default_rng(8)
+    t_rand = torch.tensor(rng.uniform(0.0, 60.0, n), dtype=torch.float32)
+    t_a = torch.where(third == 0, big, torch.where(third == 1, t_rand, t_m))
+    t_max = torch.where(third == 0, t_m, torch.where(third == 1, big,
+                                                     t_rand))
+    want = megakernel.mesh_probe(tabs, p, d, t_a, t_max)  # the plain fold
+    work = torch.zeros((n, 2), dtype=torch.int32)
+    got = megakernel.mesh_probe_host(tabs, p, d, t_a, t_max, work=work)
+    for name, w, g in zip(("t", "normal", "front", "mrow", "occluded"), want,
+                          got):
+        assert w.dtype == g.dtype and torch.equal(w, g), name
+    ties = (third == 2) & hit
+    assert int(ties.sum()) > 200 and (got[3][ties] == -1).all()
+    assert int(((third == 1) & (got[3] >= 0)).sum()) > 100
+    assert 0 < int(got[4].sum()) < n
+    # The walk tests a fraction of the sweep's rows.
+    rows = tabs.mesh_rows.shape[0]
+    assert work[:, 0].double().mean() < 0.6 * rows
+    # The winners against the JAX package's dense sweep over the same rows,
+    # on the rays aimed into the box (at a vertex XLA's rounding decides
+    # which of the triangles that meet there is hit).
+    order = megakernel._morton_order(tri_v)
+    js = jms.build_stream(tri_v[order], chunk=megakernel.MEGA_CLUSTER)
+    t_j, row_j, _ = (np.asarray(a) for a in jms.stream_closest(
+        p.numpy(), d.numpy(), big.numpy(), js))
+    box = np.arange(n) % 2 == 0
+    same = row_j[box] == row_m.numpy()[box]
+    hit_box = hit.numpy()[box]
+    assert same.mean() > 0.999 and hit_box[same].sum() > 200
+    np.testing.assert_allclose(t_j[box][same & hit_box],
+                               t_m.numpy()[box][same & hit_box], rtol=1e-5)

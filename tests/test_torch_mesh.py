@@ -552,7 +552,8 @@ def test_mesh_scene_takes_the_megakernel_route():
     cfg = engine.IntegratorConfig(integrator="photonmap", max_bounce=2)
     assert engine.use_pathtrace_mega(meta, cfg)
     assert arr.kernel.mesh_rows.shape == (512, 16)
-    assert arr.kernel.mesh_cb.shape == (2, 8)
+    # K1c walks a tree of 64-row leaves: 8 leaves over the 512 rows.
+    assert arr.kernel.mesh_tree.shape == (16, 8)
     px, py, sid = (torch.tensor(a) for a in _lanes((8, 6), 1))
     rad, t0 = engine.render_batch(arr, meta, cfg, px, py, sid, (0, 3))
     rad_w, t0_w = engine.render_batch_wavefront(arr, meta, cfg, px, py, sid,

@@ -17,6 +17,7 @@ last bits, and refraction through the glass sphere and grazing hits on the
 """
 
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -181,6 +182,43 @@ def test_photon_gather_plain_matches_pallas_interpret(which):
         assert all((g == 0).all() for g in got)
     else:
         assert got[2].max() > 100  # the dense cube is over the cap
+
+
+@pytest.mark.parametrize("launch", ["flags", "count"])
+def test_k5_source_on_the_host_matches_plain(launch):
+    """csrc/photon.cu itself (K5: a warp a query), compiled by g++ against
+    csrc/host/cuda_runtime.h, whose blocks of 32 threads are warps
+    (photon_gather_host), against photon_gather_plain bit for bit: sums and
+    counts, on 1,000 photons at r 0.2 (half in the dense cube, where over
+    100 lie in a query's radius; elsewhere a few or none) and 2,000
+    queries, a fifth inactive. With
+    `flags` every query's active flag decides; with `count` the queries
+    with a record come first and only their count is passed, as
+    gather_apply launches it. The work counts clusters a query visited."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    _, tmap = both_maps(random_map(n=1000, radius=0.2, n_valid=1000))
+    q = torch.tensor(queries(2000, seed=4))
+    act = torch.tensor((np.random.RandomState(5).uniform(size=2000) > 0.2)
+                       .astype(np.float32))
+    count = None
+    if launch == "count":
+        order = torch.argsort((act < 0.5).to(torch.int32), stable=True)
+        q, act = q[order].contiguous(), act[order].contiguous()
+        count = (act > 0.5).sum(dtype=torch.int32).reshape(1)
+    want = tphoton.photon_gather_plain(tmap.ctable, tmap.cbounds,
+                                       tmap.radius, q, act)
+    work = torch.full((2000,), -1, dtype=torch.int32)
+    before = tphoton.launches["K5"]
+    got = tphoton.photon_gather_host(tmap.ctable, tmap.cbounds, tmap.radius,
+                                     q, act, count=count, work=work)
+    assert tphoton.launches["K5"] == before
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    assert got[2].max() > 100 and (got[2][act > 0.5] == 0).any()
+    n_c = tmap.cbounds.shape[0]
+    assert (work[act < 0.5] == 0).all()
+    assert (work[act > 0.5] > 0).any() and (work <= n_c).all()
 
 
 def test_gather_apply_matches_jax():
