@@ -6,7 +6,10 @@ Phases, each fatal on failure:
   1. build every kernel from csrc/ (one nvcc per source, in parallel);
   2. kernels against their plain versions:
        a. K2a, K2b, K2c on 1M random rays against the primitives of
-          tests/assets/softdof_scene.xml (tests/test_pallas.py bars);
+          tests/assets/softdof_scene.xml (tests/test_pallas.py bars), and
+          K2c on the same rays as views at a 4-byte offset and on their
+          first 1, 31, 65,537 and 1,000,001 (aligned and offset) equal to
+          K2c on all of them, bit for bit;
        b. K3's walk (ico5, 20,480 triangles) equal to stream_closest in
           (t, row, row2) on every ray of 1M random rays, of the same rays
           with t_cur a tenth of their budget (runner-ups beyond t_cur), of
@@ -77,7 +80,8 @@ Phases, each fatal on failure:
           max_bounce 5, threefry, on spot_scene.xml, mesh_scene.xml and the
           glass scene (softdof with its depth of field 0 and its middle
           sphere glass), each field within 3e-2 of its max|b|
-          (tests/test_grad.py's bar), the errors printed; and render_batch's
+          (tests/test_grad.py's bar), the errors printed, and a second
+          launch equal to the first, bit for bit; and render_batch's
           gradients on the megakernel route (K1a forward, the engine's
           autograd backward) against render_with_params';
   4. the main path at 800x600 with every launch count set to 0 before each
@@ -138,6 +142,13 @@ Phases, each fatal on failure:
      lane visits and for a warp's slowest lane; K6's mesh bound is counted
      the same way. K5 is timed as gather_apply launches it, with the warps
      launched and the clusters a query visits.
+     K2c at 1,048,576 and 65,536 rays with the sizes of its launches in
+     phase 4 and both instantiations' (pairs, one ray a thread)
+     registers, spills, shared memory and blocks an SM.
+     K6 also on spot_scene's full frame and the glass scene (480,000
+     lanes), with a warp's maximum against a lane's mean of its ciphers and
+     vertices, and both instantiations' registers, spills, shared memory
+     and blocks an SM (at the gate's largest tables too).
      K3 on ico5 and on mesh_scene (the shape of its launches), on rays in
      the order they come as the dense route walks them: clusters a ray and
      for the warp's slowest ray, and its bound from the clusters within
@@ -205,8 +216,8 @@ OPS_PER_PCLUSTER = 12
 # one glass sphere may touch).
 K1D_OFF_BAR = 1e-4
 # K6's bar against its plain version: tests/test_grad.py's 3e-2 of each
-# field's max|b| (the kernel's atomics sum in another order, and a lane
-# whose path differs by a last-bit flip moves a field's sum).
+# field's max|b| (the kernel sums in another order than autograd, and a
+# lane whose path differs by a last-bit flip moves a field's sum).
 K6_BAR = 3e-2
 MESH_SCENE = os.path.join(HERE, "tests", "assets", "mesh_scene.xml")
 MIRROR_SCENE = os.path.join(HERE, "tests", "assets", "mirror_scene.xml")
@@ -283,6 +294,15 @@ def max_sm_clock_hz():
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True, check=True)
     return float(out.stdout.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def blocks_per_sm(registers, threads, smem):
+    """Blocks of `threads` threads an H100 SM holds by their registers
+    (allocated 256 a warp, 65,536 an SM) and their shared memory (228 KB an
+    SM less 1 KB a block), at most 32 blocks and 2,048 threads."""
+    warp_regs = -(-registers * 32 // 256) * 256
+    by_regs = 65536 // (warp_regs * (threads // 32))
+    return min(by_regs, 233472 // (smem + 1024), 32, 2048 // threads)
 
 
 def check(cond, what):
@@ -770,6 +790,24 @@ def main():
     dis = (occ_k != occ_p).float().mean().item()
     check(dis < 0.005, f"K2c: occlusion disagreements {dis:.3g} < 0.005")
     numbers["K2c"] = {"max_abs_err": float(dis > 0), "disagree_frac": dis}
+    # The same rays as views at a 4-byte offset (which K2c takes one ray a
+    # thread) and heads that take one ray a thread or, at 1,000,001 (past
+    # 3 rays a thread of its grid on 132 SMs), pairs and a last ray: the
+    # same bits.
+    flat = [torch.empty(t.numel() + 1, device="cuda") for t in (p, d, t_max)]
+    for f, t in zip(flat, (p, d, t_max)):
+        f[1:].copy_(t.reshape(-1))
+    po, do, to = flat[0][1:].view(-1, 3), flat[1][1:].view(-1, 3), flat[2][1:]
+    check(torch.equal(analytic.shadow(po, do, to, prims), occ_k),
+          "K2c on p, d and t_max at a 4-byte offset equals K2c on the "
+          "aligned rays, bit for bit")
+    for n in (1, 31, 65537, 1000001):
+        got = analytic.shadow(p[:n], d[:n], t_max[:n], prims)
+        off = analytic.shadow(po[:n], do[:n], to[:n], prims)
+        check(torch.equal(got, occ_k[:n]) and torch.equal(off, got),
+              f"K2c on the first {n} rays (aligned and at a 4-byte offset) "
+              "equals K2c on all of them")
+    del flat, po, do, to
     torch.cuda.synchronize()
 
     print("phase 2b: mesh kernels vs plain: ico5 (K3) and ico6 (K4a/K4b), "
@@ -1245,6 +1283,9 @@ def main():
               f"K6 {what}: every field within {K6_BAR:g} of its max|b| "
               f"(worst {max(errs.values()):.3g})")
         k6_err = max(k6_err, (got - want).abs().max().item())
+        check(torch.equal(got, adjoint.adjoint_render(
+            g_arr, g_meta, cfg_g, gpx, gpy, gsid, (0, 3), ct)),
+            f"K6 {what}: a second launch gives the same bits")
     numbers["K6"] = {"max_abs_err": k6_err}
 
     print("phase 3f: render_batch's gradients on the megakernel route vs "
@@ -1330,6 +1371,19 @@ def main():
               and fb.count.max() <= param.spp_max,
               f"spp within {param.spp_min}..{param.spp_max}")
         return fb, wall, counts, r
+
+    # The sizes of K2c's launches over 4a-4m: a wavefront batch's hard
+    # shadow rays (one a lane), its soft-shadow rays (16 a lane) and their
+    # 48 more on escalation.
+    k2c_sizes = {}
+    shadow_fn = analytic.shadow
+
+    def shadow_sized(p_, d_, t_, prims_):
+        if p_.is_cuda and p_.shape[0]:
+            k2c_sizes[p_.shape[0]] = k2c_sizes.get(p_.shape[0], 0) + 1
+        return shadow_fn(p_, d_, t_, prims_)
+
+    analytic.shadow = shadow_sized
 
     escalated = [0]
     render_escalated = Renderer._render_escalated
@@ -1613,6 +1667,10 @@ def main():
                           "K3", "K4a", "K4b", "K5", "K6")}
     print(f"  launches on the main path (4a-4m): {json.dumps(launches)}",
           flush=True)
+    analytic.shadow = shadow_fn
+    print(f"  K2c's launches in phase 4 by rays (sum {sum(k2c_sizes.values())}"
+          "): " + ", ".join(f"{n} x {c}" for n, c in sorted(k2c_sizes.items())),
+          flush=True)
 
     # -- 5. timings at the path's shapes -------------------------------------
     print("phase 5: kernel times at the path's shapes", flush=True)
@@ -1669,10 +1727,8 @@ def main():
         """Registers and spills of the instantiation whose mangled name
         holds symbol, its shared memory at this scene's tables and cfg's
         soft-shadow window (none without a soft light, kind 0 ambient and
-        1 direct), and the blocks an SM holds by those registers
-        and that shared memory (128 threads a block; registers allocated
-        256 a warp, 65,536 an SM; 227 KB of shared memory a block, 228 KB
-        an SM less 1 KB a block; at most 16 blocks of 128 threads)."""
+        1 direct), and the blocks of 128 threads an SM holds by those
+        registers and that shared memory (blocks_per_sm)."""
         info = ptxas_info("megakernel", symbol)
         tab = arr.kernel
         smem = 4 * (meta_.num_analytic * 14 + tab.mtl.numel()
@@ -1681,8 +1737,7 @@ def main():
                    zip(meta_.light_kinds, meta_.light_soft))
         w = max(1, min(max(cfg.shadow_spp_max, cfg.shadow_spp), 64))
         smem += 4 * (9 * 128 + 3 + (w * 129 if soft else 0))
-        warp_regs = -(-info["registers"] * 32 // 256) * 256
-        blocks = min(65536 // warp_regs // 4, 233472 // (smem + 1024), 16)
+        blocks = blocks_per_sm(info["registers"], 128, smem)
         return dict(info, smem_bytes=smem, blocks_per_sm=blocks,
                     occupancy=blocks * 128 / 2048)
 
@@ -1927,6 +1982,33 @@ def main():
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              timed_by=src, wrapper_ms=cuda_ms(fn, 20),
                              rays=n, prim_tests=tests)
+        if name == "K2c":
+            # Its launches of one ray a lane (a batch's hard shadows), and
+            # the sizes of its launches on the main path.
+            n_tests = int(first[:n2].sum().item())
+            b2_ms, b2_by = bound(n2 * (28 + 1), n_tests * OPS_PER_TEST)
+            numbers[name]["at_65536"] = dict(
+                ms=kernel_ms(lambda: analytic.shadow(
+                    pk, dk, t_max[:n2], prims), kname, 20)[0],
+                bound_ms=b2_ms, bound_by=b2_by, prim_tests=n_tests)
+            numbers[name]["launch_sizes"] = {
+                str(k): v for k, v in sorted(k2c_sizes.items())}
+            # Both instantiations: pairs (this shape's) and one ray a
+            # thread (65,536 rays').
+            smem = 52 * num_p  # the table: 12 floats and a kind a primitive
+            inst = {}
+            for key, symbol in (("pairs", "shadow_kernelILb1E"),
+                                ("one_ray", "shadow_kernelILb0E")):
+                info = ptxas_info("analytic", symbol)
+                inst[key] = dict(info, blocks_per_sm=blocks_per_sm(
+                    info["registers"], 256, smem))
+            numbers[name].update(ptxas=inst, smem_bytes=smem)
+            k2 = numbers[name]
+            print(f"  K2c {n} rays: {k_ms:.5f} ms by {src}, bound "
+                  f"{b_ms:.5f} ms by {b_by} ({b_ms / k_ms:.3f} of it); "
+                  f"{n2} rays: {k2['at_65536']['ms']:.5f} ms, bound "
+                  f"{b2_ms:.5f}; {smem} bytes of shared memory; "
+                  f"{json.dumps(inst)}", flush=True)
     torch.cuda.synchronize()
 
     # K3 on ico5 and on mesh_scene's own 320 triangles (the shape of its
@@ -2093,11 +2175,20 @@ def main():
     torch.cuda.synchronize()
 
     # K6 at the gradient path's shapes of 4m (spot_scene 262,144 lanes;
-    # mesh_scene 131,072), on the mean loss's cotangent. The bound counts
-    # the replay's primitive tests, ciphers and triangle tests, and as
-    # bytes the lanes' ids and cotangents in and the gradient out (the
-    # hooks are the kernel's own scratch).
-    for what in ("spot", "mesh"):
+    # mesh_scene 131,072), on spot_scene's full frame and on the glass
+    # scene (480,000 lanes each, 800x600), on the mean loss's cotangent.
+    # The bound counts the replay's primitive tests, ciphers and triangle
+    # tests, and as bytes the lanes' ids and cotangents in and the
+    # gradient out (the hooks are the kernel's own scratch). Beside it a
+    # warp's maximum of the counters against a lane's mean (lanes in
+    # launch order, 32 to a warp).
+    ids_f = torch.arange(800 * 600, device="cuda", dtype=torch.int32)
+    s_arr, s_meta = g_path["spot"][:2]
+    g_path["spot_frame"] = (s_arr, s_meta, ids_f % 800, ids_f // 800)
+    g_path["glass"] = (*compile_scene(grad_desc("glass", 800, 600),
+                                      device="cuda"),
+                       ids_f % 800, ids_f // 800)
+    for what in ("spot", "mesh", "spot_frame", "glass"):
         g_arr, g_meta, gx, gy = g_path[what]
         n_l = gx.shape[0]
         gs = torch.zeros_like(gx)
@@ -2121,25 +2212,37 @@ def main():
         f32 = wsum[0] * OPS_PER_TEST + tri_need * OPS_PER_TRI
         b_ms, b_by = bound(nbytes, f32, wsum[1] * OPS_PER_CIPHER)
         b_old = bound(nbytes, f32 + wsum[1] * OPS_PER_CIPHER)[0]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        adjoint.adjoint_render_plain(g_arr, g_meta, cfg_gp, gx, gy, gs, rbg,
-                                     ct)
-        end.record()
-        end.synchronize()
-        row = dict(ms=ms, plain_ms=start.elapsed_time(end), bound_ms=b_ms,
-                   bound_by=b_by, bound_f32_rate_ms=b_old, timed_by=src,
-                   lanes=n_l, prim_tests=wsum[0], ciphers=wsum[1],
-                   vertices=wsum[2], tri_tests=wsum[3],
-                   tri_tests_needed=tri_need)
+        n_w = n_l - n_l % 32
+        wv = work[:n_w].view(-1, 32, 4).double()
+        gap = {f"{stat}_{name}": (wv[:, :, c].amax(1).mean() if stat ==
+                                  "warp_max" else wv[:, :, c].mean()).item()
+               for stat in ("warp_max", "lane_mean")
+               for name, c in (("ciphers", 1), ("vertices", 2))}
+        row = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                   bound_f32_rate_ms=b_old, timed_by=src, lanes=n_l,
+                   prim_tests=wsum[0], ciphers=wsum[1], vertices=wsum[2],
+                   tri_tests=wsum[3], tri_tests_needed=tri_need, **gap)
+        if what in ("spot", "mesh"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            adjoint.adjoint_render_plain(g_arr, g_meta, cfg_gp, gx, gy, gs,
+                                         rbg, ct)
+            end.record()
+            end.synchronize()
+            row["plain_ms"] = start.elapsed_time(end)
         if what == "spot":
             numbers["K6"].update(library_ms=None, **row)
         else:
-            numbers["K6"].update({f"mesh_{k}": v for k, v in row.items()})
+            numbers["K6"].update({f"{what}_{k}": v for k, v in row.items()})
         print(f"  K6 {what}, pathtrace {n_l} lanes: {ms:.4f} ms by {src}, "
-              f"bound {b_ms:.5f} ms by {b_by}, plain {row['plain_ms']:.3f} "
-              f"ms, {wsum[2]} vertices, {wsum[1]} ciphers", flush=True)
+              f"bound {b_ms:.5f} ms by {b_by}, plain "
+              f"{row.get('plain_ms', float('nan')):.3f} ms, {wsum[2]} "
+              f"vertices, {wsum[1]} ciphers; a warp's maximum against a "
+              f"lane's mean: ciphers {gap['warp_max_ciphers']:.2f} / "
+              f"{gap['lane_mean_ciphers']:.2f}, vertices "
+              f"{gap['warp_max_vertices']:.3f} / "
+              f"{gap['lane_mean_vertices']:.3f}", flush=True)
     # The device's idle share over three more steps of each route of 4m,
     # with the count of K1a and K6 records the profiler kept (it may drop
     # the last ones it traced; busy time is then read low).
@@ -2169,11 +2272,24 @@ def main():
               flush=True)
     numbers["K6"]["grad_path"] = {f"{w} {r}": v
                                   for (w, r), v in grad_cells.items()}
-    numbers["K6"].update(ptxas_info("adjoint", "adjoint_kernelILb0E"))
-    numbers["K6"]["mesh_ptxas"] = ptxas_info("adjoint",
-                                             "adjoint_kernelILb1E")
-    print(f"  K6 ptxas: {ptxas_info('adjoint', 'adjoint_kernelILb0E')}, "
-          f"with the mesh {numbers['K6']['mesh_ptxas']}", flush=True)
+    # Registers, spills, shared memory and blocks an SM of both
+    # instantiations, at spot_scene's, the glass scene's and mesh_scene's
+    # tables and at the gate's largest (8 material rows, 8 lights).
+    for key, symbol, what in (("ptxas", "adjoint_kernelILb0E", "spot"),
+                              ("mesh_ptxas", "adjoint_kernelILb1E", "mesh")):
+        info = ptxas_info("adjoint", symbol)
+        smem = {w: adjoint.block_smem_bytes(
+            g_path[w][1].num_analytic, g_path[w][1].num_materials,
+            g_path[w][1].num_lights)
+            for w in (what, "glass")[:1 if what == "mesh" else 2]}
+        smem["gate_max"] = adjoint.block_smem_bytes(
+            g_path[what][1].num_analytic, 8, 8)
+        info["smem_bytes"] = smem
+        info["blocks_per_sm"] = {w: blocks_per_sm(info["registers"],
+                                                  adjoint.THREADS, b)
+                                 for w, b in smem.items()}
+        numbers["K6"][key] = info
+        print(f"  K6 {symbol}: {json.dumps(info)}", flush=True)
     torch.cuda.synchronize()
 
     # Device busy share of one Renderer.render() at the 4a, 4c, 4d, 4g, 4e

@@ -29,11 +29,14 @@
 // stores nor scatters). Here the hooks go to a global scratch buffer
 // [hook][bounce][lane] (coalesced; per-thread arrays would spill to local
 // memory past the 128-register budget of a 128-thread block), and each
-// thread adds its terms to its block's [n_params] sums in shared memory
-// with atomicAdd; one partial row a block goes out and the wrapper sums the
-// rows (torch.sum, as the JAX package sums its partials in XLA). The
-// shared-memory atomics land in an order that changes from run to run, so
-// the last bits of the gradient do too.
+// thread adds its terms with plain adds to its own column of the block's
+// [n_params][128] sums in shared memory: no two threads touch one
+// address, so nothing waits on an atomic (with the sums as atomics on one
+// row, a warp whose lanes all missed added to the same 3 background sums
+// 32 deep). At the block's end a tree in a fixed order folds the columns
+// into one partial row a block, and the wrapper sums the rows (torch.sum,
+// as the JAX package sums its partials in XLA). Every sum has a fixed
+// order, so two launches on the same inputs give the same bits.
 //
 // What bounds it on the H100: operations, as K1a: the replay does K1a's
 // primitive tests, triangle tests and threefry ciphers (counted per lane in
@@ -53,7 +56,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kLogThreads = 7, kThreads = 1 << kLogThreads;
 constexpr int MAX_ROWS = 8, MAX_LIGHTS = 8;  // pallas_adjoint's gate
 // Parameter layout (pallas_adjoint.param_layout): 16 a material row
 // (diffuse 3, specular 3, emission 3, reflection 3, refraction 3,
@@ -99,11 +102,20 @@ struct Params {
   int* work;  // optional [n, 4]: prim tests, ciphers, vertices, tri tests
 };
 
-__device__ __forceinline__ void add3_to(float* g, V3 a) {
-  atomicAdd(g, a.x);
-  atomicAdd(g + 1, a.y);
-  atomicAdd(g + 2, a.z);
-}
+// A thread's gradient sums: its own column of the block's
+// [n_params][kThreads] array in shared memory, term k at col[k * kThreads],
+// added to with plain adds in the thread's program order.
+struct Sums {
+  float* col;
+  __device__ __forceinline__ void add(int k, float v) const {
+    col[k * kThreads] += v;
+  }
+  __device__ __forceinline__ void add3(int k, V3 a) const {
+    add(k, a.x);
+    add(k + 1, a.y);
+    add(k + 2, a.z);
+  }
+};
 
 // One bounce's hooks, at hk[h * stride] for hook h.
 __device__ __forceinline__ void store_hooks(float* hk, size_t stride, V3 e,
@@ -116,9 +128,9 @@ __device__ __forceinline__ void store_hooks(float* hk, size_t stride, V3 e,
 }
 
 // Replay of lane `lane`'s path (mega_kernel<false, false>'s pathtrace
-// branch) and its reverse sweep, adding into the block's sums g.
+// branch) and its reverse sweep, adding into the thread's sums g.
 template <class PT>
-__device__ void adjoint_lane(const PT& P, const Shared& S, float* g,
+__device__ void adjoint_lane(const PT& P, const Shared& S, const Sums& g,
                              int lane) {
   Work w{0, 0, 0, 0, 0, 0, 0};
   const int nb = P.max_bounce + 1;
@@ -153,7 +165,7 @@ __device__ void adjoint_lane(const PT& P, const Shared& S, float* g,
     if constexpr (PT::kMesh) mesh_closest(P, p, d, hit, &mesh_row, w);
     if (!(hit.t < QR_BIGFLOAT)) {
       // radiance += beta * (background at bounce 0, environment after).
-      add3_to(g + eb + (bounce == 0 ? 0 : 3), mul3(beta, ct));
+      g.add3(eb + (bounce == 0 ? 0 : 3), mul3(beta, ct));
       const V3 mc = load3(S.cam + (bounce == 0 ? CAM_BG : CAM_ENV));
       store_hooks(hb, stride, mul3(mc, ct), beta, zero, 0, 0.0f, 0.0f, 0.0f);
       break;
@@ -161,7 +173,7 @@ __device__ void adjoint_lane(const PT& P, const Shared& S, float* g,
     ++w.vertices;
     const int row = mesh_row >= 0 ? mesh_row : S.prim_mtl[hit.prim];
     const float* mrow = S.mtl + row * MTL_COLS;
-    float* gr = g + row * G_ROW;
+    const int gr = row * G_ROW;
     const V3 diffuse = load3(mrow + MT_DIFF), specular = load3(mrow + MT_SPEC),
              emit = load3(mrow + MT_EMIT), t_k = load3(mrow + MT_REFR),
              r_k = load3(mrow + MT_REFL);
@@ -239,16 +251,16 @@ __device__ void adjoint_lane(const PT& P, const Shared& S, float* g,
       const float wgt = P.light_norm * vf * cos_nl;
       const V3 dk = add3(diffuse, scale3(specular, sw));
       direct = add3(direct, scale3(mul3(inten, dk), wgt));
-      add3_to(g + lb + 3 * li, scale3(mul3(fac, dk), wgt));
+      g.add3(lb + 3 * li, scale3(mul3(fac, dk), wgt));
       const V3 base = scale3(mul3(fac, inten), wgt);
       gd = add3(gd, base);
       gs = add3(gs, scale3(base, sw));
       gl = gl + dot3(base, specular) * sw * ln_nh;
     }
-    add3_to(gr + G_DIFF, gd);
-    add3_to(gr + G_SPEC, gs);
-    add3_to(gr + G_EMIT, fac);
-    atomicAdd(gr + G_GLOSS, gl);
+    g.add3(gr + G_DIFF, gd);
+    g.add3(gr + G_SPEC, gs);
+    g.add3(gr + G_EMIT, fac);
+    g.add(gr + G_GLOSS, gl);
     const V3 e = mul3(add3(emit, direct), ct);
 
     const bool go_spec = sel_spec && front;
@@ -335,17 +347,17 @@ __device__ void adjoint_lane(const PT& P, const Shared& S, float* g,
                        hb[(H_BETA + 2) * stride]};
       const V3 ctw = mul3(bj, a);
       const float ca = hb[H_CA * stride];
-      float* gr = g + (code / 8) * G_ROW;
+      const int gr = (code / 8) * G_ROW;
       if (lobe == 1) {
-        add3_to(gr + G_REFR, scale3(ctw, ca));
+        g.add3(gr + G_REFR, scale3(ctw, ca));
       } else if (lobe == 2) {
-        add3_to(gr + G_REFR, scale3(ctw, ca));
-        add3_to(gr + G_REFL, scale3(ctw, hb[H_CB * stride]));
+        g.add3(gr + G_REFR, scale3(ctw, ca));
+        g.add3(gr + G_REFL, scale3(ctw, hb[H_CB * stride]));
       } else if (lobe == 3) {
-        add3_to(gr + G_SPEC, scale3(ctw, ca));
-        atomicAdd(gr + G_GLOSS, dot3(ctw, wj) * hb[H_LN * stride]);
+        g.add3(gr + G_SPEC, scale3(ctw, ca));
+        g.add(gr + G_GLOSS, dot3(ctw, wj) * hb[H_LN * stride]);
       } else {
-        add3_to(gr + G_DIFF, scale3(ctw, ca));
+        g.add3(gr + G_DIFF, scale3(ctw, ca));
       }
     }
     a = add3(e, mul3(wj, a));
@@ -360,20 +372,34 @@ __device__ void adjoint_lane(const PT& P, const Shared& S, float* g,
   }
 }
 
+// Without the mesh 4 blocks an SM hold their registers; the mesh's walk
+// takes more registers, and at 128 (4 blocks) it spills more than at 3.
 template <bool kMesh>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMesh ? 3 : 4)
     adjoint_kernel(const WithMesh<Params, kMesh> P) {
   QR_SHARED_FLOATS(smem);
-  float* g = smem;  // the block's [n_params] sums, then the scene tables
-  for (int i = threadIdx.x; i < P.n_params; i += blockDim.x) g[i] = 0.0f;
-  const Shared S = stage_tables(P, MTL_COLS, smem + P.n_params);
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < P.n) adjoint_lane(P, S, g, lane);
+  // The block's [n_params][kThreads] sums, then the scene tables. Thread t
+  // owns column t (the host build's blocks of one thread use column 0).
+  float* sums = smem;
+  const int t = threadIdx.x, nt = blockDim.x;
+  for (int i = t; i < P.n_params * kThreads; i += nt) sums[i] = 0.0f;
+  const Shared S =
+      stage_tables(P, MTL_COLS, smem + P.n_params * kThreads);
+  const int lane = blockIdx.x * nt + t;
+  if (lane < P.n) adjoint_lane(P, S, Sums{sums + t}, lane);
   __syncthreads();
-  // One row a block (the host build runs each lane as a block of its own
-  // and folds them onto the rows).
+  // The columns fold in a fixed order, a tree: column c + m onto column c
+  // for m = 64, 32, ..., 1. Then one row a block (the host build, one lane
+  // a block by default, folds its blocks onto the rows in lane order).
+  for (int s = kLogThreads - 1; s >= 0; --s) {
+    for (int i = t; i < P.n_params << s; i += nt) {
+      float* c = sums + (i >> s) * kThreads + (i & ((1 << s) - 1));
+      c[0] += c[1 << s];
+    }
+    __syncthreads();
+  }
   float* out = P.out + (size_t)(blockIdx.x % P.n_rows) * P.n_params;
-  for (int i = threadIdx.x; i < P.n_params; i += blockDim.x) out[i] += g[i];
+  for (int k = t; k < P.n_params; k += nt) out[k] += sums[k * kThreads];
 }
 
 // The instantiation with the world mesh compiled in or out.
@@ -390,11 +416,20 @@ int launch(const Params& P, size_t smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// Bytes of a block's shared memory: kThreads columns of the n_params
+// sums, then the scene tables.
+size_t block_smem(int num_prims, int num_mtls, int num_lights) {
+  return 4 * (size_t)kThreads * (G_ROW * num_mtls + 3 * num_lights + 6) +
+         table_bytes(num_prims, num_mtls, MTL_COLS, num_lights);
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes): launches on `stream`, returns
 // cudaGetLastError(). n > 0 is the caller's job; out is [n_rows, n_params]
-// with n_rows = ceil(n / 128), zeroed; hooks [13, max_bounce + 1, n].
+// with n_rows = ceil(n / 128), zeroed; hooks [13, max_bounce + 1, n]. The
+// sums have a fixed order: two launches on the same inputs give the same
+// bits.
 extern "C" int qr_adjoint_render(
     const int* px, const int* py, const int* sid, int n, const float* prim,
     const int* kinds, const int* prim_mtl, int num_prims, const float* mtl,
@@ -415,8 +450,14 @@ extern "C" int qr_adjoint_render(
            reinterpret_cast<const float4*>(mrows),
            reinterpret_cast<const float4*>(mattr), mtree, n_leaves,
            leaf_rows, ct, hooks, out, n_rows, n_params, work};
-  const size_t smem = 4 * (size_t)n_params +
-                      table_bytes(num_prims, num_mtls, MTL_COLS, num_lights);
+  const size_t smem = block_smem(num_prims, num_mtls, num_lights);
   return n_leaves > 0 ? launch<true>(P, smem, stream)
                       : launch<false>(P, smem, stream);
+}
+
+// Bytes of a block's shared memory (ops/adjoint.block_smem_bytes, which the
+// CPU tests hold to this).
+extern "C" int qr_adjoint_smem_bytes(int num_prims, int num_mtls,
+                                     int num_lights) {
+  return (int)block_smem(num_prims, num_mtls, num_lights);
 }

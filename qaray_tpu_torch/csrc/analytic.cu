@@ -14,10 +14,39 @@
 // one thread per ray, the primitive table staged once per block in shared
 // memory, the per-primitive branch on the table's kind (uniform across a
 // warp), and the shadow test stops at the first occluder.
+//
+// K2c, the wavefront routes' most launched kernel (a batch's soft-shadow
+// rays, 29 bytes a ray), is bound by the instructions it issues and their
+// latency more than by its bytes: without FMA contraction a sphere test is
+// some 80 instructions with its IEEE division and square root, a chain a
+// thread waits on, and the table's row is 13 loads from shared memory.
+// Staging rays through shared memory (bulk copies, cp.async) only adds
+// instructions. The design: a launch of up to a few rays a thread of a
+// persistent grid of 8 blocks an SM takes one ray a thread, a block per
+// 256 rays, as the other kernels do (a persistent grid or pairs lost to it
+// there). Past that, aligned rays go in pairs on that grid, in an
+// instantiation of its own (its registers would cost the one-ray code
+// blocks an SM): each block stages the table once, and a thread's two
+// consecutive rays arrive as 7 float2 loads straight into registers, are
+// tested together against each primitive (its row read once as three
+// float4, two independent chains) and leave as one 2-byte store. Views at a
+// 4-byte offset go one ray a thread; nothing is read past n.
+// tools/k2c_layout.py times these choices.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "analytic.cuh"
+
+// K2c's launch and its shared memory go through macros that
+// csrc/host/cuda_runtime.h defines otherwise, so that the CPU tests can
+// compile this source with g++ and run K2c on the CPU
+// (ops/analytic.shadow_host). K2a and K2b stay out of that build.
+#ifndef QR_LAUNCH
+#define QR_DEVICE_BUILD 1
+#define QR_SHARED_FLOATS(name) extern __shared__ __align__(16) float name[]
+#define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg) \
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(arg)
+#endif
 
 namespace {
 
@@ -34,6 +63,7 @@ __device__ __forceinline__ void stage_prims(const float* prim, const int* kinds,
   __syncthreads();
 }
 
+#ifdef QR_DEVICE_BUILD
 __global__ void closest_kernel(const float* __restrict__ p,
                                const float* __restrict__ d, int n,
                                const float* __restrict__ prim,
@@ -84,24 +114,102 @@ __global__ void closest_full_kernel(
   hp_out[3 * i + 1] = pi.y + te * di.y;
   hp_out[3 * i + 2] = pi.z + te * di.z;
 }
+#endif
 
-__global__ void shadow_kernel(const float* __restrict__ p,
-                              const float* __restrict__ d,
-                              const float* __restrict__ t_max, int n,
-                              const float* __restrict__ prim,
-                              const int* __restrict__ kinds, int num_prims,
-                              uint8_t* __restrict__ occ_out) {
-  extern __shared__ float smem[];
-  float* s_prim = smem;
-  int* s_kind = reinterpret_cast<int*>(smem + num_prims * QR_PRIM_COLS);
-  stage_prims(prim, kinds, num_prims, s_prim, s_kind);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// K2c.
+constexpr int kBlocksPerSM = 8;  // the pairs' persistent grid
+// Aligned rays go in pairs once there are more than kPairsFrom rays a
+// thread of that grid (tools/k2c_layout.py).
+constexpr int kPairsFrom = 3;
+
+struct ShadowParams {
+  const float* p;
+  const float* d;
+  const float* t_max;
+  int n;
+  const float* prim;
+  const int* kinds;
+  int num_prims;
+  uint8_t* occ;
+};
+
+// occluded() for two rays at once, over the table staged by stage_prims,
+// whose 12-float rows are read as three float4 once for both rays: their
+// tests of a primitive are independent, so they interleave. A ray's answer
+// is occluded()'s (some primitive has t < t_max), by the same arithmetic;
+// the rays go on together until both are occluded or the table ends.
+// Returns byte j of the result for ray j.
+__device__ __forceinline__ uint16_t occluded_pair(const float4* rows,
+                                                  const int* kinds,
+                                                  int num_prims,
+                                                  const float* pf,
+                                                  const float* df,
+                                                  const float* tf) {
+  bool occ[2] = {false, false};
+  for (int k = 0; k < num_prims; ++k) {
+    const float4 a = rows[3 * k], b = rows[3 * k + 1], c = rows[3 * k + 2];
+    const float pr[QR_PRIM_COLS] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                                    b.z, b.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      V3 po, dobj;
+      obj_ray(pr, V3{pf[3 * j], pf[3 * j + 1], pf[3 * j + 2]},
+              V3{df[3 * j], df[3 * j + 1], df[3 * j + 2]}, po, dobj);
+      occ[j] = occ[j] | (prim_t(kinds[k], po, dobj) < tf[j]);
+    }
+    if (occ[0] && occ[1]) break;
+  }
+  return (uint16_t)((occ[0] ? 1u : 0u) | (occ[1] ? 256u : 0u));
+}
+
+// kPairs: a persistent grid whose threads take the rays in pairs (p, d,
+// t_max aligned for float2, occ for 2 bytes: 7 float2 loads and one 2-byte
+// store a pair), thread 0 the last ray of an odd count. Else one ray a
+// thread, a block per 256 rays, as the other kernels take them (the pairs'
+// registers would cost this code blocks an SM).
+template <bool kPairs>
+__global__ void __launch_bounds__(kThreads)
+    shadow_kernel(const ShadowParams P) {
+  QR_SHARED_FLOATS(tab);
+  int* s_kind = reinterpret_cast<int*>(tab + P.num_prims * QR_PRIM_COLS);
+  stage_prims(P.prim, P.kinds, P.num_prims, tab, s_kind);
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
   int tests = 0;
-  occ_out[i] = occluded(s_prim, s_kind, num_prims, load3(p + 3 * i),
-                        load3(d + 3 * i), t_max[i], &tests)
-                   ? 1
-                   : 0;
+  if constexpr (kPairs) {
+    const float4* rows = reinterpret_cast<const float4*>(tab);
+    const float2* pv = reinterpret_cast<const float2*>(P.p);
+    const float2* dv = reinterpret_cast<const float2*>(P.d);
+    const float2* tv = reinterpret_cast<const float2*>(P.t_max);
+    const int pairs = P.n / 2;
+    for (int g = first; g < pairs; g += gridDim.x * blockDim.x) {
+      float pf[6], df[6];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float2 pj = pv[3 * (size_t)g + j], dj = dv[3 * (size_t)g + j];
+        pf[2 * j] = pj.x;
+        pf[2 * j + 1] = pj.y;
+        df[2 * j] = dj.x;
+        df[2 * j + 1] = dj.y;
+      }
+      const float2 t2 = tv[g];
+      const float tf[2] = {t2.x, t2.y};
+      reinterpret_cast<uint16_t*>(P.occ)[g] =
+          occluded_pair(rows, s_kind, P.num_prims, pf, df, tf);
+    }
+    const int last = P.n - 1;
+    if (first == 0 && (P.n & 1))
+      P.occ[last] = occluded(tab, s_kind, P.num_prims,
+                             load3(P.p + 3 * (size_t)last),
+                             load3(P.d + 3 * (size_t)last), P.t_max[last],
+                             &tests)
+                        ? 1
+                        : 0;
+  } else if (first < P.n) {
+    P.occ[first] = occluded(tab, s_kind, P.num_prims, load3(P.p + 3 * first),
+                            load3(P.d + 3 * first), P.t_max[first], &tests)
+                       ? 1
+                       : 0;
+  }
 }
 
 template <typename K>
@@ -117,6 +225,7 @@ int launch_config(K kernel, int num_prims, size_t* smem) {
 
 // C entry points (bound with ctypes). Each launches on `stream` and returns
 // cudaGetLastError(); n > 0 is the caller's job.
+#ifdef QR_DEVICE_BUILD
 extern "C" int qr_closest(const float* p, const float* d, int n,
                           const float* prim, const int* kinds, int num_prims,
                           float* t_out, int* idx_out, void* stream) {
@@ -145,15 +254,35 @@ extern "C" int qr_closest_full(const float* p, const float* d, int n,
                                                 front_out, mtl_out, hp_out);
   return (int)cudaGetLastError();
 }
+#endif
 
+// K2c: one ray a thread, or past kPairsFrom rays a thread of a grid of
+// kBlocksPerSM blocks of 256 threads an SM aligned rays in pairs on that
+// grid. p and d [n, 3], t_max [n] and occ_out [n] are contiguous at any
+// 4-byte alignment.
 extern "C" int qr_shadow(const float* p, const float* d, const float* t_max,
                          int n, const float* prim, const int* kinds,
                          int num_prims, uint8_t* occ_out, void* stream) {
-  size_t smem;
-  int rc = launch_config(shadow_kernel, num_prims, &smem);
+  int dev = 0, sms = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (!rc)
+    rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
   if (rc) return rc;
-  shadow_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem,
-                  (cudaStream_t)stream>>>(p, d, t_max, n, prim, kinds,
-                                          num_prims, occ_out);
+  auto aligned = [](const void* q, unsigned b) {
+    return ((uintptr_t)q & (b - 1)) == 0;
+  };
+  const int grid = sms * kBlocksPerSM;
+  const bool pairs = (size_t)n > (size_t)kPairsFrom * grid * kThreads &&
+                     aligned(p, 8) && aligned(d, 8) && aligned(t_max, 8) &&
+                     aligned(occ_out, 2);
+  const int blocks = pairs ? grid : (n + kThreads - 1) / kThreads;
+  const ShadowParams P{p, d, t_max, n, prim, kinds, num_prims, occ_out};
+  void (*const kernel)(const ShadowParams) =
+      pairs ? shadow_kernel<true> : shadow_kernel<false>;
+  size_t smem;
+  rc = launch_config(kernel, num_prims, &smem);
+  if (rc) return rc;
+  QR_LAUNCH(kernel, blocks, kThreads, smem, stream, P);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
 // compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu,
-// photon.cu) as C++ and run them on the CPU (ops/_build.load_host). The
-// CPU tests use it to hold a source's arithmetic to the plain PyTorch
-// version where there is no card and no nvcc. It says nothing about what
-// nvcc accepts or how fast the kernel is.
+// photon.cu, analytic.cu's K2c) as C++ and run them on the CPU
+// (ops/_build.load_host). The CPU tests use it to hold a source's
+// arithmetic to the plain PyTorch version where there is no card and no
+// nvcc. It says nothing about what nvcc accepts or how fast the kernel is.
 //
 // A launch runs its grid in host blocks of qr_host_set_block threads (1 by
 // default), one block after another. A block of one thread runs on the
@@ -37,11 +37,14 @@
 struct float4 {
   float x, y, z, w;
 };
+struct float2 {
+  float x, y;
+};
 struct dim3 {
   unsigned x, y, z;
 };
 static thread_local dim3 threadIdx, blockIdx;
-static dim3 blockDim;
+static dim3 blockDim, gridDim;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -90,6 +93,18 @@ static thread_local unsigned qr_host_sum_calls = 0;
 extern "C" int qr_host_set_block(int threads) {
   if (threads < 1) return cudaErrorInvalidValue;
   qr_host_block = (unsigned)threads;
+  return cudaSuccess;
+}
+
+// The host is one device of one SM.
+enum { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline int cudaDeviceGetAttribute(int* value, int attr, int) {
+  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *value = 1;
   return cudaSuccess;
 }
 
@@ -162,7 +177,7 @@ inline int min(int a, int b) { return a < b ? a : b; }
 
 // A block's dynamic shared memory: the card's 227 KB.
 #define QR_HOST_SMEM_FLOATS (227 * 256)
-#define QR_SHARED_FLOATS(name) static float name[QR_HOST_SMEM_FLOATS]
+#define QR_SHARED_FLOATS(name) alignas(16) static float name[QR_HOST_SMEM_FLOATS]
 
 // Runs kernel(arg) over `blocks` blocks of `threads` card threads, as
 // blocks of qr_host_block host threads.
@@ -176,6 +191,7 @@ void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
   const unsigned nb = qr_host_block;
   const unsigned total = blocks * threads;
   blockDim.x = nb;
+  gridDim.x = (total + nb - 1) / nb;
   for (unsigned b = 0; b < (total + nb - 1) / nb; ++b) {
     if (nb == 1) {
       blockIdx.x = b;

@@ -24,6 +24,7 @@ from qaray_tpu_torch.ops.megakernel import _check_lanes, mesh_args
 launches = {"K6": 0}
 
 THREADS = 128  # lanes a block (csrc/adjoint.cu kThreads)
+SMEM_LIMIT = 227 * 1024  # a block's shared memory at most, on the H100
 NUM_HOOKS = 13  # floats a lane a bounce of the reverse sweep's scratch
 # Lanes a batch of the plain version's autograd.
 PLAIN_BATCH = 65536
@@ -39,11 +40,23 @@ def param_layout(num_materials: int, num_lights: int) -> int:
     return num_materials * 16 + num_lights * 3 + 6
 
 
+def block_smem_bytes(num_prims: int, num_materials: int,
+                     num_lights: int) -> int:
+    """Shared memory of a K6 block (csrc/adjoint.cu block_smem, which
+    qr_adjoint_smem_bytes returns): THREADS columns of the param_layout
+    sums, then the scene tables (mega_common.cuh table_bytes: 14 floats a
+    primitive, 22 a material row, 14 a light, 25 of the camera)."""
+    n_params = param_layout(num_materials, num_lights)
+    return 4 * (THREADS * n_params + num_prims * 14 + num_materials * 22
+                + num_lights * 14 + 25)
+
+
 def adjoint_supported(meta, cfg) -> bool:
     """pallas_adjoint.adjoint_supported: pathtrace without photon maps on
     analytic scenes, with at most a megakernel mesh in the per-cluster
     layout, untextured, without a depth of field, with at most 8 material
-    rows and 8 lights."""
+    rows and 8 lights; and, for the card, a K6 block's shared memory
+    within SMEM_LIMIT (at 8 rows and 8 lights up to 2,683 primitives)."""
     return (
         cfg.integrator == "pathtrace"
         and not cfg.use_photon_map
@@ -57,6 +70,8 @@ def adjoint_supported(meta, cfg) -> bool:
         and not meta.has_dof
         and meta.num_materials <= 8
         and meta.num_lights <= 8
+        and block_smem_bytes(meta.num_analytic, meta.num_materials,
+                             meta.num_lights) <= SMEM_LIMIT
     )
 
 
@@ -69,6 +84,10 @@ def _kernel(host: bool = False):
         lib = (_build.load_host if host else _build.load)("adjoint")
         _fns[host] = _build.bind(lib, "qr_adjoint_render",
                                  "pppipppipipppifpuuiiiipppiipppiipp")
+        if host:
+            _fns["host_block"] = _build.bind(lib, "qr_host_set_block", "i")
+            _fns["host_smem"] = _build.bind(lib, "qr_adjoint_smem_bytes",
+                                            "iii")
     return _fns[host]
 
 
@@ -130,16 +149,25 @@ def adjoint_render(scene, meta, cfg, px, py, sample_ids, key_words, ct,
 
 
 def adjoint_render_host(scene, meta, cfg, px, py, sample_ids, key_words, ct,
-                        work=None):
-    """adjoint_render's kernel source run on the CPU, one lane at a time,
-    on CPU tensors (_build.load_host). For tests without a card: it holds
-    the source's arithmetic to the plain version; no entry point calls it
-    and it counts no launch."""
+                        work=None, block=1):
+    """adjoint_render's kernel source run on the CPU on CPU tensors
+    (_build.load_host), in blocks of `block` threads (one std::thread
+    each, sharing the block's shared memory and barriers; 128 sums in the
+    card's order, 1 one lane at a time). For tests without a card: it
+    holds the source's arithmetic to the plain version; no entry point
+    calls it and it counts no launch."""
     _check_lanes(px, py, sample_ids)
     if px.device.type != "cpu":
         raise ValueError("adjoint_render_host takes CPU tensors")
-    return _launch(_kernel(host=True), None, scene, meta, cfg, px, py,
-                   sample_ids, key_words, ct, work)
+    fn = _kernel(host=True)
+    from qaray_tpu_torch.ops import _build
+
+    _build.check(_fns["host_block"](block), "host block size")
+    try:
+        return _launch(fn, None, scene, meta, cfg, px, py, sample_ids,
+                       key_words, ct, work)
+    finally:
+        _fns["host_block"](1)
 
 
 def _launch(fn, stream, scene, meta, cfg, px, py, sample_ids, key_words, ct,

@@ -10,6 +10,7 @@ csrc/analytic.cu:
 A wrapper runs the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; it never falls back from one to the other.
 `launches` counts kernel launches, one per call that launched.
+shadow_host runs K2c's source on the CPU under g++, for tests.
 
 closest and closest_full are differentiable, as the JAX package's
 closest_analytic_pallas and closest_analytic_full_pallas custom_vjp are:
@@ -44,6 +45,20 @@ def _lib():
         _fns["shadow"] = _build.bind(lib, "qr_shadow", "pppippipp")
         _fns["check"] = _build.check
     return _fns
+
+
+_host = {}
+
+
+def _host_lib():
+    """K2c's source built for the CPU (_build.load_host; tests only)."""
+    if not _host:
+        from qaray_tpu_torch.ops import _build
+
+        lib = _build.load_host("analytic")
+        _host["shadow"] = _build.bind(lib, "qr_shadow", "pppippipp")
+        _host["block"] = _build.bind(lib, "qr_host_set_block", "i")
+    return _host
 
 
 def _check_rays(p, d, prims: AnalyticPrims, t_max=None):
@@ -287,4 +302,35 @@ def shadow(p, d, t_max, prims: AnalyticPrims):
                            _ptr(kinds), tab.shape[0], _ptr(occ), _stream()),
                "K2c shadow")
     launches["K2c"] += 1
+    return occ
+
+
+def shadow_host(p, d, t_max, prims: AnalyticPrims, block=1):
+    """K2c's kernel source run on the CPU on CPU tensors (_build.load_host),
+    in host blocks of `block` threads (one std::thread each, sharing shared
+    memory and barriers; with 256 a host block is a card block). The host
+    stands in for a card of one SM: the persistent grid is 8 blocks of 256
+    threads, whose threads take aligned rays in pairs past a few rays
+    each. For tests without a card: no entry point calls it and it counts
+    no launch."""
+    _check_rays(p, d, prims, t_max)
+    if p.device.type != "cpu":
+        raise ValueError("shadow_host takes CPU tensors")
+    n = p.shape[0]
+    occ = torch.zeros(n, dtype=torch.bool)
+    if n == 0:
+        return occ
+    tab, kinds = prims.table, prims.kind
+    p, d, t_max = p.contiguous(), d.contiguous(), t_max.contiguous()
+    f = _host_lib()
+    from qaray_tpu_torch.ops import _build
+
+    _build.check(f["block"](block), "host block size")
+    try:
+        _build.check(f["shadow"](_ptr(p), _ptr(d), _ptr(t_max), n,
+                                 _ptr(tab), _ptr(kinds), tab.shape[0],
+                                 _ptr(occ), None),
+                     "K2c shadow (host)")
+    finally:
+        f["block"](1)
     return occ

@@ -9,12 +9,21 @@ shapes, for comparing two trees in one call:
   them;
 - K5 in that photonmap launch (its records through ops/photon.gather_apply);
 - K6 on mesh_scene at the gradient path's shape (131,072 lanes, the mean
-  loss's cotangent);
+  loss's cotangent), on spot_scene at that shape (262,144 lanes) and on
+  its full 800x600 frame (480,000), and on the glass scene (softdof with
+  its middle sphere glass and no depth of field, 480,000 lanes; its soft
+  light);
+- K2c on 1,048,576 random rays against softdof's primitives (a wavefront
+  batch's 16 soft-shadow rays a lane, chip_smoke.py phase 5's shape) and
+  on the first 5,008 to 3,145,728 of such rays (K2C_SIZES: the sizes of
+  its launches on the main path);
 - K3 on the camera rays of mesh_scene and of ico5, K4a and K4b on those of
   ico6 (coherence-sorted, as the tiled route walks them; K4b on rays from
   their hit points towards the point (10, 80, 60), budget its distance).
 
-    python -m qaray_tpu_torch.tools.kernel_times
+    python -m qaray_tpu_torch.tools.kernel_times [GROUP ...]
+
+GROUP is any of K1 (K1a-K1d and K5), K6, K2c, K3, K4 (default: all).
 
 Each time is torch.profiler's device time of the kernel, the mean over 20
 launches after one that is not counted. The script reaches the package
@@ -55,14 +64,48 @@ def device_ms(fn, kernel, reps=20):
     return total / count / 1e3
 
 
-def main():
+def shadow_rays(n, seed=0):
+    """n of chip_smoke.py phase 2a's random rays: p in [-30, 30]^3, unit d,
+    t_max in [1, 60], from a seeded CUDA generator."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.rand((n, 3), device="cuda", generator=gen) * 60.0 - 30.0
+    d = torch.randn((n, 3), device="cuda", generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    t_max = torch.rand(n, device="cuda", generator=gen) * 59.0 + 1.0
+    return p, d, t_max
+
+
+def glass_desc(desc):
+    """The gradient path's glass scene: softdof with its middle sphere
+    glass and no depth of field (chip_smoke.py phase 3f)."""
+    from qaray_tpu_torch.scene.procedural import with_glass
+
+    desc = with_glass(desc, "mid")
+    desc.camera.depth_of_field = 0.0
+    return desc
+
+
+GROUPS = ("K1", "K6", "K2c", "K3", "K4")
+# K2c's sizes: those of its launches on the main path (chip_smoke.py phase
+# 4), from the photon paths' 5,008 to a batch's 3,145,728 escalated
+# soft-shadow rays, and a batch's 65,536 hard shadow rays.
+K2C_SIZES = (5008, 30624, 60572, 65536, 131072, 262144, 480000, 605720,
+             1048576, 3145728)
+
+
+def main(argv=()):
+    want = set(argv) or set(GROUPS)
+    if not want <= set(GROUPS):
+        print(__doc__, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     import qaray_tpu_torch
     from qaray_tpu_torch.integrators import engine
     from qaray_tpu_torch.integrators.engine import IntegratorConfig
-    from qaray_tpu_torch.ops import adjoint, megakernel, mesh_sweep, photon
+    from qaray_tpu_torch.ops import adjoint, analytic, megakernel
+    from qaray_tpu_torch.ops import mesh_sweep, photon
     from qaray_tpu_torch.ops import tiles
     from qaray_tpu_torch.ops.mesh_tiles import TiledMesh, coherence_order
     from qaray_tpu_torch.core.rng import key_words
@@ -104,38 +147,57 @@ def main():
         if megakernel.launches[name] == before:
             raise SystemExit(f"no {name} launch")
 
-    mega("K1a", *scene("softdof_scene.xml"))
-    mega("K1b", *scene("texture_scene.xml"))
-    mesh_arr, mesh_meta = scene("mesh_scene.xml")
-    mega("K1c", mesh_arr, mesh_meta)
-    mega("K1c", *scene("mesh_scene.xml",
-                       lambda d: with_mesh(d, *icosphere(5), name="ico5")))
-    c_arr, c_meta = scene("softdof_scene.xml",
-                          lambda d: with_glass(d, "mid"))
-    p_photon = RendererParam(use_photon_map=True)
-    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
-        maps = tuple(cluster_photon_map(m) for m in build_photon_maps(
-            c_arr, c_meta, p_photon))
-    cfg_ph = Renderer(p_photon, device="cuda").integrator_config()
-    mega("K1d", c_arr, c_meta, cfg_ph, maps)
-    out["K5"] = device_ms(lambda: megakernel.mega_render(
-        c_arr, c_meta, cfg_ph, px, py, sid, rbg, photon_maps=maps),
-        "gather_kernel")
+    if "K1" in want:
+        mega("K1a", *scene("softdof_scene.xml"))
+        mega("K1b", *scene("texture_scene.xml"))
+        mega("K1c", *scene("mesh_scene.xml"))
+        mega("K1c", *scene("mesh_scene.xml", lambda d: with_mesh(
+            d, *icosphere(5), name="ico5")))
+        c_arr, c_meta = scene("softdof_scene.xml",
+                              lambda d: with_glass(d, "mid"))
+        p_photon = RendererParam(use_photon_map=True)
+        with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+            maps = tuple(cluster_photon_map(m) for m in build_photon_maps(
+                c_arr, c_meta, p_photon))
+        cfg_ph = Renderer(p_photon, device="cuda").integrator_config()
+        mega("K1d", c_arr, c_meta, cfg_ph, maps)
+        out["K5"] = device_ms(lambda: megakernel.mega_render(
+            c_arr, c_meta, cfg_ph, px, py, sid, rbg, photon_maps=maps),
+            "gather_kernel")
 
-    # K6 on mesh_scene at the gradient path's shape.
+    # K6 at the gradient path's shapes and on the glass scene.
     cfg_g = IntegratorConfig(integrator="pathtrace", max_bounce=5,
                              shadow_spp=16)
-    n_g = 1 << 17
-    g_ids = torch.arange(n_g, device="cuda", dtype=torch.int32)
-    ct = torch.full((n_g, 3), 1.0 / (3 * n_g), device="cuda")
-    out["K6_mesh"] = device_ms(lambda: adjoint.adjoint_render(
-        mesh_arr, mesh_meta, cfg_g, g_ids % 800, (g_ids // 800) % 600,
-        g_ids * 0, rbg, ct), "adjoint_kernel")
+    if "K6" in want:
+        spot = scene("spot_scene.xml")
+        for name, (arr, meta), n_g in (
+                ("K6_mesh", scene("mesh_scene.xml"), 1 << 17),
+                ("K6_spot", spot, 1 << 18),
+                ("K6_spot_frame", spot, 800 * 600),
+                ("K6_glass", scene("softdof_scene.xml", glass_desc),
+                 800 * 600)):
+            g_ids = torch.arange(n_g, device="cuda", dtype=torch.int32)
+            ct = torch.full((n_g, 3), 1.0 / (3 * n_g), device="cuda")
+            out[name] = device_ms(lambda: adjoint.adjoint_render(
+                arr, meta, cfg_g, g_ids % 800, (g_ids // 800) % 600,
+                g_ids * 0, rbg, ct), "adjoint_kernel")
+
+    # K2c at a wavefront batch's soft-shadow shape ("K2c") and at the sizes
+    # of its other launches.
+    if "K2c" in want:
+        prims = scene("softdof_scene.xml")[0].analytic
+        p, d, t_max = shadow_rays(max(K2C_SIZES))
+        for n in K2C_SIZES:
+            out["K2c" if n == 1 << 20 else f"K2c_{n}"] = device_ms(
+                lambda: analytic.shadow(p[:n], d[:n], t_max[:n], prims),
+                "shadow_kernel")
 
     # K3 on camera rays as they come; K4a/K4b on ico6's, sorted.
     for what, edit in (("mesh_scene", None),
                        ("ico5", lambda d: with_mesh(d, *icosphere(5),
                                                     name="ico5"))):
+        if "K3" not in want:
+            break
         arr, meta = scene("mesh_scene.xml", edit)
         p, d, *_ = engine.generate_camera_rays(arr, meta, px, py, sid, None)
         p, d = p.contiguous(), d.contiguous()
@@ -143,6 +205,10 @@ def main():
         walk = mesh_sweep.walk_of(arr.mesh)
         out[f"K3_{what}"] = device_ms(lambda: mesh_sweep.sweep_closest(
             p, d, t_big, arr.mesh.stream_c16, walk=walk), "walk_kernel")
+    if "K4" not in want:
+        print(card, flush=True)
+        print(json.dumps(out), flush=True)
+        return 0
     arr, meta = scene("mesh_scene.xml",
                       lambda d: with_mesh(d, *icosphere(6), name="ico6"))
     m = arr.mesh
@@ -170,4 +236,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

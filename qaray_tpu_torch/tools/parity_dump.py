@@ -1,6 +1,6 @@
-"""Outputs of the kernels K1c, K5 and K6 at the main path's shapes, written
-by one tree and compared with another's, to hold a redesigned kernel to its
-parent bit for bit on one GPU.
+"""Outputs of the kernels K1c, K2c, K5 and K6 at the main path's shapes,
+written by one tree and compared with another's, to hold a redesigned
+kernel to its parent bit for bit on one GPU.
 
     PYTHONPATH=<tree> python qaray_tpu_torch/tools/parity_dump.py \
         dump OUT.pt [--records FILE]
@@ -13,17 +13,28 @@ parent bit for bit on one GPU.
   tests/assets/mesh_scene.xml (320 triangles), on it with its icosphere at
   ico5 (20,480) and on tests/assets/mirror_scene.xml;
 - K6: the loss and gradients of diff.render_value_and_grad's fast route
-  on mesh_scene at chip_smoke.py phase 4m's shape (131,072 lanes, sample
-  1), twice, and the adjoint's 4 work counters;
+  at chip_smoke.py phase 4m's shapes (sample 1) on mesh_scene (131,072
+  lanes) and spot_scene (262,144), and on the glass scene (softdof with
+  its middle sphere glass and no depth of field; 262,144 lanes), twice
+  each, and the adjoint's 4 work counters;
+- K2c: occlusion of chip_smoke.py phase 2a's 1,048,576 random rays
+  against softdof's primitives, of the 1,048,576 soft-shadow rays of one
+  wavefront batch of softdof (65,536 lanes, 16 samples a lane, rbg), of
+  the random rays as views at a 4-byte offset, and of their first 1, 31,
+  65,537 and 1,000,001 (on 132 SMs past 3 rays a thread of K2c's grid,
+  from where rays go in pairs);
 - K5: the global-map records of one photon-mapped dispatch of
   caustics_scene at 800x600 (softdof with a glass middle sphere, default
   maps), Morton-sorted as gather_apply sorts them, and photon_gather's
-  sums and counts on them at r 0.2 and 50. With --records the records are
-  read from an earlier dump, so that both trees gather the same queries.
+  sums and counts on them at r 0.2 and 50. With --records the records and
+  the soft-shadow rays are read from an earlier dump, so that both trees
+  gather the same queries and test the same rays.
 
 `compare` prints, for each output, whether the two dumps hold the same
 bits (work column 3, K1c's and K6's triangle tests, is compared by its
-mean: a redesign of the mesh walk changes it), and one JSON line.
+mean: a redesign of the mesh walk changes it; a gradient that differs
+also prints its largest difference over the field's max|b|), and one
+JSON line.
 """
 
 import contextlib
@@ -37,12 +48,68 @@ import torch
 K1C_SCENES = ("mesh", "ico5", "mirror")
 
 
-def dump(path, records=None):
-    import qaray_tpu_torch
+def k6(out, what, arr, meta, n_g):
+    """K6's outputs on `what` at n_g lanes of 800x600, sample 1: the fast
+    route's loss and gradients twice, and the adjoint's work counters."""
     from qaray_tpu_torch import diff
     from qaray_tpu_torch.core.rng import key_words
     from qaray_tpu_torch.integrators.engine import IntegratorConfig
-    from qaray_tpu_torch.ops import adjoint, megakernel, photon
+    from qaray_tpu_torch.ops import adjoint
+    from qaray_tpu_torch.renderer import RendererParam
+
+    rbg = key_words("rbg", RendererParam().seed)
+    cfg_g = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                             shadow_spp=16)
+    g = torch.arange(n_g, device="cuda", dtype=torch.int32)
+    gx, gy, gs = g % 800, (g // 800) % 600, torch.full_like(g, 1)
+    for k in range(2):
+        loss, grads = diff.render_value_and_grad(arr, meta, cfg_g, gx, gy,
+                                                 gs, rbg)
+        out[f"K6/{what}/run{k}"] = {
+            "loss": loss.detach().cpu(),
+            **{f"grad{i}": t.detach().cpu() for i, t in enumerate(grads)}}
+    work = torch.zeros((n_g, 4), dtype=torch.int32, device="cuda")
+    ct = torch.full((n_g, 3), 1.0 / (3 * n_g), device="cuda")
+    adjoint.adjoint_render(arr, meta, cfg_g, gx, gy, gs, rbg, ct, work=work)
+    out[f"K6/{what}/work"] = {"work": work.cpu()}
+
+
+def soft_shadow_rays(scene, rbg):
+    """The first 16-sample K2c call of one wavefront batch of softdof
+    (65,536 lanes, pathtrace, max_bounce 5): its soft-shadow rays."""
+    from qaray_tpu_torch.integrators.engine import (
+        IntegratorConfig,
+        render_batch_wavefront,
+    )
+    from qaray_tpu_torch.ops import analytic
+
+    arr, meta = scene("softdof_scene.xml")
+    ids = torch.arange(1 << 16, device="cuda", dtype=torch.int32)
+    calls = []
+    shadow = analytic.shadow
+
+    def capture(p, d, t_max, prims):
+        calls.append((p.clone(), d.clone(), t_max.clone()))
+        return shadow(p, d, t_max, prims)
+
+    analytic.shadow = capture
+    try:
+        render_batch_wavefront(arr, meta, IntegratorConfig(
+            integrator="pathtrace", max_bounce=5), ids % 800, ids // 800,
+            ids * 0, rbg)
+    finally:
+        analytic.shadow = shadow
+    return next(c for c in calls if c[0].shape[0] == 16 << 16)
+
+
+def dump(path, records=None):
+    import qaray_tpu_torch
+    from qaray_tpu_torch.core.rng import key_words
+    from qaray_tpu_torch.integrators.engine import IntegratorConfig
+    from qaray_tpu_torch.ops import analytic, megakernel, photon
+    # The sibling script's helpers (its directory leads sys.path), not the
+    # tree's: an older tree on the path may lack them.
+    from kernel_times import glass_desc, shadow_rays
     from qaray_tpu_torch.photon.build import build_photon_maps
     from qaray_tpu_torch.photon.cluster import cluster_photon_map
     from qaray_tpu_torch.renderer import Renderer, RendererParam
@@ -84,24 +151,33 @@ def dump(path, records=None):
             out[f"K1c/{what}/{integ}"] = {"radiance": rad.cpu(),
                                          "t0": t0.cpu(), "work": work.cpu()}
         if what == "mesh":
-            cfg_g = IntegratorConfig(integrator="pathtrace", max_bounce=5,
-                                     shadow_spp=16)
-            n_g = 1 << 17
-            g = torch.arange(n_g, device="cuda", dtype=torch.int32)
-            gx, gy, gs = g % 800, (g // 800) % 600, torch.full_like(g, 1)
-            for k in range(2):
-                loss, grads = diff.render_value_and_grad(arr, meta, cfg_g, gx,
-                                                         gy, gs, rbg)
-                out[f"K6/mesh/run{k}"] = {
-                    "loss": loss.detach().cpu(),
-                    **{f"grad{i}": t.detach().cpu()
-                       for i, t in enumerate(grads)}}
-            work = torch.zeros((n_g, 4), dtype=torch.int32, device="cuda")
-            ct = torch.full((n_g, 3), 1.0 / (3 * n_g), device="cuda")
-            adjoint.adjoint_render(arr, meta, cfg_g, gx, gy, gs, rbg, ct,
-                                   work=work)
-            out["K6/mesh/work"] = {"work": work.cpu()}
+            k6(out, "mesh", arr, meta, 1 << 17)
         del arr
+    k6(out, "spot", *scene("spot_scene.xml"), 1 << 18)
+    k6(out, "glass", *scene("softdof_scene.xml", glass_desc), 1 << 18)
+
+    # K2c on the random rays, their views at a 4-byte offset, their heads,
+    # and one wavefront batch's soft-shadow rays.
+    prims = scene("softdof_scene.xml")[0].analytic
+    p, d, t_max = shadow_rays(1 << 20)
+    sets = {"random": (p, d, t_max)}
+    fp = torch.empty(3 * p.shape[0] + 1, device="cuda")
+    fd = torch.empty(3 * p.shape[0] + 1, device="cuda")
+    ft = torch.empty(p.shape[0] + 1, device="cuda")
+    fp[1:].copy_(p.reshape(-1))
+    fd[1:].copy_(d.reshape(-1))
+    ft[1:].copy_(t_max)
+    sets["offset4"] = (fp[1:].view(-1, 3), fd[1:].view(-1, 3), ft[1:])
+    for n in (1, 31, 65537, 1000001):
+        sets[f"head{n}"] = (p[:n], d[:n], t_max[:n])
+    if records is None:
+        soft = soft_shadow_rays(scene, rbg)
+    else:
+        soft = tuple(t.cuda() for t in records["K2c/soft_rays"])
+    sets["soft"] = soft
+    for name, (ps, ds, ts) in sets.items():
+        out[f"K2c/{name}"] = {
+            "occluded": analytic.shadow(ps, ds, ts, prims).cpu()}
 
     if records is None:
         c_arr, c_meta = scene("softdof_scene.xml",
@@ -133,6 +209,7 @@ def dump(path, records=None):
                    "act": packed[order, 16].cpu(), "ctable": g.ctable.cpu(),
                    "cbounds": g.cbounds.cpu(),
                    "radius": torch.tensor(float(g.radius))}
+    records = dict(records, **{"K2c/soft_rays": tuple(t.cpu() for t in soft)})
     out["K5/records"] = records
     q, act = records["q"].cuda(), records["act"].cuda()
     tab, cb = records["ctable"].cuda(), records["cbounds"].cuda()
@@ -154,6 +231,8 @@ def compare(path_a, path_b):
         row = {}
         for f, x in a[key].items():
             y = b[key][f]
+            if not torch.is_tensor(x):
+                continue
             if f == "work":
                 other = [c for c in range(x.shape[1]) if c != 3]
                 row["work_except_tri_tests_equal"] = torch.equal(
@@ -165,10 +244,13 @@ def compare(path_a, path_b):
             if x.dtype.is_floating_point:
                 same = torch.equal(x, y)
                 row[f"{f}_equal"] = same
-                if not same:
-                    row[f"{f}_max_abs_diff"] = (
-                        (x - y).abs().max().item() if x.shape == y.shape
-                        else None)
+                if not same and x.shape == y.shape:
+                    diff = (x - y).abs().max().item()
+                    row[f"{f}_max_abs_diff"] = diff
+                    if f.startswith("grad") and y.abs().max() > 0:
+                        row[f"{f}_of_max_b"] = diff / y.abs().max().item()
+                elif not same:
+                    row[f"{f}_max_abs_diff"] = None
             else:
                 row[f"{f}_equal"] = torch.equal(x, y)
         result[key] = row

@@ -1,7 +1,9 @@
 """The fused adjoint (kernel K6, csrc/adjoint.cu) without a card.
 
 adjoint_render_host compiles the kernel source with g++ against
-csrc/host/cuda_runtime.h and runs it one lane at a time; it is held to the
+csrc/host/cuda_runtime.h and runs it one lane at a time, or in blocks of
+128 threads as the card does (then two runs must give the same bits); it
+is held to the
 plain version, adjoint_render_plain (autograd through the wavefront
 engine), and both to the JAX package's Pallas adjoint in interpret mode,
 with tests/test_grad.py's bar of 3e-2 of max|b| per field (printed: the
@@ -108,6 +110,55 @@ def test_kernel_source_matches_plain(name, words_of):
                                          ct)
     check(host, plain, tmeta, tarr, f"{name} source vs plain")
     assert (work.sum(0)[3] > 0) == (name == "mesh")
+
+
+@pytest.mark.parametrize("name", ["spot", "glass"])
+def test_kernel_source_in_blocks_of_128_is_deterministic(name):
+    """The K6 source on the host in blocks of 128 threads, the card's
+    block (each thread's column of sums and the fixed-order fold over the
+    block's columns): two runs give the same bits, and they are within
+    3e-2 of each field's max|b| of the plain version (spot_scene and the
+    glass scene, max_bounce 3)."""
+    needs_gxx()
+    _, _, tarr, tmeta, res = grad_scene(name)
+    cfg = IntegratorConfig(**dict(KW, max_bounce=3))
+    px, py, sid = (torch.tensor(a) for a in lanes(res, 1))
+    ct = torch.tensor(cotangent(px.shape[0], seed=6))
+    runs = [adjoint.adjoint_render_host(tarr, tmeta, cfg, px, py, sid,
+                                        words(), ct, block=128)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    plain = adjoint.adjoint_render_plain(tarr, tmeta, cfg, px, py, sid,
+                                         words(), ct)
+    check(runs[0], plain, tmeta, tarr, f"{name} source in blocks of 128 "
+          "vs plain")
+
+
+def test_gate_keeps_k6_within_shared_memory():
+    """adjoint_supported takes a scene while a K6 block's shared memory
+    fits SMEM_LIMIT and refuses it one primitive beyond (at 8 material rows
+    and 8 lights 2,683 primitives fit), so that such a scene takes the
+    autograd route; block_smem_bytes is the kernel source's own count
+    (qr_adjoint_smem_bytes of its host build)."""
+    needs_gxx()
+    _, _, _, tmeta, _ = grad_scene("spot")
+    cfg = IntegratorConfig(**KW)
+
+    def meta_of(n):
+        return tmeta._replace(num_materials=8, num_lights=8, num_analytic=n,
+                              analytic_kinds=(0,) * n)
+
+    fits = 2683
+    assert adjoint.block_smem_bytes(fits, 8, 8) <= adjoint.SMEM_LIMIT
+    assert adjoint.block_smem_bytes(fits + 1, 8, 8) > adjoint.SMEM_LIMIT
+    assert adjoint.adjoint_supported(meta_of(fits), cfg)
+    assert not adjoint.adjoint_supported(meta_of(fits + 1), cfg)
+    adjoint._kernel(host=True)
+    kernel_count = adjoint._fns["host_smem"]
+    for counts in ((fits, 8, 8), (fits + 1, 8, 8), (1, 1, 0),
+                   (tmeta.num_analytic, tmeta.num_materials,
+                    tmeta.num_lights)):
+        assert kernel_count(*counts) == adjoint.block_smem_bytes(*counts)
 
 
 def test_adjoint_render_on_the_cpu_is_the_plain_version():

@@ -5,8 +5,11 @@ the primitives of the in-repo scenes. Bars of tests/test_pallas.py: 99th
 percentile relative t error < 1e-5, < 0.5 % hit/miss flips, > 99.5 % same
 primitive, attributes equal (atol 1e-4) on agreeing lanes, < 0.5 % shadow
 disagreements. The CUDA kernels are held to the same bars on the card by
-tests/test_torch_gpu.py and chip_smoke.py.
+tests/test_torch_gpu.py and chip_smoke.py; K2c's source, built with g++,
+is held to its plain version here.
 """
+
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -103,6 +106,63 @@ def test_shadow_matches_jax(path):
                                             meta.analytic_kinds,
                                             interpret=True))
     assert (got != pal).mean() < 0.005
+
+
+# Ray sets of the host build's K2c test, as slices of 20,001 rays. The
+# host stands in for a card of one SM, a grid of 2,048 threads, from whose
+# few rays a thread on aligned rays go in pairs: "pairs" and "pairs odd"
+# (an odd count leaves a last ray); "offset" is a view at a 4-byte offset
+# (one ray a thread), "head 31" and "one" are launches smaller than the
+# grid.
+SHADOW_SETS = {"pairs": slice(0, 20000), "pairs odd": slice(0, 20001),
+               "offset": slice(1, 20001), "head 31": slice(0, 31),
+               "one": slice(5, 6)}
+
+
+def _at_offset(*tensors):
+    """Copies of the tensors as views at a 4-byte offset, which K2c takes
+    one ray a thread."""
+    out = []
+    for t in tensors:
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+        flat[1:] = t.reshape(-1)
+        out.append(flat[1:].view(t.shape))
+    return out
+
+
+@pytest.mark.parametrize("rays", list(SHADOW_SETS))
+@pytest.mark.parametrize("path", SCENES)
+def test_shadow_source_on_the_host_matches_plain(path, rays):
+    """K2c's source under g++ (analytic.shadow_host), in host blocks of one
+    thread and of 256 (a card block), against shadow_plain on random rays,
+    a third of them with t_max equal to their closest hit's t (not
+    occluded: the test is t < t_max) and the last an occluded one, for
+    each set of SHADOW_SETS. The card test's bar (under 0.005 of rays
+    disagree; expect 0), and the same rays at a 4-byte offset (one ray a
+    thread) give the same bits."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    _, _, tarr, _ = _scenes(path, "cpu")
+    prims = tarr.analytic
+    p, d, t_max = (torch.tensor(a) for a in _rays(4, 20001))
+    t_hit, _ = analytic.closest_plain(p, d, prims)
+    edge = (torch.arange(p.shape[0]) % 3 == 0) & (t_hit < 1e29)
+    t_max = torch.where(edge, t_hit, t_max)
+    assert int(edge.sum()) > 100
+    k = int(torch.nonzero(analytic.shadow_plain(p, d, t_max, prims))[0])
+    p[-1], d[-1], t_max[-1] = p[k], d[k], t_max[k]
+    sl = SHADOW_SETS[rays]
+    want = analytic.shadow_plain(p[sl], d[sl], t_max[sl], prims)
+    assert not bool(want[edge[sl]].any()) or sl.stop - sl.start < 100
+    one = analytic.shadow_host(*_at_offset(p[sl], d[sl], t_max[sl]), prims)
+    for block in (1, 256):
+        got = analytic.shadow_host(p[sl], d[sl], t_max[sl], prims,
+                                   block=block)
+        off = int((got != want).sum())
+        print(f"{path} {rays} rays {sl.start}:{sl.stop} block {block}: "
+              f"{off} of {want.numel()} disagree")
+        assert off < 0.005 * want.numel()
+        assert torch.equal(got, one)
 
 
 def test_cuda_tensors_never_take_the_plain_path(monkeypatch):

@@ -25,9 +25,11 @@ in-order fold over the same rows on every ray; K1d against
 the engine with its exact gathers: test_mega_photon_gather_parity's and
 test_mega_photon_escalation_flags_dense_lanes's bars on caustics_scene
 (softdof with a glass middle sphere). K6 against adjoint_render_plain:
-tests/test_grad.py's 3e-2 of max|b| per field; render_value_and_grad's
-fast route launches K1a and K6; render_batch's gradients on the
-megakernel route equal render_with_params'.
+tests/test_grad.py's 3e-2 of max|b| per field, and two K6 launches
+bit-equal; render_value_and_grad's fast route launches K1a and K6;
+render_batch's gradients on the megakernel route equal
+render_with_params'. K2c on views at a 4-byte offset equals K2c on their
+aligned copies, bit for bit.
 """
 
 import numpy as np
@@ -102,6 +104,34 @@ def test_analytic_kernels_match_plain(cuda, path):
     occ_k = analytic.shadow(p, d, t_max, prims)
     occ_p = analytic.shadow_plain(p, d, t_max, prims)
     assert (occ_k != occ_p).float().mean().item() < 0.005
+
+
+@pytest.mark.parametrize("n", [1, 31, 65537, 1000001])
+def test_k2c_offset_view_equals_aligned(cuda, n):
+    """K2c on p, d and t_max as views at a 4-byte offset (one ray a thread)
+    equals K2c on their 16-byte aligned copies, bit for bit, at sizes
+    where those take one ray a thread too and at 1,000,001, where they go
+    in pairs with a last ray (past 3 rays a thread of the grid on up to
+    162 SMs), and both are within the analytic bar of the plain version."""
+    arr, _ = compile_scene(load_scene(SCENES[1]), device="cuda")
+    rs = np.random.RandomState(11)
+    p = rs.uniform(-30, 30, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = rs.uniform(1, 60, n).astype(np.float32)
+    flat = [torch.zeros(a.size + 1, device="cuda") for a in (p, d, t_max)]
+    for f, a in zip(flat, (p, d, t_max)):
+        f[1:].copy_(torch.tensor(a.reshape(-1), device="cuda"))
+    po, do, to = flat[0][1:].view(n, 3), flat[1][1:].view(n, 3), flat[2][1:]
+    assert po.data_ptr() % 16 == 4
+    pa, da, ta = (x.clone() for x in (po, do, to))
+    assert pa.data_ptr() % 16 == 0
+    prims = arr.analytic
+    got = analytic.shadow(po, do, to, prims)
+    want = analytic.shadow(pa, da, ta, prims)
+    assert torch.equal(got, want)
+    assert (want != analytic.shadow_plain(pa, da, ta, prims)).float().mean(
+    ).item() < 0.005
 
 
 def _compare(rad_p, t0_p, rad_k, t0_k):
@@ -722,6 +752,24 @@ def test_k6_matches_plain(cuda, name):
             assert gf.abs().max() < 1e-6, f
             continue
         assert _field_errors(gf, wf) < 3e-2, f
+
+
+@pytest.mark.parametrize("name", ["spot", "mesh", "glass"])
+def test_k6_twice_same_bits(cuda, name):
+    """Two K6 launches on the same inputs give the same bits: its sums
+    have a fixed order (800x600 at 65,536 lanes, max_bounce 5)."""
+    from qaray_tpu_torch.ops import adjoint
+
+    arr, meta = _grad_scene(name, (800, 600))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    ids = torch.arange(1 << 16, device="cuda", dtype=torch.int32)
+    px, py, sid = ids % 800, ids // 800, ids * 0
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ct = torch.randn((px.shape[0], 3), device="cuda", generator=gen)
+    runs = [adjoint.adjoint_render(arr, meta, cfg, px, py, sid, (0, 3), ct)
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
 
 
 def test_render_value_and_grad_launches_k6(cuda, monkeypatch):
