@@ -6,10 +6,12 @@ Phases, each fatal on failure:
   1. build every kernel from csrc/ (one nvcc per source, in parallel);
   2. kernels against their plain versions:
        a. K2a, K2b, K2c on 1M random rays against the primitives of
-          tests/assets/softdof_scene.xml (tests/test_pallas.py bars), and
-          K2c on the same rays as views at a 4-byte offset and on their
-          first 1, 31, 65,537 and 1,000,001 (aligned and offset) equal to
-          K2c on all of them, bit for bit;
+          tests/assets/softdof_scene.xml (tests/test_pallas.py bars); K2b
+          without the uv equal to K2b with it but for uvw, which is 0; and
+          K2a, K2b (with and without the uv) and K2c on the same rays as
+          views at a 4-byte offset and on their first 1, 31, 65,537 and
+          1,000,001 (aligned and offset) equal to each on all of them, bit
+          for bit;
        b. K3's walk (ico5, 20,480 triangles) equal to stream_closest in
           (t, row, row2) on every ray of 1M random rays, of the same rays
           with t_cur a tenth of their budget (runner-ups beyond t_cur), of
@@ -86,7 +88,9 @@ Phases, each fatal on failure:
           autograd backward) against render_with_params';
   4. the main path at 800x600 with every launch count set to 0 before each
      route and read after it, and every plain version of a kernel made to
-     raise if it is called:
+     raise if it is called; K2b's and K2c's launches recorded by size, and
+     the rays of K2b's first two launches (a batch's bounces 0 and 1) at
+     its largest size and at 65,536 kept for phase 5:
        a. Renderer defaults (photonmap, spp 4..8, max_bounce 5, shadows
           16->64, rbg) on softdof writing its PNGs, then render_batch with
           pathtrace on 480,000 lanes: K1a only, no lane on the wavefront
@@ -142,9 +146,13 @@ Phases, each fatal on failure:
      lane visits and for a warp's slowest lane; K6's mesh bound is counted
      the same way. K5 is timed as gather_apply launches it, with the warps
      launched and the clusters a query visits.
-     K2c at 1,048,576 and 65,536 rays with the sizes of its launches in
-     phase 4 and both instantiations' (pairs, one ray a thread)
-     registers, spills, shared memory and blocks an SM.
+     K2a and K2b at the largest of K2b's launch sizes in phase 4 and at
+     65,536 rays, on random rays and on the rays phase 4 launched them on,
+     K2b with and without the uv, with the registers, spills and blocks an
+     SM of K2a and both K2b instantiations; K2c at 1,048,576 and 65,536
+     rays with the sizes of its launches in phase 4 and both
+     instantiations' (pairs, one ray a thread) registers, spills, shared
+     memory and blocks an SM.
      K6 also on spot_scene's full frame and the glass scene (480,000
      lanes), with a warp's maximum against a lane's mean of its ciphers and
      vertices, and both instantiations' registers, spills, shared memory
@@ -785,6 +793,12 @@ def main():
         check(bool((full_k[k] == full_p[k])[agree].all()),
               f"K2b: {k} equal on agreeing lanes")
     numbers["K2b"] = {"max_abs_err": err}
+    full_n = analytic.closest_full(p, d, prims, want_uv=False)
+    check(not full_n["uvw"].any() and not analytic.closest_full_plain(
+        p, d, prims, want_uv=False)["uvw"].any() and all(
+        torch.equal(full_n[k], v) for k, v in full_k.items() if k != "uvw"),
+        "K2b without the uv: uvw 0 on every lane (and in the plain "
+        "version), every other output equal to K2b with it, bit for bit")
     occ_k = analytic.shadow(p, d, t_max, prims)
     occ_p = analytic.shadow_plain(p, d, t_max, prims)
     dis = (occ_k != occ_p).float().mean().item()
@@ -807,7 +821,35 @@ def main():
         check(torch.equal(got, occ_k[:n]) and torch.equal(off, got),
               f"K2c on the first {n} rays (aligned and at a 4-byte offset) "
               "equals K2c on all of them")
-    del flat, po, do, to
+
+    # K2a and K2b (with and without the uv) on the same views and heads:
+    # the bits of K2a and K2b on all the aligned rays.
+    def k2_outputs(p_, d_):
+        t_, i_ = analytic.closest(p_, d_, prims)
+        return {"K2a t": t_, "K2a prim": i_,
+                **{f"K2b {k}": v for k, v in
+                   analytic.closest_full(p_, d_, prims).items()},
+                **{f"K2b no uv {k}": v for k, v in analytic.closest_full(
+                    p_, d_, prims, want_uv=False).items()}}
+
+    k2_all = k2_outputs(p, d)
+    check(torch.equal(k2_all["K2a t"], t_k)
+          and torch.equal(k2_all["K2a prim"], i_k)
+          and torch.equal(k2_all["K2b t"], k2_all["K2a t"])
+          and torch.equal(k2_all["K2b prim_idx"], k2_all["K2a prim"]),
+          "K2a and K2b give the same (t, prim), and K2a the same bits twice")
+    for n in (None, 1, 31, 65537, 1000001):
+        sl = slice(None) if n is None else slice(0, n)
+        for what, (ps, ds) in (("aligned", (p[sl], d[sl])),
+                               ("at a 4-byte offset", (po[sl], do[sl]))):
+            if n is None and what == "aligned":
+                continue
+            got = k2_outputs(ps, ds)
+            check(all(torch.equal(got[k], v[sl]) for k, v in k2_all.items()),
+                  f"K2a and K2b on {'all' if n is None else f'the first {n}'}"
+                  f" rays {what} equal K2a and K2b on all the aligned rays, "
+                  "bit for bit")
+    del flat, po, do, to, k2_all
     torch.cuda.synchronize()
 
     print("phase 2b: mesh kernels vs plain: ico5 (K3) and ico6 (K4a/K4b), "
@@ -1385,6 +1427,26 @@ def main():
 
     analytic.shadow = shadow_sized
 
+    # The sizes of K2b's launches over 4a-4m, and the rays of the first two
+    # launches (a batch's bounces 0 and 1) at the largest size so far and at
+    # 65,536 rays (a wavefront batch), with their primitives, for phase 5.
+    k2b_sizes, k2b_rays = {}, {}
+    full_fn = analytic.closest_full
+
+    def full_sized(p_, d_, prims_, **kw):
+        n_ = p_.shape[0]
+        if p_.is_cuda and n_:
+            k2b_sizes[n_] = k2b_sizes.get(n_, 0) + 1
+            keep = (max(k2b_sizes), 65536)
+            for m in [m for m in k2b_rays if m not in keep]:
+                del k2b_rays[m]
+            if n_ in keep and len(k2b_rays.setdefault(n_, [])) < 2:
+                k2b_rays[n_].append((p_.contiguous().clone(),
+                                     d_.contiguous().clone(), prims_))
+        return full_fn(p_, d_, prims_, **kw)
+
+    analytic.closest_full = full_sized
+
     escalated = [0]
     render_escalated = Renderer._render_escalated
 
@@ -1668,9 +1730,13 @@ def main():
     print(f"  launches on the main path (4a-4m): {json.dumps(launches)}",
           flush=True)
     analytic.shadow = shadow_fn
+    analytic.closest_full = full_fn
     print(f"  K2c's launches in phase 4 by rays (sum {sum(k2c_sizes.values())}"
           "): " + ", ".join(f"{n} x {c}" for n, c in sorted(k2c_sizes.items())),
           flush=True)
+    print(f"  K2b's launches in phase 4 by rays (sum {sum(k2b_sizes.values())}"
+          ", 4i's comparison at 200x150 with the CPU included): " + ", ".join(
+              f"{n} x {c}" for n, c in sorted(k2b_sizes.items())), flush=True)
 
     # -- 5. timings at the path's shapes -------------------------------------
     print("phase 5: kernel times at the path's shapes", flush=True)
@@ -1957,13 +2023,78 @@ def main():
     pk = p[:n2].contiguous()
     dk = d[:n2].contiguous()
     num_p = meta.num_analytic
+    # K2a and K2b at the largest of K2b's launch sizes in phase 4 and at a
+    # wavefront batch's 65,536 rays, on phase 2a's random rays (softdof) and
+    # on the rays of the first two launches phase 4 made at that size (a
+    # batch's bounces 0 and 1, against that scene's primitives). The row's
+    # figures: the largest size, bounce 0. Bytes: 24 in and 8 out a ray
+    # (K2a), 49 out (K2b: t, prim, mtl, n, uvw, p, front; has_texture is
+    # all true, a constant of the function, so its byte is not counted).
+    n_big = max(k2b_sizes)
+    k2_sets = {}
+    for n in (n_big, n2):
+        if n <= p.shape[0]:
+            k2_sets[f"random_{n}"] = (p[:n].contiguous(), d[:n].contiguous(),
+                                      prims)
+        for b, rays in enumerate(k2b_rays.get(n, ())):
+            k2_sets[f"bounce{b}_{n}"] = rays
+    row_set = f"bounce0_{n_big}"
+
+    def k2_calls(name, ps, ds, pr):
+        """{tag: a launch} and the plain version of K2a or K2b."""
+        if name == "K2a":
+            return ({"": lambda: analytic.closest(ps, ds, pr)},
+                    lambda: analytic.closest_plain(ps, ds, pr))
+        return ({"": lambda: analytic.closest_full(ps, ds, pr),
+                 "_no_uv": lambda: analytic.closest_full(ps, ds, pr,
+                                                         want_uv=False)},
+                lambda: analytic.closest_full_plain(ps, ds, pr))
+
+    for name, kname, out_bytes in (("K2a", "closest_kernel", 8),
+                                   ("K2b", "closest_full_kernel", 49)):
+        sets = {}
+        for what, (ps, ds, pr) in k2_sets.items():
+            n = ps.shape[0]
+            fns, plain = k2_calls(name, ps, ds, pr)
+            tests = n * pr.kind.shape[0]
+            b_ms, b_by = bound(n * (24 + out_bytes), tests * OPS_PER_TEST)
+            row = dict(rays=n, prim_tests=tests, bound_ms=b_ms, bound_by=b_by)
+            for tag, fn in fns.items():
+                row[f"ms{tag}"], row["timed_by"] = kernel_ms(fn, kname, 20)
+            if what == row_set:
+                row.update(plain_ms=cuda_ms(plain, 5),
+                           wrapper_ms=cuda_ms(fns[""], 20))
+            sets[what] = row
+            no_uv = (f" (no uv {row['ms_no_uv']:.5f})" if name == "K2b"
+                     else "")
+            print(f"  {name} {what}: {row['ms']:.5f} ms{no_uv} by "
+                  f"{row['timed_by']}, bound {b_ms:.6f} ms by {b_by} "
+                  f"({b_ms / row['ms']:.3f} of it)", flush=True)
+        top = sets[row_set]
+        numbers[name].update(
+            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=None,
+            timed_by=top["timed_by"], wrapper_ms=top["wrapper_ms"],
+            rays=top["rays"], prim_tests=top["prim_tests"], sets=sets)
+    # Registers, spills and blocks an SM of K2a and both K2b
+    # instantiations, at softdof's table in shared memory.
+    smem = 52 * meta.num_analytic
+    inst = {}
+    for key, symbol in (("K2a", "closest_kernelENS"),
+                        ("K2b", "closest_full_kernelILb1E"),
+                        ("K2b_no_uv", "closest_full_kernelILb0E")):
+        info = ptxas_info("analytic", symbol)
+        inst[key] = dict(info, blocks_per_sm=blocks_per_sm(
+            info["registers"], 256, smem))
+    numbers["K2a"]["ptxas"] = inst["K2a"]
+    numbers["K2b"].update(ptxas={k: inst[k] for k in ("K2b", "K2b_no_uv")},
+                          launch_sizes={str(k): v for k, v in
+                                        sorted(k2b_sizes.items())})
+    print(f"  K2a/K2b resources, {smem} bytes of shared memory: "
+          f"{json.dumps(inst)}", flush=True)
+    del k2_sets, k2b_rays
+
     for name, kname, fn, plain, n, nbytes in (
-        ("K2a", "closest_kernel", lambda: analytic.closest(pk, dk, prims),
-         lambda: analytic.closest_plain(pk, dk, prims), n2, n2 * (24 + 8)),
-        ("K2b", "closest_full_kernel",
-         lambda: analytic.closest_full(pk, dk, prims),
-         lambda: analytic.closest_full_plain(pk, dk, prims), n2,
-         n2 * (24 + 49)),
         ("K2c", "shadow_kernel", lambda: analytic.shadow(p, d, t_max, prims),
          lambda: analytic.shadow_plain(p, d, t_max, prims), n_sh,
          n_sh * (28 + 1)),

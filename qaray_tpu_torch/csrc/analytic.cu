@@ -5,44 +5,58 @@
 //   K2b  _closest_full_raw / _kernel_full             closest hit + attributes
 //   K2c  shadow_analytic_pallas / _shadow_kernel      any hit below t_max
 //
-// What bounds them on the H100: memory. Each ray reads 24 bytes (p, d; K2c
-// also t_max) and writes 5 to 49 bytes, against some 60 flops per
-// primitive, and scenes on this path hold a handful of primitives, so the
-// work per byte is far below the card's balance point. The design keeps the
-// TPU kernel's one-pass structure (rays stream through once, only the
-// winner is written) but drops its [rows, 128] lane layout and f32 masks:
+// Each ray reads 24 bytes (p, d; K2c also t_max) and writes 1 to 50 bytes,
+// against some 60 flops per primitive. Without FMA contraction a sphere
+// test is 94 instructions with its IEEE division and square root, a chain
+// a thread waits on, so K2a and K2c are bound by the instructions they
+// issue more than by their bytes; K2b, with 49 bytes of outputs a ray
+// (and has_texture's constant byte), by its bytes at a million rays.
+// All keep the TPU kernel's one pass (rays stream through once, only the
+// winner is written) but drop its [rows, 128] lane layout and f32 masks:
 // one thread per ray, the primitive table staged once per block in shared
 // memory, the per-primitive branch on the table's kind (uniform across a
-// warp), and the shadow test stops at the first occluder.
+// warp).
+//
+// K2a and K2b. The TPU kernel evaluates every attribute of every primitive
+// and selects with jnp.where, which is what a TPU's lanes want. A thread
+// wants the argmin first: the primitive loop keeps only (t, prim), reading
+// each row as three float4 (closest_rows), and a lane with a hit evaluates
+// its winner's attributes once after the loop (winner_hit: obj_ray again
+// on that row, then closest_hit's block in its order of operations, so
+// the outputs are closest_hit's bits). With the attribute block
+// (normalisations, atan2f and asinf) out of the loop K2b holds 40
+// registers, not 49, and an SM 6 blocks, not 4. The uv is a template
+// flag, as want_uv is a static argument of _kernel_full: without material
+// textures it is not computed and uvw is 0. K2b also writes has_texture
+// (all true), so its wrapper makes no launch of its own.
+// tools/k2_layout.py times the table read from shared memory against the
+// table in the kernel's parameter space, and K2a's departures from the
+// parent's kernel one at a time.
 //
 // K2c, the wavefront routes' most launched kernel (a batch's soft-shadow
-// rays, 29 bytes a ray), is bound by the instructions it issues and their
-// latency more than by its bytes: without FMA contraction a sphere test is
-// some 80 instructions with its IEEE division and square root, a chain a
-// thread waits on, and the table's row is 13 loads from shared memory.
-// Staging rays through shared memory (bulk copies, cp.async) only adds
-// instructions. The design: a launch of up to a few rays a thread of a
-// persistent grid of 8 blocks an SM takes one ray a thread, a block per
-// 256 rays, as the other kernels do (a persistent grid or pairs lost to it
-// there). Past that, aligned rays go in pairs on that grid, in an
-// instantiation of its own (its registers would cost the one-ray code
-// blocks an SM): each block stages the table once, and a thread's two
-// consecutive rays arrive as 7 float2 loads straight into registers, are
-// tested together against each primitive (its row read once as three
-// float4, two independent chains) and leave as one 2-byte store. Views at a
-// 4-byte offset go one ray a thread; nothing is read past n.
+// rays, 29 bytes a ray): staging rays through shared memory (bulk copies,
+// cp.async) only adds instructions. The design: a launch of up to a few
+// rays a thread of a persistent grid of 8 blocks an SM takes one ray a
+// thread, a block per 256 rays, as the other kernels do (a persistent grid
+// or pairs lost to it there). Past that, aligned rays go in pairs on that
+// grid, in an instantiation of its own (its registers would cost the
+// one-ray code blocks an SM): each block stages the table once, and a
+// thread's two consecutive rays arrive as 7 float2 loads straight into
+// registers, are tested together against each primitive (its row read
+// once as three float4, two independent chains) and leave as one 2-byte
+// store. Views at a 4-byte offset go one ray a thread; nothing is read
+// past n.
 // tools/k2c_layout.py times these choices.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "analytic.cuh"
 
-// K2c's launch and its shared memory go through macros that
+// The launches and their shared memory go through macros that
 // csrc/host/cuda_runtime.h defines otherwise, so that the CPU tests can
-// compile this source with g++ and run K2c on the CPU
-// (ops/analytic.shadow_host). K2a and K2b stay out of that build.
+// compile this source with g++ and run its kernels on the CPU
+// (ops/analytic.closest_host, closest_full_host, shadow_host).
 #ifndef QR_LAUNCH
-#define QR_DEVICE_BUILD 1
 #define QR_SHARED_FLOATS(name) extern __shared__ __align__(16) float name[]
 #define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg) \
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(arg)
@@ -63,58 +77,84 @@ __device__ __forceinline__ void stage_prims(const float* prim, const int* kinds,
   __syncthreads();
 }
 
-#ifdef QR_DEVICE_BUILD
-__global__ void closest_kernel(const float* __restrict__ p,
-                               const float* __restrict__ d, int n,
-                               const float* __restrict__ prim,
-                               const int* __restrict__ kinds, int num_prims,
-                               float* __restrict__ t_out,
-                               int* __restrict__ idx_out) {
-  extern __shared__ float smem[];
-  float* s_prim = smem;
-  int* s_kind = reinterpret_cast<int*>(smem + num_prims * QR_PRIM_COLS);
-  stage_prims(prim, kinds, num_prims, s_prim, s_kind);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int idx;
-  t_out[i] = closest_t(s_prim, s_kind, num_prims, load3(p + 3 * i),
-                       load3(d + 3 * i), idx);
-  idx_out[i] = idx;
+// K2a and K2b. Outputs [n] or [n, 3], contiguous; K2a fills t and idx.
+struct ClosestParams {
+  const float* p;
+  const float* d;
+  int n;
+  const float* prim;
+  const int* kinds;
+  const int* prim_mtl;
+  int num_prims;
+  float* t;
+  int* idx;
+  float* nrm;
+  float* uvw;
+  uint8_t* front;
+  int* mtl;
+  float* hp;
+  uint8_t* has_texture;
+};
+
+// Ray i's outputs for its winner (t, k) of closest_rows over `rows`: for
+// K2a t and k; for K2b the winner's attributes, evaluated once, and miss
+// lanes with closest_hit's constants (t QR_BIGFLOAT, prim 0, n (0, 0, 1),
+// uv 0, front true).
+template <bool kFull, bool kWantUv>
+__device__ __forceinline__ void store_closest(const ClosestParams& P,
+                                              const float4* rows,
+                                              const int* kinds, int i, V3 p,
+                                              V3 d, float t, int k) {
+  if constexpr (!kFull) {
+    P.t[i] = t;
+    P.idx[i] = k;
+  } else {
+    Hit h{QR_BIGFLOAT, 0, V3{0.0f, 0.0f, 1.0f}, true, 0.0f, 0.0f};
+    if (t < QR_BIGFLOAT) h = winner_hit<kWantUv>(rows, kinds, k, p, d, t);
+    P.t[i] = h.t;
+    P.idx[i] = h.prim;
+    P.nrm[3 * (size_t)i + 0] = h.n.x;
+    P.nrm[3 * (size_t)i + 1] = h.n.y;
+    P.nrm[3 * (size_t)i + 2] = h.n.z;
+    P.uvw[3 * (size_t)i + 0] = h.u;
+    P.uvw[3 * (size_t)i + 1] = h.v;
+    P.uvw[3 * (size_t)i + 2] = 0.0f;
+    P.front[i] = h.front ? 1 : 0;
+    P.has_texture[i] = 1;
+    P.mtl[i] = P.prim_mtl[h.prim];
+    // World hit point at a benign t on miss lanes (ops/trace.py NaN guard).
+    const float te = h.t < QR_BIGFLOAT ? h.t : 1.0f;
+    P.hp[3 * (size_t)i + 0] = p.x + te * d.x;
+    P.hp[3 * (size_t)i + 1] = p.y + te * d.y;
+    P.hp[3 * (size_t)i + 2] = p.z + te * d.z;
+  }
 }
 
-__global__ void closest_full_kernel(
-    const float* __restrict__ p, const float* __restrict__ d, int n,
-    const float* __restrict__ prim, const int* __restrict__ kinds,
-    const int* __restrict__ prim_mtl, int num_prims,
-    float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ n_out, float* __restrict__ uvw_out,
-    uint8_t* __restrict__ front_out, int* __restrict__ mtl_out,
-    float* __restrict__ hp_out) {
-  extern __shared__ float smem[];
-  float* s_prim = smem;
-  int* s_kind = reinterpret_cast<int*>(smem + num_prims * QR_PRIM_COLS);
-  stage_prims(prim, kinds, num_prims, s_prim, s_kind);
+// One ray a thread over the table staged in shared memory.
+template <bool kFull, bool kWantUv>
+__device__ __forceinline__ void closest_ray(const ClosestParams& P) {
+  QR_SHARED_FLOATS(tab);
+  int* s_kind = reinterpret_cast<int*>(tab + P.num_prims * QR_PRIM_COLS);
+  stage_prims(P.prim, P.kinds, P.num_prims, tab, s_kind);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const V3 pi = load3(p + 3 * i), di = load3(d + 3 * i);
-  const Hit h = closest_hit<true>(s_prim, s_kind, num_prims, pi, di);
-  t_out[i] = h.t;
-  idx_out[i] = h.prim;
-  n_out[3 * i + 0] = h.n.x;
-  n_out[3 * i + 1] = h.n.y;
-  n_out[3 * i + 2] = h.n.z;
-  uvw_out[3 * i + 0] = h.u;
-  uvw_out[3 * i + 1] = h.v;
-  uvw_out[3 * i + 2] = 0.0f;
-  front_out[i] = h.front ? 1 : 0;
-  mtl_out[i] = prim_mtl[h.prim];
-  // World hit point at a benign t on miss lanes (ops/trace.py NaN guard).
-  const float te = h.t < QR_BIGFLOAT ? h.t : 1.0f;
-  hp_out[3 * i + 0] = pi.x + te * di.x;
-  hp_out[3 * i + 1] = pi.y + te * di.y;
-  hp_out[3 * i + 2] = pi.z + te * di.z;
+  if (i >= P.n) return;
+  const float4* rows = reinterpret_cast<const float4*>(tab);
+  const V3 p = load3(P.p + 3 * (size_t)i), d = load3(P.d + 3 * (size_t)i);
+  int k;
+  const float t = closest_rows(rows, s_kind, P.num_prims, p, d, k);
+  store_closest<kFull, kWantUv>(P, rows, s_kind, i, p, d, t, k);
 }
-#endif
+
+__global__ void __launch_bounds__(kThreads)
+    closest_kernel(const ClosestParams P) {
+  closest_ray<false, false>(P);
+}
+
+template <bool kWantUv>
+__global__ void __launch_bounds__(kThreads)
+    closest_full_kernel(const ClosestParams P) {
+  closest_ray<true, kWantUv>(P);
+}
 
 // K2c.
 constexpr int kBlocksPerSM = 8;  // the pairs' persistent grid
@@ -225,36 +265,42 @@ int launch_config(K kernel, int num_prims, size_t* smem) {
 
 // C entry points (bound with ctypes). Each launches on `stream` and returns
 // cudaGetLastError(); n > 0 is the caller's job.
-#ifdef QR_DEVICE_BUILD
-extern "C" int qr_closest(const float* p, const float* d, int n,
-                          const float* prim, const int* kinds, int num_prims,
-                          float* t_out, int* idx_out, void* stream) {
+// K2a and K2b: one ray a thread, a block per 256 rays; p and d [n, 3]
+// contiguous at any 4-byte alignment.
+template <typename K>
+int launch_closest(K kernel, const ClosestParams& P, void* stream) {
   size_t smem;
-  int rc = launch_config(closest_kernel, num_prims, &smem);
+  const int rc = launch_config(kernel, P.num_prims, &smem);
   if (rc) return rc;
-  closest_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem,
-                   (cudaStream_t)stream>>>(p, d, n, prim, kinds, num_prims,
-                                           t_out, idx_out);
+  QR_LAUNCH(kernel, (P.n + kThreads - 1) / kThreads, kThreads, smem, stream,
+            P);
   return (int)cudaGetLastError();
 }
 
+extern "C" int qr_closest(const float* p, const float* d, int n,
+                          const float* prim, const int* kinds, int num_prims,
+                          float* t_out, int* idx_out, void* stream) {
+  const ClosestParams P{p,       d,       n,       prim,    kinds,
+                        nullptr, num_prims, t_out, idx_out, nullptr,
+                        nullptr, nullptr, nullptr, nullptr, nullptr};
+  return launch_closest(closest_kernel, P, stream);
+}
+
+// K2b; want_uv 0 leaves uvw 0 (_kernel_full's static want_uv).
 extern "C" int qr_closest_full(const float* p, const float* d, int n,
                                const float* prim, const int* kinds,
                                const int* prim_mtl, int num_prims,
                                float* t_out, int* idx_out, float* n_out,
                                float* uvw_out, uint8_t* front_out,
-                               int* mtl_out, float* hp_out, void* stream) {
-  size_t smem;
-  int rc = launch_config(closest_full_kernel, num_prims, &smem);
-  if (rc) return rc;
-  closest_full_kernel<<<(n + kThreads - 1) / kThreads, kThreads, smem,
-                        (cudaStream_t)stream>>>(p, d, n, prim, kinds,
-                                                prim_mtl, num_prims, t_out,
-                                                idx_out, n_out, uvw_out,
-                                                front_out, mtl_out, hp_out);
-  return (int)cudaGetLastError();
+                               int* mtl_out, float* hp_out,
+                               uint8_t* has_texture_out, int want_uv,
+                               void* stream) {
+  const ClosestParams P{p,      d,         n,       prim,   kinds,
+                        prim_mtl, num_prims, t_out,  idx_out, n_out,
+                        uvw_out, front_out, mtl_out, hp_out, has_texture_out};
+  return want_uv ? launch_closest(closest_full_kernel<true>, P, stream)
+                 : launch_closest(closest_full_kernel<false>, P, stream);
 }
-#endif
 
 // K2c: one ray a thread, or past kPairsFrom rays a thread of a grid of
 // kBlocksPerSM blocks of 256 threads an SM aligned rays in pairs on that

@@ -92,25 +92,6 @@ __device__ __forceinline__ float prim_t(int kind, V3 po, V3 dobj) {
   return ok ? th : QR_BIGFLOAT;
 }
 
-// Closest (t, prim) over all primitives; ties keep the first index and a
-// miss reports prim 0 (jnp.argmin semantics).
-__device__ __forceinline__ float closest_t(const float* prims,
-                                           const int* kinds, int num_prims,
-                                           V3 p, V3 d, int& idx) {
-  float t_best = QR_BIGFLOAT;
-  idx = 0;
-  for (int k = 0; k < num_prims; ++k) {
-    V3 po, dobj;
-    obj_ray(prims + k * QR_PRIM_COLS, p, d, po, dobj);
-    const float th = prim_t(kinds[k], po, dobj);
-    if (th < t_best) {
-      t_best = th;
-      idx = k;
-    }
-  }
-  return t_best;
-}
-
 // Closest hit plus the winner's attributes (pallas_analytic._kernel_full).
 struct Hit {
   float t;    // QR_BIGFLOAT on miss
@@ -156,6 +137,80 @@ __device__ __forceinline__ Hit closest_hit(const float* prims,
     h.n = norm3(nw, 1e-30f);
     h.front = dot3(no, dobj) <= 0.0f;
   }
+  return h;
+}
+
+// K2a and K2b (analytic.cu): the primitive loop keeps only (t, prim), and
+// the winner's attributes are evaluated once after it. (closest_hit, the
+// megakernel's and the adjoint's, evaluates them in its loop for each new
+// winner; their generated code is left alone.)
+
+// Row k of a [P, 12] table staged as rows of three float4 (48 bytes a row,
+// so every row is 16-byte aligned).
+__device__ __forceinline__ void table_row(const float4* rows, int k,
+                                          float pr[QR_PRIM_COLS]) {
+  const float4 a = rows[3 * k], b = rows[3 * k + 1], c = rows[3 * k + 2];
+  pr[0] = a.x, pr[1] = a.y, pr[2] = a.z, pr[3] = a.w;
+  pr[4] = b.x, pr[5] = b.y, pr[6] = b.z, pr[7] = b.w;
+  pr[8] = c.x, pr[9] = c.y, pr[10] = c.z, pr[11] = c.w;
+}
+
+// Closest (t, prim) over such a table, each row read in three 16-byte
+// loads; ties keep the first index and a miss reports prim 0 (jnp.argmin
+// semantics).
+__device__ __forceinline__ float closest_rows(const float4* rows,
+                                              const int* kinds, int num_prims,
+                                              V3 p, V3 d, int& idx) {
+  float t_best = QR_BIGFLOAT;
+  idx = 0;
+  for (int k = 0; k < num_prims; ++k) {
+    float pr[QR_PRIM_COLS];
+    table_row(rows, k, pr);
+    V3 po, dobj;
+    obj_ray(pr, p, d, po, dobj);
+    const float th = prim_t(kinds[k], po, dobj);
+    if (th < t_best) {
+      t_best = th;
+      idx = k;
+    }
+  }
+  return t_best;
+}
+
+// The Hit of row k (table_row) at its distance th: closest_hit's attribute
+// block in its order of operations, so that it gives closest_hit's bits
+// (obj_ray on the same row and ray gives the sweep's po and dobj). The
+// block is written out here and in closest_hit, not shared: as a function
+// of their own (by reference, by value, or returning the Hit) it changed
+// the adjoint's generated code, one register fewer and other SASS, and
+// closest_hit's callers keep theirs (tools/parity_dump.py sass).
+template <bool kWantUv>
+__device__ __forceinline__ Hit winner_hit(const float4* rows,
+                                          const int* kinds, int k, V3 p,
+                                          V3 d, float th) {
+  float pr[QR_PRIM_COLS];
+  table_row(rows, k, pr);
+  V3 po, dobj;
+  obj_ray(pr, p, d, po, dobj);
+  const int kind = kinds[k];
+  Hit h{th, k, V3{0.0f, 0.0f, 1.0f}, true, 0.0f, 0.0f};
+  const V3 hp = add3(po, scale3(dobj, th));
+  V3 no = V3{0.0f, 0.0f, 1.0f};
+  if (kind == QR_KIND_SPHERE) no = norm3(hp, 1e-30f);
+  if (kWantUv) {
+    if (kind == QR_KIND_SPHERE) {
+      h.u = 0.5f - atan2f(hp.x, hp.y) / (float)(2.0 * M_PI);
+      h.v = 0.5f + asinf(fminf(fmaxf(no.z, -1.0f), 1.0f)) / (float)M_PI;
+    } else {
+      h.u = (hp.x + 1.0f) * 0.5f;
+      h.v = (hp.y + 1.0f) * 0.5f;
+    }
+  }
+  const V3 nw = V3{pr[0] * no.x + pr[3] * no.y + pr[6] * no.z,
+                   pr[1] * no.x + pr[4] * no.y + pr[7] * no.z,
+                   pr[2] * no.x + pr[5] * no.y + pr[8] * no.z};
+  h.n = norm3(nw, 1e-30f);
+  h.front = dot3(no, dobj) <= 0.0f;
   return h;
 }
 

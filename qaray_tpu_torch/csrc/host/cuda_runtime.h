@@ -1,6 +1,6 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
 // compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu,
-// photon.cu, analytic.cu's K2c) as C++ and run them on the CPU
+// photon.cu, analytic.cu) as C++ and run them on the CPU
 // (ops/_build.load_host). The CPU tests use it to hold a source's
 // arithmetic to the plain PyTorch version where there is no card and no
 // nvcc. It says nothing about what nvcc accepts or how fast the kernel is.

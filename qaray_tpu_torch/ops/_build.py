@@ -23,7 +23,8 @@ one lane at a time or in blocks of threads (qr_host_set_block), so that
 tests without a card can hold the source's arithmetic to the plain version
 (ops/megakernel.mega_render_host, ops/adjoint.adjoint_render_host,
 ops/tiles.tiled_sweep_host, ops/mesh_sweep.sweep_host,
-ops/analytic.shadow_host). No entry point of the port uses it.
+ops/analytic.closest_host, closest_full_host, shadow_host). No entry point
+of the port uses it.
 """
 
 import ctypes
@@ -109,8 +110,7 @@ def load_host(name: str) -> ctypes.CDLL:
     blocks' std::barrier; -O1, no FMA contraction, as the card's build has
     none), loaded; raises RuntimeError without g++
     or for a source that does not go through csrc/host/cuda_runtime.h's
-    macros (every source does; analytic.cu's K2a and K2b stay out of the
-    host build)."""
+    macros (every source does)."""
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: no host build of the kernels")

@@ -10,7 +10,8 @@ csrc/analytic.cu:
 A wrapper runs the plain PyTorch version for tensors on the CPU and the
 kernel for CUDA tensors; it never falls back from one to the other.
 `launches` counts kernel launches, one per call that launched.
-shadow_host runs K2c's source on the CPU under g++, for tests.
+closest_host, closest_full_host and shadow_host run the kernels' source
+on the CPU under g++, for tests.
 
 closest and closest_full are differentiable, as the JAX package's
 closest_analytic_pallas and closest_analytic_full_pallas custom_vjp are:
@@ -32,6 +33,8 @@ from qaray_tpu_torch.scene.arrays import KIND_SPHERE, AnalyticPrims
 launches = {"K2a": 0, "K2b": 0, "K2c": 0}
 
 _fns = {}
+# qr_closest_full's C signature (_build.bind codes).
+_FULL_SIG = "ppipppippppppppip"
 
 
 def _lib():
@@ -40,10 +43,8 @@ def _lib():
 
         lib = _build.load("analytic")
         _fns["closest"] = _build.bind(lib, "qr_closest", "ppippippp")
-        _fns["full"] = _build.bind(lib, "qr_closest_full",
-                                   "ppipppipppppppp")
+        _fns["full"] = _build.bind(lib, "qr_closest_full", _FULL_SIG)
         _fns["shadow"] = _build.bind(lib, "qr_shadow", "pppippipp")
-        _fns["check"] = _build.check
     return _fns
 
 
@@ -51,11 +52,14 @@ _host = {}
 
 
 def _host_lib():
-    """K2c's source built for the CPU (_build.load_host; tests only)."""
+    """The kernels' source built for the CPU (_build.load_host; tests
+    only)."""
     if not _host:
         from qaray_tpu_torch.ops import _build
 
         lib = _build.load_host("analytic")
+        _host["closest"] = _build.bind(lib, "qr_closest", "ppippippp")
+        _host["full"] = _build.bind(lib, "qr_closest_full", _FULL_SIG)
         _host["shadow"] = _build.bind(lib, "qr_shadow", "pppippipp")
         _host["block"] = _build.bind(lib, "qr_host_set_block", "i")
     return _host
@@ -117,18 +121,25 @@ def closest(p, d, prims: AnalyticPrims):
 def _closest_fwd(p, d, prims: AnalyticPrims):
     if p.device.type == "cpu":
         return closest_plain(p, d, prims)
+    t, idx = _closest_launch(_lib(), p, d, prims, _stream(), "K2a closest")
+    if p.shape[0]:
+        launches["K2a"] += 1
+    return t, idx
+
+
+def _closest_launch(fns, p, d, prims, stream, what):
+    """K2a on p and d of the device the library `fns` runs on."""
+    from qaray_tpu_torch.ops import _build
+
     n = p.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=p.device)
     idx = torch.empty(n, dtype=torch.int32, device=p.device)
-    if n == 0:
-        return t, idx
-    tab, kinds = prims.table, prims.kind
-    p, d = p.contiguous(), d.contiguous()
-    f = _lib()
-    f["check"](f["closest"](_ptr(p), _ptr(d), n, _ptr(tab), _ptr(kinds),
-                            tab.shape[0], _ptr(t), _ptr(idx), _stream()),
-               "K2a closest")
-    launches["K2a"] += 1
+    if n:
+        tab, kinds = prims.table, prims.kind
+        p, d = p.contiguous(), d.contiguous()
+        _build.check(fns["closest"](_ptr(p), _ptr(d), n, _ptr(tab),
+                                    _ptr(kinds), tab.shape[0], _ptr(t),
+                                    _ptr(idx), stream), what)
     return t, idx
 
 
@@ -137,12 +148,14 @@ def _closest_fwd(p, d, prims: AnalyticPrims):
 # ---------------------------------------------------------------------------
 
 
-def closest_full_plain(p, d, prims: AnalyticPrims):
+def closest_full_plain(p, d, prims: AnalyticPrims, want_uv=True):
     t, idx = I.closest_analytic(p, d, prims)
     t_attr = torch.where(t < BIGFLOAT, t, torch.ones_like(t))
     out = I.analytic_hit_attrs(p, d, t_attr, idx, prims)
     out["t"] = t
     out["prim_idx"] = idx
+    if not want_uv:
+        out["uvw"] = torch.zeros_like(out["uvw"])
     return out
 
 
@@ -150,49 +163,59 @@ _FULL_KEYS = ("t", "prim_idx", "mtl", "n", "uvw", "front", "p",
               "has_texture")
 
 
-def closest_full(p, d, prims: AnalyticPrims):
+def closest_full(p, d, prims: AnalyticPrims, want_uv=True):
     """Closest hit and the winner's attributes: t, prim_idx, p (world hit
     point at t, or at t=1 on a miss), n (world, unit), uvw, front, mtl,
     has_texture. Miss lanes carry benign values (prim 0 on the kernel; the
-    plain version evaluates prim 0 at t=1). Differentiable in t only
-    (_ClosestFull)."""
+    plain version evaluates prim 0 at t=1). want_uv False leaves uvw 0 on
+    every lane (_kernel_full's static want_uv: no material texture reads
+    it). Differentiable in t only (_ClosestFull)."""
     _check_rays(p, d, prims)
-    out = _ClosestFull.apply(p, d, prims.m_w2o, prims.t_o2w, prims)
+    out = _ClosestFull.apply(p, d, prims.m_w2o, prims.t_o2w, prims,
+                             bool(want_uv))
     return dict(zip(_FULL_KEYS, out))
 
 
-def _closest_full_fwd(p, d, prims: AnalyticPrims):
+def _closest_full_fwd(p, d, prims: AnalyticPrims, want_uv, own_t=False):
     if p.device.type == "cpu":
-        return closest_full_plain(p, d, prims)
+        return closest_full_plain(p, d, prims, want_uv)
+    out = _full_launch(_lib(), p, d, prims, want_uv, _stream(),
+                       "K2b closest_full", own_t)
+    if p.shape[0]:
+        launches["K2b"] += 1
+    return out
+
+
+def _full_launch(fns, p, d, prims, want_uv, stream, what, own_t=False):
+    """K2b on p and d of the device the library `fns` runs on. Its outputs
+    are views of one buffer, one allocation a call; with own_t, t and
+    prim_idx have a buffer of their own, so that an autograd graph saving
+    them keeps 8 bytes a ray and shares no version counter with the
+    attributes. The kernel writes every output, has_texture included."""
+    from qaray_tpu_torch.ops import _build
+
     n = p.shape[0]
-    dev = p.device
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    nrm = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    uvw = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    front = torch.empty(n, dtype=torch.bool, device=dev)
-    mtl = torch.empty(n, dtype=torch.int32, device=dev)
-    hp = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    u8 = dict(dtype=torch.uint8, device=p.device)
+    if own_t:
+        head, tail = torch.empty(8 * n, **u8), torch.empty(42 * n, **u8)
+    else:
+        head, tail = torch.empty(50 * n, **u8).split((8 * n, 42 * n))
+    t, idx = head.view(torch.float32).split((n, n))
+    mtl, nrm, uvw, hp = tail[:40 * n].view(torch.float32).split(
+        (n, 3 * n, 3 * n, 3 * n))
+    idx, mtl = idx.view(torch.int32), mtl.view(torch.int32)
+    nrm, uvw, hp = nrm.view(n, 3), uvw.view(n, 3), hp.view(n, 3)
+    front, has_texture = tail[40 * n:].view(torch.bool).split((n, n))
     if n:
         tab, kinds = prims.table, prims.kind
         p, d = p.contiguous(), d.contiguous()
-        f = _lib()
-        f["check"](f["full"](_ptr(p), _ptr(d), n, _ptr(tab), _ptr(kinds),
-                             _ptr(prims.mtl), tab.shape[0], _ptr(t),
-                             _ptr(idx), _ptr(nrm), _ptr(uvw), _ptr(front),
-                             _ptr(mtl), _ptr(hp), _stream()),
-                   "K2b closest_full")
-        launches["K2b"] += 1
-    return {
-        "t": t,
-        "prim_idx": idx,
-        "mtl": mtl,
-        "n": nrm,
-        "uvw": uvw,
-        "front": front,
-        "p": hp,
-        "has_texture": torch.ones(n, dtype=torch.bool, device=dev),
-    }
+        _build.check(fns["full"](
+            _ptr(p), _ptr(d), n, _ptr(tab), _ptr(kinds), _ptr(prims.mtl),
+            tab.shape[0], _ptr(t), _ptr(idx), _ptr(nrm), _ptr(uvw),
+            _ptr(front), _ptr(mtl), _ptr(hp), _ptr(has_texture),
+            int(bool(want_uv)), stream), what)
+    return {"t": t, "prim_idx": idx, "mtl": mtl, "n": nrm, "uvw": uvw,
+            "front": front, "p": hp, "has_texture": has_texture}
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +285,9 @@ class _ClosestFull(torch.autograd.Function):
     forward, winner-only backward; the attributes are detached."""
 
     @staticmethod
-    def forward(ctx, p, d, m_w2o, t_o2w, prims):
-        full = _closest_full_fwd(p, d, prims)
+    def forward(ctx, p, d, m_w2o, t_o2w, prims, want_uv):
+        full = _closest_full_fwd(p, d, prims, want_uv,
+                                 own_t=any(ctx.needs_input_grad[:4]))
         out = tuple(full[k] for k in _FULL_KEYS)
         ctx.kind = prims.kind
         ctx.save_for_backward(p, d, m_w2o, t_o2w, full["t"],
@@ -273,7 +297,7 @@ class _ClosestFull(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dt, *_attrs):
-        return (*_winner_grads(ctx, dt), None)
+        return (*_winner_grads(ctx, dt), None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -297,40 +321,66 @@ def shadow(p, d, t_max, prims: AnalyticPrims):
         return occ
     tab, kinds = prims.table, prims.kind
     p, d, t_max = p.contiguous(), d.contiguous(), t_max.contiguous()
-    f = _lib()
-    f["check"](f["shadow"](_ptr(p), _ptr(d), _ptr(t_max), n, _ptr(tab),
-                           _ptr(kinds), tab.shape[0], _ptr(occ), _stream()),
-               "K2c shadow")
+    from qaray_tpu_torch.ops import _build
+
+    _build.check(_lib()["shadow"](_ptr(p), _ptr(d), _ptr(t_max), n,
+                                  _ptr(tab), _ptr(kinds), tab.shape[0],
+                                  _ptr(occ), _stream()), "K2c shadow")
     launches["K2c"] += 1
     return occ
 
 
-def shadow_host(p, d, t_max, prims: AnalyticPrims, block=1):
-    """K2c's kernel source run on the CPU on CPU tensors (_build.load_host),
-    in host blocks of `block` threads (one std::thread each, sharing shared
-    memory and barriers; with 256 a host block is a card block). The host
-    stands in for a card of one SM: the persistent grid is 8 blocks of 256
-    threads, whose threads take aligned rays in pairs past a few rays
-    each. For tests without a card: no entry point calls it and it counts
-    no launch."""
+def _on_host(block, run):
+    """run() with the host build's blocks of `block` threads (one
+    std::thread each, sharing shared memory and barriers; with 256 a host
+    block is a card block). The host stands in for a card of one SM."""
+    from qaray_tpu_torch.ops import _build
+
+    f = _host_lib()
+    _build.check(f["block"](block), "host block size")
+    try:
+        return run(f)
+    finally:
+        f["block"](1)
+
+
+def _host_rays(p, d, prims, t_max=None):
     _check_rays(p, d, prims, t_max)
     if p.device.type != "cpu":
-        raise ValueError("shadow_host takes CPU tensors")
+        raise ValueError("the host build takes CPU tensors")
+
+
+def closest_host(p, d, prims: AnalyticPrims, block=1):
+    """K2a's kernel source run on the CPU on CPU tensors (_build.load_host),
+    in host blocks of `block` threads. For tests without a card: no entry
+    point calls it and it counts no launch."""
+    _host_rays(p, d, prims)
+    return _on_host(block, lambda f: _closest_launch(
+        f, p, d, prims, None, "K2a closest (host)"))
+
+
+def closest_full_host(p, d, prims: AnalyticPrims, want_uv=True, block=1):
+    """K2b's kernel source run on the CPU on CPU tensors, as closest_host:
+    closest_full's dict of outputs, without its gradient."""
+    _host_rays(p, d, prims)
+    return _on_host(block, lambda f: _full_launch(
+        f, p, d, prims, want_uv, None, "K2b closest_full (host)"))
+
+
+def shadow_host(p, d, t_max, prims: AnalyticPrims, block=1):
+    """K2c's kernel source run on the CPU on CPU tensors, as closest_host.
+    On the host's one SM the persistent grid is 8 blocks of 256 threads,
+    whose threads take aligned rays in pairs past a few rays each."""
+    _host_rays(p, d, prims, t_max)
     n = p.shape[0]
     occ = torch.zeros(n, dtype=torch.bool)
     if n == 0:
         return occ
     tab, kinds = prims.table, prims.kind
     p, d, t_max = p.contiguous(), d.contiguous(), t_max.contiguous()
-    f = _host_lib()
     from qaray_tpu_torch.ops import _build
 
-    _build.check(f["block"](block), "host block size")
-    try:
-        _build.check(f["shadow"](_ptr(p), _ptr(d), _ptr(t_max), n,
-                                 _ptr(tab), _ptr(kinds), tab.shape[0],
-                                 _ptr(occ), None),
-                     "K2c shadow (host)")
-    finally:
-        f["block"](1)
+    _on_host(block, lambda f: _build.check(f["shadow"](
+        _ptr(p), _ptr(d), _ptr(t_max), n, _ptr(tab), _ptr(kinds),
+        tab.shape[0], _ptr(occ), None), "K2c shadow (host)"))
     return occ

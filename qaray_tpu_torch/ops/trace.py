@@ -219,7 +219,12 @@ def trace_closest(scene: SceneArrays, meta: SceneMeta, p, d, diff=None):
     `duvw1`. The reference computes them for primary camera rays only (the
     default material's secondary DiffRays carry hasDiffRay=false,
     MtlBlinn_PhotonMap.cpp:233)."""
-    full = analytic.closest_full(p, d, scene.analytic)
+    # The kernel computes the uv only where a material texture reads it
+    # (the JAX package's Pallas route); the CPU route always does (its XLA
+    # route).
+    full = analytic.closest_full(
+        p, d, scene.analytic,
+        want_uv=meta.has_mtl_textures or p.device.type == "cpu")
     attrs = {k: full[k] for k in _KEYS}
     t = full["t"]
     if meta.num_analytic == 0:  # only the compiler's placeholder primitive

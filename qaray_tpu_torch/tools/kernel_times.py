@@ -19,11 +19,18 @@ shapes, for comparing two trees in one call:
   its launches on the main path);
 - K3 on the camera rays of mesh_scene and of ico5, K4a and K4b on those of
   ico6 (coherence-sorted, as the tiled route walks them; K4b on rays from
-  their hit points towards the point (10, 80, 60), budget its distance).
+  their hit points towards the point (10, 80, 60), budget its distance);
+- K2a and K2b against softdof's primitives at K2_SIZES (a wavefront
+  batch's 65,536 and 480,000 rays and the largest of K2b's launches on
+  the main path, a photon pass's 1,048,576),
+  on chip_smoke.py phase 2a's random rays and on the rays of bounces 0
+  and 1 of one wavefront batch of softdof of that size (batch_rays); K2b
+  also without the uv where the tree's closest_full takes want_uv, and
+  the time of a call of its wrapper by CUDA events (wrapper_ms).
 
     python -m qaray_tpu_torch.tools.kernel_times [GROUP ...]
 
-GROUP is any of K1 (K1a-K1d and K5), K6, K2c, K3, K4 (default: all).
+GROUP is any of K1 (K1a-K1d and K5), K6, K2c, K3, K4, K2 (default: all).
 
 Each time is torch.profiler's device time of the kernel, the mean over 20
 launches after one that is not counted. The script reaches the package
@@ -47,21 +54,39 @@ import torch
 
 def device_ms(fn, kernel, reps=20):
     """Mean device milliseconds a launch of the kernels whose name holds
-    `kernel`, fn launching one."""
+    `kernel`, fn launching one. The profiler now and then records none of
+    a run's launches; the run is then repeated, up to three times."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0) for e in seen)
-    count = sum(e.count for e in seen)
-    if not count or total <= 0:
-        raise SystemExit(f"the profiler recorded no {kernel} launch")
-    return total / count / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if kernel in e.key]
+        total = sum(getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0) for e in seen)
+        count = sum(e.count for e in seen)
+        if count and total > 0:
+            return total / count / 1e3
+    raise SystemExit(f"the profiler recorded no {kernel} launch")
+
+
+def wrapper_ms(fn, reps=50):
+    """Milliseconds a call of fn, by CUDA events around `reps` calls after
+    one that is not counted: where each call's kernel is short, the host's
+    time to make the call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def shadow_rays(n, seed=0):
@@ -75,6 +100,38 @@ def shadow_rays(n, seed=0):
     return p, d, t_max
 
 
+def batch_rays(arr, meta, n):
+    """The rays of K2b's first two launches (bounces 0 and 1) in one
+    wavefront batch of n lanes of the scene at 800x600 (pathtrace,
+    max_bounce 5, the Renderer's rbg key words): [(p, d), (p, d)]."""
+    from qaray_tpu_torch.core.rng import key_words
+    from qaray_tpu_torch.integrators.engine import (
+        IntegratorConfig,
+        render_batch_wavefront,
+    )
+    from qaray_tpu_torch.ops import analytic
+    from qaray_tpu_torch.renderer import RendererParam
+
+    ids = torch.arange(n, device="cuda", dtype=torch.int32)
+    calls = []
+    full = analytic.closest_full
+
+    def capture(p, d, prims, **kw):
+        if len(calls) < 2:
+            calls.append((p.contiguous().clone(), d.contiguous().clone()))
+        return full(p, d, prims, **kw)
+
+    analytic.closest_full = capture
+    try:
+        render_batch_wavefront(arr, meta, IntegratorConfig(
+            integrator="pathtrace", max_bounce=5), ids % 800,
+            (ids // 800) % 600, ids // (800 * 600),
+            key_words("rbg", RendererParam().seed))
+    finally:
+        analytic.closest_full = full
+    return calls
+
+
 def glass_desc(desc):
     """The gradient path's glass scene: softdof with its middle sphere
     glass and no depth of field (chip_smoke.py phase 3f)."""
@@ -85,12 +142,17 @@ def glass_desc(desc):
     return desc
 
 
-GROUPS = ("K1", "K6", "K2c", "K3", "K4")
+GROUPS = ("K1", "K6", "K2c", "K3", "K4", "K2")
 # K2c's sizes: those of its launches on the main path (chip_smoke.py phase
 # 4), from the photon paths' 5,008 to a batch's 3,145,728 escalated
 # soft-shadow rays, and a batch's 65,536 hard shadow rays.
 K2C_SIZES = (5008, 30624, 60572, 65536, 131072, 262144, 480000, 605720,
              1048576, 3145728)
+# K2a's and K2b's sizes: a wavefront batch's 65,536 rays (phase 4b), one of
+# 480,000 (the Renderer's batch of a frame) and the largest of K2b's
+# launches on the main path, a photon pass of 1,048,576 paths
+# (chip_smoke.py phase 4).
+K2_SIZES = (65536, 480000, 1048576)
 
 
 def main(argv=()):
@@ -191,6 +253,32 @@ def main(argv=()):
             out["K2c" if n == 1 << 20 else f"K2c_{n}"] = device_ms(
                 lambda: analytic.shadow(p[:n], d[:n], t_max[:n], prims),
                 "shadow_kernel")
+
+    # K2a and K2b on random rays and on a softdof batch's bounces 0 and 1.
+    if "K2" in want:
+        import inspect
+
+        s_arr, s_meta = scene("softdof_scene.xml")
+        prims = s_arr.analytic
+        no_uv = "want_uv" in inspect.signature(
+            analytic.closest_full).parameters
+        for n in K2_SIZES:
+            p, d, _ = shadow_rays(n)
+            (p0, d0), (p1, d1) = batch_rays(s_arr, s_meta, n)
+            for what, (pr, dr) in (("random", (p, d)), ("bounce0", (p0, d0)),
+                                   ("bounce1", (p1, d1))):
+                out[f"K2a_{what}_{n}"] = device_ms(
+                    lambda: analytic.closest(pr, dr, prims), "closest_kernel")
+                out[f"K2b_{what}_{n}"] = device_ms(
+                    lambda: analytic.closest_full(pr, dr, prims),
+                    "closest_full_kernel")
+                if no_uv:
+                    out[f"K2b_nouv_{what}_{n}"] = device_ms(
+                        lambda: analytic.closest_full(pr, dr, prims,
+                                                      want_uv=False),
+                        "closest_full_kernel")
+            out[f"K2b_wrapper_{n}"] = wrapper_ms(
+                lambda: analytic.closest_full(p, d, prims))
 
     # K3 on camera rays as they come; K4a/K4b on ico6's, sorted.
     for what, edit in (("mesh_scene", None),

@@ -1,10 +1,11 @@
-"""Outputs of the kernels K1c, K2c, K5 and K6 at the main path's shapes,
-written by one tree and compared with another's, to hold a redesigned
-kernel to its parent bit for bit on one GPU.
+"""Outputs of the kernels K1c, K2a-K2c, K5 and K6 at the main path's
+shapes, written by one tree and compared with another's, to hold a
+redesigned kernel to its parent bit for bit on one GPU.
 
     PYTHONPATH=<tree> python qaray_tpu_torch/tools/parity_dump.py \
         dump OUT.pt [--records FILE]
     python qaray_tpu_torch/tools/parity_dump.py compare A.pt B.pt
+    python qaray_tpu_torch/tools/parity_dump.py sass TREE_A TREE_B [LIB ...]
 
 `dump` writes, for the tree on the import path:
 - K1c: radiance, primary depth and the 8 work counters of one megakernel
@@ -23,12 +24,28 @@ kernel to its parent bit for bit on one GPU.
   the random rays as views at a 4-byte offset, and of their first 1, 31,
   65,537 and 1,000,001 (on 132 SMs past 3 rays a thread of K2c's grid,
   from where rays go in pairs);
+- K2a and K2b (every output, with the uv): on chip_smoke.py phase 2a's
+  1,048,576 random rays against softdof's primitives, on them as views at
+  a 4-byte offset, on their first 1, 31 and 65,537, and on the rays of
+  bounces 0 and 1 of one wavefront batch of softdof of 480,000 lanes
+  (kernel_times.batch_rays);
+- the wavefront route (QARAY_NO_MEGAKERNEL): one Renderer.render() at
+  800x600 and 1 spp of softdof, mesh_scene and texture_scene (the mean,
+  the count and the 8-bit image of the frame buffer), and the photon maps
+  of caustics_scene (build_photon_maps, traced on K2b);
 - K5: the global-map records of one photon-mapped dispatch of
   caustics_scene at 800x600 (softdof with a glass middle sphere, default
   maps), Morton-sorted as gather_apply sorts them, and photon_gather's
-  sums and counts on them at r 0.2 and 50. With --records the records and
-  the soft-shadow rays are read from an earlier dump, so that both trees
-  gather the same queries and test the same rays.
+  sums and counts on them at r 0.2 and 50. With --records the records,
+  the soft-shadow rays and K2a/K2b's batch rays are read from an earlier
+  dump, so that both trees gather the same queries and test the same
+  rays.
+
+`sass` compares, kernel by kernel, the SASS (cuobjdump -sass) of the
+libraries LIB (default megakernel and adjoint) that runs of two trees
+built under their build/kernels/, and ptxas's registers and spills of
+their builds: a change to a shared header that must leave those kernels'
+code alone shows it there.
 
 `compare` prints, for each output, whether the two dumps hold the same
 bits (work column 3, K1c's and K6's triangle tests, is compared by its
@@ -109,7 +126,7 @@ def dump(path, records=None):
     from qaray_tpu_torch.ops import analytic, megakernel, photon
     # The sibling script's helpers (its directory leads sys.path), not the
     # tree's: an older tree on the path may lack them.
-    from kernel_times import glass_desc, shadow_rays
+    from kernel_times import batch_rays, glass_desc, shadow_rays
     from qaray_tpu_torch.photon.build import build_photon_maps
     from qaray_tpu_torch.photon.cluster import cluster_photon_map
     from qaray_tpu_torch.renderer import Renderer, RendererParam
@@ -179,6 +196,45 @@ def dump(path, records=None):
         out[f"K2c/{name}"] = {
             "occluded": analytic.shadow(ps, ds, ts, prims).cpu()}
 
+    # K2a and K2b on the same random rays, views and heads, and on a
+    # softdof batch's bounces 0 and 1.
+    sets.pop("head1000001")
+    sets.pop("soft")
+    if records is None:
+        batch = batch_rays(*scene("softdof_scene.xml"), 800 * 600)
+    else:
+        batch = [tuple(t.cuda() for t in r) for r in records["K2/batch"]]
+    for b, (ps, ds) in enumerate(batch):
+        sets[f"bounce{b}"] = (ps, ds, None)
+    for name, (ps, ds, _) in sets.items():
+        t, prim = analytic.closest(ps, ds, prims)
+        full = analytic.closest_full(ps, ds, prims)
+        out[f"K2a/{name}"] = {"t": t.cpu(), "prim": prim.cpu()}
+        out[f"K2b/{name}"] = {k: v.cpu() for k, v in full.items()}
+
+    # The wavefront route's images and caustics_scene's photon maps.
+    os.environ["QARAY_NO_MEGAKERNEL"] = "1"
+    try:
+        for name in ("softdof_scene.xml", "mesh_scene.xml",
+                     "texture_scene.xml"):
+            desc = load_scene(os.path.join(assets, name))
+            desc.camera.img_width, desc.camera.img_height = 800, 600
+            r = Renderer(RendererParam(spp_min=1, spp_max=1), device="cuda")
+            r.compute_scene(desc)
+            fb = r.render()
+            out[f"wavefront/{name}"] = {
+                k: torch.from_numpy(getattr(fb, k).copy())
+                for k in ("mean", "count", "img")}
+    finally:
+        os.environ.pop("QARAY_NO_MEGAKERNEL", None)
+    c_arr, c_meta = scene("softdof_scene.xml", lambda d: with_glass(d, "mid"))
+    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+        pmaps = build_photon_maps(c_arr, c_meta,
+                                  RendererParam(use_photon_map=True))
+    for which, m in zip(("global", "caustics"), pmaps):
+        out[f"photon_maps/{which}"] = {
+            k: v.cpu() for k, v in m._asdict().items() if torch.is_tensor(v)}
+
     if records is None:
         c_arr, c_meta = scene("softdof_scene.xml",
                               lambda d: with_glass(d, "mid"))
@@ -209,7 +265,9 @@ def dump(path, records=None):
                    "act": packed[order, 16].cpu(), "ctable": g.ctable.cpu(),
                    "cbounds": g.cbounds.cpu(),
                    "radius": torch.tensor(float(g.radius))}
-    records = dict(records, **{"K2c/soft_rays": tuple(t.cpu() for t in soft)})
+    records = dict(records, **{
+        "K2c/soft_rays": tuple(t.cpu() for t in soft),
+        "K2/batch": [tuple(t.cpu() for t in r) for r in batch]})
     out["K5/records"] = records
     q, act = records["q"].cuda(), records["act"].cuda()
     tab, cb = records["ctable"].cuda(), records["cbounds"].cuda()
@@ -259,6 +317,67 @@ def compare(path_a, path_b):
     return 0
 
 
+def _functions(so):
+    """{kernel: its SASS instructions} of a built library (cuobjdump
+    -sass), the file's anonymous-namespace hash taken out of the names."""
+    import re
+    import subprocess
+
+    from qaray_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_",
+                          m.group(1))
+            out[name] = []
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if name is not None and m:
+            out[name].append(m.group(1).strip())
+    return out
+
+
+def sass(tree_a, tree_b, names=("megakernel", "adjoint")):
+    """Whether the libraries `names` built by two trees (their newest
+    build/kernels/lib<name>-*.so, the build a run of the tree left) hold
+    the same SASS, kernel by kernel, with ptxas's registers and spills of
+    each from the build's log."""
+    import glob
+
+    result = {}
+    for name in names:
+        libs, logs = [], []
+        for tree in (tree_a, tree_b):
+            found = [f for f in glob.glob(os.path.join(
+                tree, "build", "kernels", f"lib{name}-*.so"))
+                if "-host-" not in f]
+            if not found:
+                raise SystemExit(f"{tree}: no built lib{name}")
+            so = max(found, key=os.path.getmtime)
+            libs.append(_functions(so))
+            log = so[:-3] + ".log"
+            logs.append([ln.strip() for ln in open(log).read().splitlines()
+                         if "registers" in ln or "spill" in ln]
+                        if os.path.exists(log) else None)
+        a, b = libs
+        row = {"kernels": len(a), "same_kernels": sorted(a) == sorted(b),
+               "differ": sorted(k for k in a if a[k] != b.get(k)),
+               "instructions": sum(len(v) for v in a.values()),
+               "ptxas_same": logs[0] == logs[1], "ptxas": logs}
+        result[name] = row
+        print(f"{name}: {row['kernels']} kernels, SASS differs in "
+              f"{row['differ'] or 'none'}; ptxas reports "
+              f"{'the same' if row['ptxas_same'] else 'differ'}",
+              flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv):
     if len(argv) >= 2 and argv[0] == "dump":
         if not torch.cuda.is_available():
@@ -271,6 +390,9 @@ def main(argv):
         return 0
     if len(argv) == 3 and argv[0] == "compare":
         return compare(argv[1], argv[2])
+    if len(argv) >= 3 and argv[0] == "sass":
+        return sass(argv[1], argv[2], tuple(argv[3:]) or
+                    ("megakernel", "adjoint"))
     print(__doc__, file=sys.stderr)
     return 2
 

@@ -5,8 +5,8 @@ the primitives of the in-repo scenes. Bars of tests/test_pallas.py: 99th
 percentile relative t error < 1e-5, < 0.5 % hit/miss flips, > 99.5 % same
 primitive, attributes equal (atol 1e-4) on agreeing lanes, < 0.5 % shadow
 disagreements. The CUDA kernels are held to the same bars on the card by
-tests/test_torch_gpu.py and chip_smoke.py; K2c's source, built with g++,
-is held to its plain version here.
+tests/test_torch_gpu.py and chip_smoke.py; their source, built with g++,
+is held to the plain versions and the Pallas kernels here.
 """
 
 import shutil
@@ -106,6 +106,115 @@ def test_shadow_matches_jax(path):
                                             meta.analytic_kinds,
                                             interpret=True))
     assert (got != pal).mean() < 0.005
+
+
+def test_closest_full_plain_without_uv_matches_pallas():
+    """closest_full_plain(want_uv=False) against _closest_full_raw(want_uv=
+    False) in interpret mode on softdof's primitives: uvw 0 on every lane,
+    the rest at the file's bars."""
+    arrays, meta, tarr, _ = _scenes(SCENES[1], "cpu")
+    p, d, _ = _rays(6, 2048)
+    got = analytic.closest_full_plain(torch.tensor(p), torch.tensor(d),
+                                      tarr.analytic, want_uv=False)
+    want = _closest_full_raw(jnp.asarray(p), jnp.asarray(d), arrays.analytic,
+                             meta.analytic_kinds, want_uv=False,
+                             interpret=True)
+    assert not np.asarray(want["uvw"]).any() and not got["uvw"].any()
+    agree = _t_bars(np.asarray(want["t"]), np.asarray(want["prim_idx"]),
+                    got["t"].numpy(), got["prim_idx"].numpy())
+    for k in ("n", "p"):
+        np.testing.assert_allclose(got[k].numpy()[agree],
+                                   np.asarray(want[k])[agree], atol=1e-4)
+    for k in ("front", "mtl"):
+        assert np.array_equal(got[k].numpy()[agree],
+                              np.asarray(want[k])[agree])
+
+
+@pytest.mark.parametrize("want_uv", [True, False])
+@pytest.mark.parametrize("path", SCENES)
+def test_closest_sources_on_the_host_match_plain(path, want_uv):
+    """K2a's and K2b's source under g++ (analytic.closest_host,
+    closest_full_host) on 3,001 random rays, in host blocks of 1 and 256
+    threads: held to closest_plain / closest_full_plain and to the Pallas
+    kernels in interpret mode at the file's bars (K2b with the same
+    want_uv; uvw 0 without it); the two block sizes give the same bits, as
+    do the rays as views at a 4-byte offset and their aligned copies."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    arrays, meta, tarr, _ = _scenes(path, "cpu")
+    prims = tarr.analytic
+    p, d, _ = _rays(5, 3001)
+    tp, td = torch.tensor(p), torch.tensor(d)
+    jp, jd = jnp.asarray(p), jnp.asarray(d)
+    t_pl, i_pl = (np.asarray(a) for a in closest_analytic_pallas(
+        jp, jd, arrays.analytic, meta.analytic_kinds, interpret=True))
+    full_pl = _closest_full_raw(jp, jd, arrays.analytic, meta.analytic_kinds,
+                                want_uv=want_uv, interpret=True)
+    full_plain = analytic.closest_full_plain(tp, td, prims, want_uv=want_uv)
+    runs = {}
+    for block in (1, 256):
+        t, i = analytic.closest_host(tp, td, prims, block=block)
+        full = analytic.closest_full_host(tp, td, prims, want_uv=want_uv,
+                                          block=block)
+        runs[block] = (t, i, full)
+        for t_ref, i_ref in (analytic.closest_plain(tp, td, prims),
+                             (t_pl, i_pl)):
+            _t_bars(np.asarray(t_ref), np.asarray(i_ref), t.numpy(),
+                    i.numpy())
+        for ref in (full_plain, full_pl):
+            agree = _t_bars(np.asarray(ref["t"]), np.asarray(ref["prim_idx"]),
+                            full["t"].numpy(), full["prim_idx"].numpy())
+            for k in ("n", "uvw", "p"):
+                np.testing.assert_allclose(full[k].numpy()[agree],
+                                           np.asarray(ref[k])[agree],
+                                           atol=1e-4)
+            for k in ("front", "mtl"):
+                assert np.array_equal(full[k].numpy()[agree],
+                                      np.asarray(ref[k])[agree])
+        assert torch.equal(full["t"], t) and torch.equal(full["prim_idx"], i)
+        assert full["has_texture"].all()
+        assert want_uv == bool(full["uvw"].any())
+        miss = t >= 1e29
+        assert miss.any() and not full["prim_idx"][miss].any()
+        assert bool((full["n"][miss] == torch.tensor([0.0, 0.0, 1.0])).all())
+        assert bool(full["front"][miss].all())
+    po, do = _at_offset(tp, td)
+    offset = (*analytic.closest_host(po, do, prims),
+              analytic.closest_full_host(po, do, prims, want_uv=want_uv))
+    for other in (runs[256], offset):
+        assert torch.equal(other[0], runs[1][0])
+        assert torch.equal(other[1], runs[1][1])
+        for k, v in runs[1][2].items():
+            assert torch.equal(other[2][k], v), k
+
+
+@pytest.mark.parametrize("own_t", [False, True])
+def test_closest_full_outputs_keep_t_apart_for_autograd(own_t):
+    """K2b's outputs as its wrapper allocates them, filled by the source
+    under g++: one buffer, or with own_t (the autograd route, which saves
+    t and prim_idx for the backward rule) a buffer of 8 bytes a ray for t
+    and prim_idx and another for the rest. Either way closest_full_plain's
+    dtypes, shapes and contiguity and closest_full_host's bits."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    _, _, tarr, _ = _scenes(SCENES[1], "cpu")
+    prims = tarr.analytic
+    p, d, _ = (torch.tensor(a) for a in _rays(6, 1001))
+    want = analytic.closest_full_host(p, d, prims, block=256)
+    plain = analytic.closest_full_plain(p, d, prims)
+    got = analytic._on_host(256, lambda f: analytic._full_launch(
+        f, p, d, prims, True, None, "K2b closest_full (host)", own_t))
+    assert got.keys() == plain.keys()
+    for k, v in got.items():
+        assert (v.dtype, v.shape) == (plain[k].dtype, plain[k].shape), k
+        assert v.is_contiguous() and torch.equal(v, want[k]), k
+    base = {k: v.untyped_storage().data_ptr() for k, v in got.items()}
+    head = {base["t"], base["prim_idx"]}
+    rest = {v for k, v in base.items() if k not in ("t", "prim_idx")}
+    assert len(head) == 1 and len(rest) == 1
+    assert (head != rest) == own_t
+    if own_t:
+        assert got["t"].untyped_storage().nbytes() == 8 * p.shape[0]
 
 
 # Ray sets of the host build's K2c test, as slices of 20,001 rays. The

@@ -29,7 +29,11 @@ tests/test_grad.py's 3e-2 of max|b| per field, and two K6 launches
 bit-equal; render_value_and_grad's fast route launches K1a and K6;
 render_batch's gradients on the megakernel route equal
 render_with_params'. K2c on views at a 4-byte offset equals K2c on their
-aligned copies, bit for bit.
+aligned copies, bit for bit, and so do K2a and K2b on such views and on
+the first 1, 31 and 65,537 rays; K2b without the uv equals K2b with it
+but for uvw, which is 0; trace_closest asks K2b for the uv only on a
+scene with a material texture; on the autograd route K2b's saved t and
+prim_idx share no storage with its attributes.
 """
 
 import numpy as np
@@ -132,6 +136,116 @@ def test_k2c_offset_view_equals_aligned(cuda, n):
     assert torch.equal(got, want)
     assert (want != analytic.shadow_plain(pa, da, ta, prims)).float().mean(
     ).item() < 0.005
+
+
+def _random_rays(n, seed):
+    rs = np.random.RandomState(seed)
+    p = rs.uniform(-30, 30, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.tensor(p, device="cuda"), torch.tensor(d, device="cuda"))
+
+
+@pytest.mark.parametrize("path", SCENES)
+def test_k2b_without_uv(cuda, path):
+    """K2b with want_uv False against closest_full_plain(want_uv=False) at
+    the analytic bars, and equal to K2b with the uv in every output but
+    uvw, which is 0 on every lane."""
+    arr, _ = compile_scene(load_scene(path), device="cuda")
+    prims = arr.analytic
+    p, d = _random_rays(1 << 16, 5)
+    full_k = analytic.closest_full(p, d, prims, want_uv=False)
+    full_p = analytic.closest_full_plain(p, d, prims, want_uv=False)
+    agree = _t_bars(full_p["t"], full_p["prim_idx"], full_k["t"],
+                    full_k["prim_idx"])
+    for k in ("n", "p"):
+        assert (full_k[k] - full_p[k])[agree].abs().max().item() < 1e-4
+    for k in ("front", "mtl"):
+        assert bool((full_k[k] == full_p[k])[agree].all())
+    with_uv = analytic.closest_full(p, d, prims)
+    assert not full_k["uvw"].any() and with_uv["uvw"].any()
+    for k, v in with_uv.items():
+        if k != "uvw":
+            assert torch.equal(full_k[k], v), k
+
+
+@pytest.mark.parametrize("n", [1, 31, 65537])
+def test_k2_offset_view_equals_aligned(cuda, n):
+    """K2a and K2b (with and without the uv) on p and d as views at a
+    4-byte offset, and on the first n of 65,537 rays, equal K2a and K2b on
+    the aligned rays, bit for bit in every output."""
+    arr, _ = compile_scene(load_scene(SCENES[1]), device="cuda")
+    prims = arr.analytic
+    p, d = _random_rays(65537, 12)
+    flat = [torch.zeros(a.numel() + 1, device="cuda") for a in (p, d)]
+    for f, a in zip(flat, (p, d)):
+        f[1:].copy_(a.reshape(-1))
+    po, do = flat[0][1:].view(-1, 3)[:n], flat[1][1:].view(-1, 3)[:n]
+    assert po.data_ptr() % 16 == 4
+
+    def outputs(p_, d_):
+        t, i = analytic.closest(p_, d_, prims)
+        return {"K2a t": t, "K2a prim": i,
+                **{f"K2b {k}": v for k, v in
+                   analytic.closest_full(p_, d_, prims).items()},
+                **{f"K2b no uv {k}": v for k, v in analytic.closest_full(
+                    p_, d_, prims, want_uv=False).items()}}
+
+    want = outputs(p, d)
+    for got in (outputs(po, do), outputs(p[:n], d[:n])):
+        for k, v in want.items():
+            assert torch.equal(got[k], v[:n]), k
+
+
+def test_trace_closest_asks_for_uv_where_textured(cuda, monkeypatch):
+    """trace_closest launches K2b with want_uv False on an untextured
+    scene (softdof) and True on texture_scene, whose materials have
+    checkers."""
+    from qaray_tpu_torch.ops.trace import trace_closest
+
+    seen = []
+    full = analytic.closest_full
+
+    def record(p, d, prims, want_uv=True):
+        seen.append(want_uv)
+        return full(p, d, prims, want_uv=want_uv)
+
+    monkeypatch.setattr(analytic, "closest_full", record)
+    p, d = _random_rays(4096, 13)
+    for path, want in ((SCENES[1], False),
+                       ("tests/assets/texture_scene.xml", True)):
+        arr, meta = compile_scene(load_scene(path), device="cuda")
+        before = analytic.launches["K2b"]
+        trace_closest(arr, meta, p, d)
+        assert analytic.launches["K2b"] == before + 1
+        assert seen[-1] is want and meta.has_mtl_textures is want
+
+
+def test_k2b_gradient_keeps_t_apart(cuda):
+    """closest_full with p requiring a gradient (the autograd route) gives
+    the outputs of the call without one, bit for bit; the t and prim_idx
+    its backward rule saves share no storage with the attributes, so a
+    write into an attribute leaves the backward working; and the gradient
+    of t equals closest()'s."""
+    arr, _ = compile_scene(load_scene(SCENES[1]), device="cuda")
+    prims = arr.analytic
+    p, d = _random_rays(4096, 14)
+    want = analytic.closest_full(p, d, prims)
+    pg = p.clone().requires_grad_(True)
+    full = analytic.closest_full(pg, d, prims)
+    for k, v in want.items():
+        assert torch.equal(full[k].detach(), v), k
+    t_base = full["t"].untyped_storage().data_ptr()
+    assert t_base == full["prim_idx"].untyped_storage().data_ptr()
+    assert all(v.untyped_storage().data_ptr() != t_base
+               for k, v in full.items() if k not in ("t", "prim_idx"))
+    full["n"].mul_(2.0)
+    (g,) = torch.autograd.grad(full["t"].sum(), pg)
+    pk = p.clone().requires_grad_(True)
+    (g_k2a,) = torch.autograd.grad(analytic.closest(pk, d, prims)[0].sum(),
+                                   pk)
+    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    assert torch.equal(g, g_k2a)
 
 
 def _compare(rad_p, t0_p, rad_k, t0_k):
