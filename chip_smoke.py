@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. build every kernel from csrc/ (one nvcc per source, in parallel);
+  1. build every kernel from csrc/ (one nvcc per source, in parallel), and
+     the native host library (qaray_tpu_torch/native.py: g++);
   2. kernels against their plain versions:
        a. K2a, K2b, K2c on 1M random rays against the primitives of
           tests/assets/softdof_scene.xml (tests/test_pallas.py bars); K2b
@@ -27,7 +28,9 @@ Phases, each fatal on failure:
           against the uncapped walk on the rays it marks resolved; and
           262,144 rays aimed at ico4's vertices through K4a and
           ops/trace._fallback against tiled_sweep and the same fallback:
-          equal (t, gid) but for exact ties in t, no hole;
+          equal (t, gid) but for exact ties in t, no hole; ico6's native
+          BVH equal to the numpy build node for node, and ico6's compile
+          seconds with each builder;
        c. K5 against photon_gather_plain on caustics_scene (softdof with its
           middle sphere made glass, scene.procedural.with_glass) at
           800x600 with the default maps (10,000 global photons at r 0.2,
@@ -47,6 +50,16 @@ Phases, each fatal on failure:
           vertices, a third with an analytic t equal to their mesh hit's
           and a third with a budget equal to it: (t, normal, front,
           material row, occluded) equal on every ray;
+       e. W1 (csrc/bvh.cu, the packed BVH walk) against its plain walk,
+          closest hit (t, instance, triangle, bary, front) and any hit
+          (a seventh of the rays already occluded), bit for bit: on
+          mesh_scene's icosphere and on ico5 as world trees (1M random
+          rays, ico5's 262,144 vertex-aimed rays, 480,000 camera rays),
+          with the lanes where W1 and the dense sweep resolve an exact tie
+          in t to different triangles counted, and on grid_scene's 25
+          transformed instances (its 480,000 camera rays and 1M random
+          rays); under QARAY_MESH_PATH=bvh, ops/trace's world-mesh closest
+          hit is one W1 launch;
   3. the megakernel against the wavefront engine, with the
      tests/test_megakernel.py bars:
        a. K1a: softdof_scene.xml at 200x150, 2 samples per pixel,
@@ -128,10 +141,35 @@ Phases, each fatal on failure:
           their backward), the two routes' gradients within 3e-2 of each
           field's max|b|; forward+backward paths/s and the device's idle
           share printed;
+       n. mesh_scene and ico5 at 1 spp under QARAY_NO_MEGAKERNEL and
+          QARAY_MESH_PATH=bvh: the world tree on W1, no K3;
+       o. grid_scene (25 instances of a 320-triangle mesh) with the
+          defaults, world route (K1a/K1c) against world_bvh=False (the
+          wavefront engine with W1): under 0.5 % of pixels differing by
+          more than 2/255; W1's launches by kind and rays;
+       p. a 5x5 grid of ico5 instances (procedural.with_shared_mesh) at
+          1 spp: 20,480 triangles kept once (W1) against 512,000 baked
+          (K4a/K4b): compile seconds, wall, device busy, idle share and
+          peak memory of each;
+       q. checkpoints: softdof with the defaults under threefry keys and
+          checkpoint_every 2, stopped after its checkpoint at 2 samples
+          and resumed from the file by a new Renderer, equal to the
+          uninterrupted render bit for bit;
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time, and the device's idle
-     share in one Renderer.render() of 4a, 4c, 4d, 4g, 4e and 4k; K6's at
-     the gradient path's shape of 4m. The bounds of the kernels that run
+     share in one Renderer.render() of 4a, 4c, 4d, 4g, 4e, 4k and 4o's
+     per-instance route; K6's at the gradient path's shape of 4m. W1 at
+     4o's largest closest-hit launch and on ico5's camera rays, its bound
+     from its work counters (inner nodes, triangle tests) and its
+     registers and spills. The Renderer's synchronous loop against its
+     one-deep pipeline in turns (sync, pipe, pipe, sync) on softdof,
+     mesh_scene, ico5, texture_scene and the photon-mapped
+     caustics_scene: wall, device busy and idle share, the four renders'
+     planes equal bit for bit; the synchronizing operations a dispatch
+     of each under torch.cuda.set_sync_debug_mode("warn"), and, since that
+     mode does not see torch.cuda.Event.synchronize, the event waits in
+     Renderer._read and the host's time blocked in them, in turns. The
+     bounds of the kernels that run
      threefry (K1a-K1d, K6) count the ciphers' integer operations at the
      card's integer rate beside the float32 operations at the float32 rate
      (and print the float32-rate figure of earlier PRs); K1a-K1d also give
@@ -208,6 +246,12 @@ OPS_PER_CIPHER = 120
 # A triangle test (csrc/mesh.cuh tri_hit) is at least 40: six 3-term dot
 # products (30), t (2), the barycentric weights a, b (6) and c (2).
 OPS_PER_TRI = 40
+# W1 (csrc/bvh.cu): an inner node is two slab tests of at least 18 each (6
+# subtractions, 6 multiplies, 6 min/max), and a ray's move into an
+# instance's space 33 (3 subtractions, two 3x3 products of 9 multiplies
+# and 6 adds).
+OPS_PER_NODE = 36
+OPS_PER_XFORM = 33
 # A checker test (csrc/megakernel.cu textured/checker01) is at least 12: the
 # sample position (4 multiplies, 4 adds) and two floors with their
 # subtractions; the compares and the sum are not counted.
@@ -228,6 +272,7 @@ K1D_OFF_BAR = 1e-4
 # lane whose path differs by a last-bit flip moves a field's sum).
 K6_BAR = 3e-2
 MESH_SCENE = os.path.join(HERE, "tests", "assets", "mesh_scene.xml")
+GRID_SCENE = os.path.join(HERE, "tests", "assets", "grid_scene.xml")
 MIRROR_SCENE = os.path.join(HERE, "tests", "assets", "mirror_scene.xml")
 ICO_CENTRE, ICO_RADIUS = (0.0, 50.0, 5.1), 8.0  # mesh_scene's icosphere
 BIG = 1e30
@@ -699,13 +744,14 @@ def main():
     from qaray_tpu_torch.fb.framebuffer import FrameBuffer
     from qaray_tpu_torch import diff
     from qaray_tpu_torch.ops import _build, adjoint, analytic, megakernel
-    from qaray_tpu_torch.ops import mesh_sweep
+    from qaray_tpu_torch.ops import bvh_packed, mesh_sweep, trace
     from qaray_tpu_torch.ops import photon
     from qaray_tpu_torch.ops import intersect as I
     from qaray_tpu_torch.ops import tiles
     from qaray_tpu_torch.ops.mesh_stream import (
         StreamTris,
         _chunk_test,
+        exact_winner,
         stream_any_hit,
         stream_closest,
     )
@@ -719,6 +765,7 @@ def main():
         icosphere,
         with_glass,
         with_mesh,
+        with_shared_mesh,
         with_texture,
     )
     from qaray_tpu_torch.scene.textures import load_image
@@ -749,6 +796,13 @@ def main():
                 print(f"  {name}: {line.strip()}")
     for name in _build.SOURCES:
         _build.load(name)
+    from qaray_tpu_torch import native
+
+    t = time.time()
+    check(native.available(), "the native host library (BVH builder, OBJ "
+          f"parser, PNG encoder) built and loaded in {time.time() - t:.2f} s"
+          f" ({native.error or 'no error'}); compile_scene builds its trees "
+          "with it")
     numbers = {}
 
     def ptxas_info(name, symbol_part):
@@ -864,15 +918,33 @@ def main():
     t = time.time()
     a6, m6 = compile_scene(ico6, device="cuda")
     t6 = time.time() - t
-    # The world BVH is built at compile for tables equal to the JAX
-    # package's; no route of the port walks it yet. Its share of compile:
+    # The world BVH, which W1 walks under QARAY_MESH_PATH=bvh: its share of
+    # compile with the native builder and with the numpy one (the same
+    # tree, node for node).
     wv6 = a6.mesh.tri_v.cpu().numpy()
     t = time.time()
     b6 = bvh_mod.build_bvh(wv6, m6.max_leaf)
     bvh_mod.pack_bvh(b6.bounds, b6.left, b6.right, b6.count, b6.elems, wv6)
     tb6 = time.time() - t
-    print(f"  compiled ico5 in {t5:.3f} s, ico6 in {t6:.3f} s; ico6's BVH "
-          f"build and pack alone {tb6:.3f} s", flush=True)
+    t = time.time()
+    b6n = bvh_mod.build_bvh(wv6, m6.max_leaf, use_native=False)
+    tb6n = time.time() - t
+    check(all(np.array_equal(x, y) for x, y in zip(b6, b6n)),
+          "ico6's native BVH equals the numpy build, node for node")
+    native_build = native.bvh_build_native
+    native.bvh_build_native = lambda *a, **k: None
+    try:
+        t = time.time()
+        compile_scene(ico6, device="cuda")
+        t6n = time.time() - t
+    finally:
+        native.bvh_build_native = native_build
+    print(f"  compiled ico5 in {t5:.3f} s, ico6 in {t6:.3f} s with the "
+          f"native builder, {t6n:.3f} s with the numpy one; ico6's BVH "
+          f"build and pack alone {tb6:.3f} s (numpy build {tb6n:.3f} s)",
+          flush=True)
+    numbers["compile"] = dict(ico6_native_s=t6, ico6_numpy_s=t6n,
+                              ico6_bvh_native_s=tb6, ico6_bvh_numpy_s=tb6n)
     check(m5.num_tris == 20480 and m5.mesh_stream and m5.mesh_mega,
           "ico5: dense-sweep (K3) and megakernel (K1c) tables")
     check(m6.num_tris == 81920 and m6.mesh_tiled and not m6.mesh_mega,
@@ -1081,6 +1153,108 @@ def main():
           f"{pwork[:, 1].double().mean().item():.2f}, of "
           f"{tabs5.mesh_rows.shape[0]} rows", flush=True)
     del pr, dr, pv, dv, got, want, pwork, t_m, row_m
+    torch.cuda.synchronize()
+
+    print("phase 2e: W1 (the packed BVH walk) vs its plain version: "
+          "mesh_scene's icosphere and ico5 through QARAY_MESH_PATH=bvh, and "
+          "grid_scene's 25 transformed instances", flush=True)
+    grid_desc = load_scene(GRID_SCENE)
+    grid_desc.camera.img_width, grid_desc.camera.img_height = 800, 600
+    a_m, m_m = compile_scene(mesh_base, device="cuda")
+    a_5, m_5 = compile_scene(ico5, device="cuda")
+    a_g, m_g = compile_scene(grid_desc, device="cuda", world_bvh=False)
+    check(not m_g.world_bvh and m_g.num_mesh_instances == 25
+          and m_g.num_tris == 320, "grid_scene per instance: 25 instances "
+          "of one 320-triangle tree")
+    w1_sets = {}
+    w1_err = 0.0
+
+    def w1_diff(got, want):
+        # Largest |W1 - plain| over every output (ids and flags as
+        # numbers); equal entries count 0, so a miss's t of BIG is no NaN.
+        out = 0.0
+        for x, y in zip(got, want):
+            x, y = x.double(), y.double()
+            out = max(out, torch.where(x == y, 0.0, (x - y).abs()).max()
+                      .item())
+        return out
+
+    w1_ties = {}
+    gp, gd, *_ = engine.generate_camera_rays(a_g, m_g, cpx, cpy, csid, None)
+    for what, arr, meta, sets in (
+            ("mesh_scene", a_m, m_m, (("random", rp, rd, rt),
+                                      ("camera", cp, cd, None))),
+            ("ico5", a_5, m_5, (("random", rp, rd, rt),
+                              ("vertex", vp, vd, None),
+                              ("camera", cp, cd, None))),
+            ("grid 25 instances", a_g, m_g, (
+                ("camera", gp.contiguous(), gd.contiguous(), None),
+                ("random", *mesh_rays(1 << 20, 31))))):
+        tabs = ((arr.mesh.pnodes, arr.mesh.ltri, arr.instances.proot[:1],
+                 None) if meta.world_bvh else
+                (arr.mesh.pnodes, arr.mesh.ltri, arr.instances.proot,
+                 arr.kernel.inst_xf))
+        stack = meta.bvh_depth + 2
+        for name, p_, d_, t_ in sets:
+            n_ = p_.shape[0]
+            big = torch.full((n_,), BIG, device="cuda")
+            work = torch.zeros((n_, 2), dtype=torch.int32, device="cuda")
+            got = bvh_packed.closest(p_, d_, big, *tabs, stack_size=stack,
+                                     work=work)
+            want = bvh_packed.closest(p_, d_, big, *tabs, stack_size=stack,
+                                      plain=True)
+            torch.cuda.synchronize()
+            w1_err = max(w1_err, w1_diff(got, want))
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"W1 closest {what} {name} ({n_} rays): (t, instance, "
+                  "triangle, bary, front) equal to the plain walk's, "
+                  f"{int((got[2] >= 0).sum())} hits")
+            budget = t_ if t_ is not None else torch.full((n_,), 60.0,
+                                                          device="cuda")
+            occ_in = torch.arange(n_, device="cuda") % 7 == 0
+            occ = bvh_packed.occluded(p_, d_, budget, occ_in, *tabs,
+                                      stack_size=stack)
+            occ_p = bvh_packed.occluded(p_, d_, budget, occ_in, *tabs,
+                                        stack_size=stack, plain=True)
+            w1_err = max(w1_err, w1_diff((occ, ), (occ_p, )))
+            check(torch.equal(occ, occ_p), f"W1 any hit {what} {name}: "
+                  f"occluded equal to the plain walk's ({int(occ.sum())})")
+            if meta.world_bvh:
+                # Exact ties in t (an edge or vertex two triangles share)
+                # go to the triangle visited first; the dense sweep gives
+                # them to the lower id. Lanes where the two differ on the
+                # triangle but not on t:
+                _, gid, _ = stream_closest(p_, d_, big, StreamTris(
+                    arr.mesh.stream_coeff, arr.mesh.stream_const))
+                t_e, *_, valid = exact_winner(p_, d_, gid, arr.mesh.tri_v)
+                hit = got[2] >= 0
+                ties = int((hit & valid & (gid != got[2])
+                            & (t_e == got[0])).sum())
+                off = int((hit & valid & (t_e != got[0])).sum())
+                w1_ties[f"{what} {name}"] = ties
+                print(f"  {what} {name}: {ties} exact-tie lanes where W1 and "
+                      f"the dense sweep take different triangles; {off} "
+                      "lanes where the sweep's winner has another t",
+                      flush=True)
+            w1_sets[f"{what} {name}"] = (p_, d_, tabs, stack)
+    # The route switch itself: under QARAY_MESH_PATH=bvh, ops/trace walks
+    # the world tree with W1 (one launch).
+    os.environ["QARAY_MESH_PATH"] = "bvh"
+    try:
+        before = bvh_packed.launches["W1"]
+        big = torch.full((cp.shape[0],), BIG, device="cuda")
+        via = trace._mesh_closest(a_5, m_5, cp, cd, big)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("QARAY_MESH_PATH", None)
+    via_launches = bvh_packed.launches["W1"] - before
+    direct = bvh_packed.closest(cp, cd, big, *w1_sets["ico5 camera"][2],
+                                stack_size=w1_sets["ico5 camera"][3])
+    check(via_launches == 1
+          and all(torch.equal(x, y) for x, y in zip(via, direct)),
+          "QARAY_MESH_PATH=bvh: ops/trace's world-mesh closest hit is one W1 "
+          "launch")
+    numbers["W1"] = {"max_abs_err": w1_err, "tie_lanes": w1_ties}
     torch.cuda.synchronize()
 
     # -- 3. the megakernel against the engine --------------------------------
@@ -1360,12 +1534,13 @@ def main():
 
     # -- 4. the main path ----------------------------------------------------
     counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
-                tiles.launches, photon.launches, adjoint.launches)
+                tiles.launches, photon.launches, adjoint.launches,
+                bvh_packed.launches)
     forbid = ForbidPlain(
         (analytic, "closest_plain"), (analytic, "closest_full_plain"),
         (analytic, "shadow_plain"), (mesh_sweep, "stream_closest"),
         (mesh_sweep, "stream_any_hit"), (tiles, "walk_plain"),
-        (photon, "photon_gather_plain"))
+        (photon, "photon_gather_plain"), (bvh_packed, "traverse_bvh_packed"))
 
     def reset_counts():
         for counts in counters:
@@ -1380,7 +1555,8 @@ def main():
         out["wavefront_lanes"] = engine.wavefront_lanes
         return out
 
-    def render_main(what, desc, param, no_mega=False, max_mean=10.0):
+    def render_main(what, desc, param, no_mega=False, max_mean=10.0,
+                    world_bvh=True):
         """One Renderer.render() on the main path: counts set to 0 just
         before and read just after, plain versions refused. Returns
         (frame buffer, wall seconds, counts, renderer)."""
@@ -1390,7 +1566,7 @@ def main():
         try:
             with forbid:
                 r = Renderer(param, device="cuda")
-                r.compute_scene(desc)
+                r.compute_scene(desc, world_bvh=world_bvh)
                 torch.cuda.synchronize()
                 t = time.time()
                 fb = r.render()
@@ -1420,10 +1596,10 @@ def main():
     k2c_sizes = {}
     shadow_fn = analytic.shadow
 
-    def shadow_sized(p_, d_, t_, prims_):
+    def shadow_sized(p_, d_, t_, prims_, **kw):
         if p_.is_cuda and p_.shape[0]:
             k2c_sizes[p_.shape[0]] = k2c_sizes.get(p_.shape[0], 0) + 1
-        return shadow_fn(p_, d_, t_, prims_)
+        return shadow_fn(p_, d_, t_, prims_, **kw)
 
     analytic.shadow = shadow_sized
 
@@ -1721,13 +1897,146 @@ def main():
         del out_fast, out_auto
     torch.cuda.synchronize()
 
+    print("phase 4n: mesh_scene and ico5 800x600 x 1 spp under "
+          "QARAY_NO_MEGAKERNEL and QARAY_MESH_PATH=bvh: the world tree on "
+          "W1", flush=True)
+    counts_n = []
+    os.environ["QARAY_MESH_PATH"] = "bvh"
+    try:
+        for what, desc in (("mesh_scene", mesh_base), ("ico5", ico5)):
+            _, _, c_n, _ = render_main(f"{what} bvh route", desc,
+                                       RendererParam(spp_min=1, spp_max=1),
+                                       no_mega=True)
+            check(c_n["W1"] > 0 and c_n["K3"] == 0 and c_n["K1a"] == 0,
+                  f"{what}: W1 launched {c_n['W1']} times, no K3 or K1a")
+            counts_n.append(c_n)
+    finally:
+        os.environ.pop("QARAY_MESH_PATH", None)
+
+    # W1's launches on the per-instance routes by rays, and the rays of
+    # the first closest-hit launch at the largest size, for phase 5.
+    w1_sizes, w1_rays = {}, {}
+    w1_closest, w1_occluded = bvh_packed.closest, bvh_packed.occluded
+
+    def w1_closest_sized(p_, d_, t_, *tabs_, **kw):
+        n_ = p_.shape[0]
+        w1_sizes[("closest", n_)] = w1_sizes.get(("closest", n_), 0) + 1
+        if n_ >= max([0] + [k[1] for k in w1_rays]):
+            w1_rays.clear()
+            w1_rays[("closest", n_)] = (p_.clone(), d_.clone(), t_.clone(),
+                                        tabs_, kw)
+        return w1_closest(p_, d_, t_, *tabs_, **kw)
+
+    def w1_occluded_sized(p_, d_, t_, occ_, *tabs_, **kw):
+        n_ = p_.shape[0]
+        w1_sizes[("any hit", n_)] = w1_sizes.get(("any hit", n_), 0) + 1
+        return w1_occluded(p_, d_, t_, occ_, *tabs_, **kw)
+
+    bvh_packed.closest, bvh_packed.occluded = (w1_closest_sized,
+                                               w1_occluded_sized)
+    print("phase 4o: Renderer, grid_scene 800x600 (25 instances of a "
+          "320-triangle mesh), defaults: per instance (W1) against the world "
+          "route", flush=True)
+    fb_ow, wall_ow, counts_ow, _ = render_main("grid_scene world",
+                                               grid_desc, RendererParam())
+    fb_oi, wall_oi, counts_oi, _ = render_main(
+        "grid_scene per instance", grid_desc, RendererParam(),
+        world_bvh=False)
+    check(counts_oi["W1"] > 0 and counts_oi["K1a"] == 0
+          and counts_oi["K3"] == 0, f"per instance: W1 launched "
+          f"{counts_oi['W1']} times (K2b {counts_oi['K2b']}, K2c "
+          f"{counts_oi['K2c']}), no K1a or K3")
+    a_ = np.asarray(fb_ow.img, np.float32) / 255.0
+    b_ = np.asarray(fb_oi.img, np.float32) / 255.0
+    frac = float((np.abs(a_ - b_).max(axis=-1) > 2 / 255.0).mean())
+    check(frac < 0.005, f"grid_scene: {frac:.6f} of pixels differ by more "
+          "than 2/255 between the routes (< 0.005)")
+    bvh_packed.closest, bvh_packed.occluded = w1_closest, w1_occluded
+    print("  W1's launches in 4o by kind and rays: " + ", ".join(
+        f"{k} {n} x {c}" for (k, n), c in sorted(w1_sizes.items())),
+        flush=True)
+
+    print("phase 4p: a 5x5 grid of ico5 instances (grid_scene with "
+          "procedural.with_shared_mesh) 800x600 x 1 spp: 20,480 triangles "
+          "kept once (W1) against 512,000 baked (the tiled route)",
+          flush=True)
+    grid5 = with_shared_mesh(grid_desc, *icosphere(5), name="ico5")
+    counts_p = []
+    grid5_cells = {}
+    for world in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t = time.time()
+        r5 = Renderer(RendererParam(spp_min=1, spp_max=1), device="cuda")
+        r5.compute_scene(grid5, world_bvh=world)
+        t_compile = time.time() - t
+        what = "baked" if world else "per instance"
+        check(r5.meta.num_tris == (512000 if world else 20480),
+              f"grid of ico5 {what}: {r5.meta.num_tris} triangles")
+        r5.render()  # warm-up
+        r5.fb = FrameBuffer(800, 600)
+        torch.cuda.synchronize()
+        reset_counts()
+        with forbid, torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.time()
+            fb5 = r5.render()
+            torch.cuda.synchronize()
+            wall5 = (time.time() - t) * 1e3
+        c_p = read_counts()
+        busy5 = sum(device_us(e) for e in prof.key_averages()) / 1e3
+        mem = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+        grid5_cells[what] = dict(compile_s=t_compile, wall_ms=wall5,
+                                 busy_ms=busy5, idle_share=1 - busy5 / wall5,
+                                 peak_mib=mem)
+        print(f"  {what}: compile {t_compile:.3f} s, wall {wall5:.3f} ms, "
+              f"device busy {busy5:.3f} ms, idle share "
+              f"{1 - busy5 / wall5:.4f}, peak memory {mem:.1f} MiB above "
+              f"the start; launches {json.dumps(c_p)}", flush=True)
+        check(bool(np.isfinite(fb5.mean).all()) and fb5.mean.mean() > 0,
+              f"{what}: radiance finite and not black")
+        key = "W1" if not world else "K4a"
+        check(c_p[key] > 0, f"{what}: {key} launched {c_p[key]} times")
+        counts_p.append(c_p)
+        del r5, fb5
+    numbers["W1"]["grid5"] = grid5_cells
+
+    print("phase 4q: checkpoints: softdof 800x600, threefry, "
+          "checkpoint_every 2, stopped after its checkpoint at 2 samples "
+          "and resumed, against the uninterrupted render", flush=True)
+    with tempfile.TemporaryDirectory() as ck_dir:
+        def ck_renderer(path, stop_at=None):
+            r = Renderer(RendererParam(rng_impl="threefry2x32",
+                                       checkpoint_every=2,
+                                       checkpoint_path=path), device="cuda")
+            r.compute_scene(scene)
+            if stop_at is not None:
+                r.set_progress_callback(
+                    lambda spp, _: spp >= stop_at and r.signal_stop())
+            return r
+
+        fb_full = ck_renderer(os.path.join(ck_dir, "full.npz")).render()
+        part = os.path.join(ck_dir, "part.npz")
+        ck_renderer(part, stop_at=2).render()
+        saved = FrameBuffer.load_state(part)
+        r_res = ck_renderer(part)
+        r_res.load_checkpoint(part)
+        fb_res = r_res.render()
+        check(int(saved.count.max()) == 2 and all(
+            np.array_equal(getattr(fb_res, k), getattr(fb_full, k))
+            for k in ("mean", "color_std", "count", "zbuffer")),
+            "resumed from the checkpoint at 2 samples: mean, std, count and "
+            "depth equal to the uninterrupted render's, bit for bit")
+
     launches = {k: sum(c[k] for c in (counts_a, counts_b, counts_c, counts_d,
                                        counts_e, counts_f, counts_g, counts_h,
                                        counts_i, *counts_j, counts_k,
-                                       counts_l, *counts_m))
+                                       counts_l, *counts_m, *counts_n,
+                                       counts_ow, counts_oi, *counts_p))
                 for k in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c",
-                          "K3", "K4a", "K4b", "K5", "K6")}
-    print(f"  launches on the main path (4a-4m): {json.dumps(launches)}",
+                          "K3", "K4a", "K4b", "K5", "K6", "W1")}
+    print(f"  launches on the main path (4a-4p): {json.dumps(launches)}",
           flush=True)
     analytic.shadow = shadow_fn
     analytic.closest_full = full_fn
@@ -2423,12 +2732,63 @@ def main():
         print(f"  K6 {symbol}: {json.dumps(info)}", flush=True)
     torch.cuda.synchronize()
 
+    # W1 at the per-instance route's largest closest-hit launch of 4o (the
+    # first bounce of a packed phase-1 dispatch over 25 instances), and on
+    # the camera rays of ico5's world tree (4n's route). Its bound counts
+    # the work its counters report: inner nodes (two slab tests each) and
+    # triangle tests, and the rays' moves into each instance's space.
+    (_, n_w), (p_w, d_w, t_w, tabs_w, kw_w) = next(iter(w1_rays.items()))
+    w1_rows = {}
+    for what, (p_, d_, t_, tabs_, kw_) in (
+            ("grid per instance", (p_w, d_w, t_w, tabs_w, kw_w)),
+            ("ico5 world", (cp, cd, torch.full((cp.shape[0],), BIG,
+                                               device="cuda"),
+                            w1_sets["ico5 camera"][2],
+                            dict(stack_size=w1_sets["ico5 camera"][3])))):
+        n_ = p_.shape[0]
+        work = torch.zeros((n_, 2), dtype=torch.int32, device="cuda")
+        bvh_packed.closest(p_, d_, t_, *tabs_, work=work, **kw_)
+        ms, src = kernel_ms(lambda: bvh_packed.closest(p_, d_, t_, *tabs_,
+                                                       **kw_), "bvh_kernel")
+        plain_ms = cuda_ms(lambda: bvh_packed.closest(
+            p_, d_, t_, *tabs_, **dict(kw_, plain=True)), 1)
+        inner, tested = (int(x) for x in work.sum(0))
+        n_inst = tabs_[2].numel()
+        table_bytes = sum(x.numel() * x.element_size()
+                          for x in tabs_ if x is not None)
+        nbytes = n_ * (24 + 4 + 25) + table_bytes
+        ops = (inner * OPS_PER_NODE + tested * OPS_PER_TRI
+               + (n_ * n_inst * OPS_PER_XFORM if tabs_[3] is not None else 0))
+        b_ms, b_by = bound(nbytes, ops)
+        steps = work.sum(1).double()
+        warp = steps[: n_ // 32 * 32].reshape(-1, 32)
+        w1_rows[what] = dict(
+            ms=ms, timed_by=src, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, lanes=n_, instances=n_inst,
+            inner_nodes_per_ray=inner / n_, tri_tests_per_ray=tested / n_,
+            warp_max_over_mean=(warp.max(1).values.mean()
+                                / warp.mean(1).mean()).item())
+        print(f"  W1 {what}, {n_} rays x {n_inst} instances: {ms:.4f} ms by "
+              f"{src}, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by}; {inner / n_:.2f} inner nodes and {tested / n_:.2f} "
+              "triangle tests a ray, a warp's slowest lane "
+              f"{w1_rows[what]['warp_max_over_mean']:.3f}x its mean",
+              flush=True)
+    numbers["W1"].update(w1_rows["grid per instance"])
+    numbers["W1"]["ico5_world"] = w1_rows["ico5 world"]
+    numbers["W1"]["ptxas"] = {
+        k: ptxas_info("bvh", sym) for k, sym in (
+            ("closest", "bvh_kernelILb0E"), ("any_hit", "bvh_kernelILb1E"))}
+    print(f"  W1 ptxas: {json.dumps(numbers['W1']['ptxas'])}", flush=True)
+    torch.cuda.synchronize()
+
     # Device busy share of one Renderer.render() at the 4a, 4c, 4d, 4g, 4e
-    # and 4k settings (4k on phase 4k's renderer, whose maps are built).
-    def profile_render(what, desc, param, r=None):
+    # and 4k settings (4k on phase 4k's renderer, whose maps are built) and
+    # of 4o's per-instance route.
+    def profile_render(what, desc, param, r=None, world_bvh=True):
         if r is None:
             r = Renderer(param, device="cuda")
-            r.compute_scene(desc)
+            r.compute_scene(desc, world_bvh=world_bvh)
         else:
             r.fb = FrameBuffer(r.meta.img_width, r.meta.img_height)
         torch.cuda.synchronize()
@@ -2460,6 +2820,121 @@ def main():
     profile_render("ico6 1 spp", ico6, RendererParam(spp_min=1, spp_max=1))
     profile_render("caustics_scene photon map defaults", caus_desc, p_photon,
                    r_k)
+    profile_render("grid_scene per instance defaults", grid_desc,
+                   RendererParam(), world_bvh=False)
+
+    # The Renderer's synchronous loop (Renderer._pipelined False) against
+    # its one-deep pipeline, in turns (sync, pipe, pipe, sync; twice on
+    # the photon-mapped scene, whose walls swing most) on one renderer a
+    # scene: wall, device busy and idle share under the profiler, and the
+    # planes of all the renders equal, bit for bit.
+    def turns(what, desc, param, r=None, rounds=1):
+        if r is None:
+            r = Renderer(param, device="cuda")
+            r.compute_scene(desc)
+        w_, h_ = r.meta.img_width, r.meta.img_height
+        r.fb = FrameBuffer(w_, h_)
+        r.render()
+        rows, fbs = [], []
+        for pipelined in (False, True, True, False) * rounds:
+            r._pipelined = pipelined
+            r.fb = FrameBuffer(w_, h_)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as pr:
+                t = time.time()
+                fbs.append(r.render())
+                torch.cuda.synchronize()
+                wall_t = (time.time() - t) * 1e3
+            busy_t = sum(device_us(e) for e in pr.key_averages()) / 1e3
+            rows.append((wall_t, busy_t, 1.0 - busy_t / wall_t))
+        r._pipelined = True
+        print(f"  {what} {'sync/pipe/pipe/sync ' * rounds}: walls " + " / ".join(
+            f"{x[0]:.3f}" for x in rows) + " ms, busy " + " / ".join(
+            f"{x[1]:.3f}" for x in rows) + " ms, idle shares " + " / ".join(
+            f"{x[2]:.4f}" for x in rows), flush=True)
+        check(all(np.array_equal(getattr(f, k), getattr(fbs[0], k))
+                  for f in fbs[1:] for k in ("mean", "color_std", "count",
+                                             "zbuffer", "irrad")),
+              f"{what}: pipelined and synchronous planes equal, bit for bit")
+        return rows
+
+    pipeline_turns = {}
+    for what, desc in (("softdof", scene), ("mesh_scene", mesh_base),
+                       ("ico5", ico5), ("texture_scene", tex_desc)):
+        pipeline_turns[what] = turns(what, desc, RendererParam())
+    pipeline_turns["caustics_scene photon map"] = turns(
+        "caustics_scene photon map", caus_desc, p_photon, r_k, rounds=2)
+
+    # Host syncs a dispatch round under torch.cuda.set_sync_debug_mode:
+    # one render of softdof with the defaults in each mode.
+    import warnings
+
+    sync_counts = {}
+    for pipelined in (False, True):
+        r_s = Renderer(RendererParam(), device="cuda")
+        r_s.compute_scene(scene)
+        r_s._pipelined = pipelined
+        r_s.render()
+        r_s.fb = FrameBuffer(800, 600)
+        stage, staged = r_s._stage, [0]
+
+        def stage_counted(*args, _stage=stage, _n=staged):
+            _n[0] += 1
+            return _stage(*args)
+
+        r_s._stage = stage_counted
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r_s.render()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n_sync = sum("synchroniz" in str(w_.message) for w_ in caught)
+        mode = "pipelined" if pipelined else "synchronous"
+        sync_counts[mode] = dict(syncs=n_sync, dispatches=staged[0])
+        print(f"  softdof {mode}: {n_sync} synchronizing operations over "
+              f"{staged[0]} dispatches ({n_sync / max(staged[0], 1):.2f} a "
+              "dispatch)", flush=True)
+    # set_sync_debug_mode does not see torch.cuda.Event.synchronize, the
+    # wait in Renderer._read (once a dispatch, in either loop). Its calls
+    # and the host's time blocked in them, over renders of softdof with the
+    # defaults in turns (sync, pipe, pipe, sync), beside each render's wall.
+    r_w = Renderer(RendererParam(), device="cuda")
+    r_w.compute_scene(scene)
+    r_w.render()
+    read = r_w._read
+    event_waits = []
+    for pipelined in (False, True, True, False):
+        waited = [0, 0.0]
+
+        def read_timed(job, _read=read, _w=waited):
+            if not job.done_reading and job.event is not None:
+                t0 = time.perf_counter()
+                job.event.synchronize()
+                _w[1] += (time.perf_counter() - t0) * 1e3
+                _w[0] += 1
+            return _read(job)
+
+        r_w._read = read_timed
+        r_w._pipelined = pipelined
+        r_w.fb = FrameBuffer(800, 600)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r_w.render()
+        torch.cuda.synchronize()
+        wall_w = (time.perf_counter() - t) * 1e3
+        mode = "pipelined" if pipelined else "synchronous"
+        event_waits.append(dict(mode=mode, waits=waited[0],
+                                blocked_ms=waited[1], wall_ms=wall_w))
+        print(f"  softdof {mode}: {waited[0]} event waits in _read, host "
+              f"blocked {waited[1]:.3f} ms of a {wall_w:.3f} ms wall",
+              flush=True)
+    numbers["renderer"] = dict(pipeline_turns=pipeline_turns,
+                               sync_debug=sync_counts,
+                               event_waits=event_waits)
 
     meta_k = {
         "K1a": ("qaray_tpu_torch/csrc/megakernel.cu",
@@ -2486,10 +2961,12 @@ def main():
                 "qaray_tpu/ops/pallas_analytic.py:174"),
         "K6": ("qaray_tpu_torch/csrc/adjoint.cu",
                "qaray_tpu/ops/pallas_adjoint.py:639"),
+        "W1": ("qaray_tpu_torch/csrc/bvh.cu",
+               "qaray_tpu/ops/bvh_packed.py:126 (XLA)"),
     }
     kernels = []
     for name in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c", "K3", "K4a",
-                 "K4b", "K5", "K6"):
+                 "K4b", "K5", "K6", "W1"):
         src, rep = meta_k[name]
         row = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                "launches": launches[name]}

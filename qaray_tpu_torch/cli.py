@@ -35,13 +35,14 @@ from qaray_tpu_torch.integrators.engine import INTEGRATORS
 from qaray_tpu_torch.renderer import Renderer, RendererParam
 from qaray_tpu_torch.scene.xml_parser import load_scene
 
+# Flags of later slices: what they bring, and the slice.
 _LATER = {
-    "-devices": "multi-device rendering",
-    "-multihost": "multihost rendering",
-    "-rank-debug": "rank-debug planes",
-    "-coordinator": "multihost rendering",
-    "-serve": "the preview server",
-    "-profile": "profiling",
+    "-devices": ("multi-device rendering", "multi-device"),
+    "-multihost": ("multihost rendering", "multi-device"),
+    "-rank-debug": ("rank-debug planes", "multi-device"),
+    "-coordinator": ("multihost rendering", "multi-device"),
+    "-serve": ("the preview server", "preview-server"),
+    "-profile": ("profiling", "timing and profiling"),
 }
 
 
@@ -116,8 +117,9 @@ def parse_args(argv):
             raise ValueError("-platform selects a JAX backend; the port "
                              "takes -device cpu")
         elif a in _LATER:
+            what, slice_ = _LATER[a]
             raise NotImplementedError(
-                f"{a}: {_LATER[a]} come with a later slice of the port")
+                f"{a}: {what} come with the {slice_} slice of the port")
         else:
             scene_file = a
         i += 1

@@ -1,29 +1,33 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
 // compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu,
-// photon.cu, analytic.cu) as C++ and run them on the CPU
+// photon.cu, analytic.cu, bvh.cu) as C++ and run them on the CPU
 // (ops/_build.load_host). The CPU tests use it to hold a source's
 // arithmetic to the plain PyTorch version where there is no card and no
 // nvcc. It says nothing about what nvcc accepts or how fast the kernel is.
 //
 // A launch runs its grid in host blocks of qr_host_set_block threads (1 by
-// default), one block after another. A block of one thread runs on the
-// calling thread, and __syncthreads has nothing to wait for. A larger
-// block runs each of its threads on a std::thread of its own, with a
-// barrier (QrHostBarrier) for __syncthreads, __syncthreads_or and
-// __syncthreads_count and the dynamic shared memory shared among them, so
-// that code which hands work between a block's threads runs as it does on
-// the card. A block of 32 is a warp: __ballot_sync gathers its threads'
-// votes at the block's barrier. Not reentrant: the launch geometry lives
-// in globals.
+// default), one block after another, all on the calling thread. A block of
+// one thread runs as a plain call, and __syncthreads has nothing to wait
+// for. A larger block runs each of its threads as a fiber (ucontext) with
+// a stack of its own, and the dynamic shared memory shared among them:
+// the fibers take turns in a fixed order, each running until it reaches a
+// barrier (__syncthreads, __syncthreads_or, __syncthreads_count,
+// __ballot_sync) or returns, so that code which hands work between a
+// block's threads runs as it does on the card, with no OS thread to wake
+// and no lock to contend for. A block of 32 is a warp: __ballot_sync
+// gathers its threads' votes at the block's barrier. Not reentrant: the
+// launch geometry lives in globals.
 #pragma once
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
+#include <stdlib.h>
+#include <ucontext.h>
+
 #include <atomic>
-#include <mutex>
-#include <thread>
+#include <utility>
 #include <vector>
 
 #define __device__
@@ -50,44 +54,25 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 static int qr_host_error = cudaSuccess;
 static unsigned qr_host_block = 1;
-// A block's barrier: the last of its threads to arrive opens the next
-// phase; the others yield a while, then sleep until it does (a host block
-// of 32 threads that ballots as a warp passes a barrier every few
-// operations, which a sleep and a wake-up each time would slow tenfold).
-struct QrHostBarrier {
-  explicit QrHostBarrier(int n) : expected(n) {}
-  void arrive(bool drop) {
-    std::unique_lock<std::mutex> lk(m);
-    const int ph = phase.load();
-    if (drop)
-      --expected;
-    else
-      ++arrived;
-    if (arrived == expected) {
-      arrived = 0;
-      phase.store(ph + 1);
-      phase.notify_all();
-      return;
-    }
-    lk.unlock();
-    if (drop) return;
-    for (int k = 0; k < 64 && phase.load() == ph; ++k)
-      std::this_thread::yield();
-    while (phase.load() == ph) phase.wait(ph);
-  }
-  void arrive_and_wait() { arrive(false); }
-  void arrive_and_drop() { arrive(true); }
-  std::mutex m;
-  int expected, arrived = 0;
-  std::atomic<int> phase{0};
+// A block of fibers: the launching thread's context, one context and
+// stack for each card thread, and which of them have returned.
+struct QrHostFibers {
+  ucontext_t host;
+  std::vector<ucontext_t> ctx;
+  std::vector<char*> stacks;
+  std::vector<char> done;
+  unsigned current = 0;
 };
-static QrHostBarrier* qr_host_bar = nullptr;
+static QrHostFibers* qr_host_bar = nullptr;
+// A fiber's stack: kernels keep their per-thread arrays (walk stacks,
+// sample pools) there.
+enum { kQrHostStack = 1 << 20 };
 // The accumulators of __syncthreads_or, __syncthreads_count and
 // __ballot_sync: call k of a block uses slot k % 3, and thread 0 clears
 // the slot of call k + 1 before it arrives at call k's barrier, when every
 // thread has read that slot's last value (call k - 2).
 static std::atomic<int> qr_host_sum[3];
-static thread_local unsigned qr_host_sum_calls = 0;
+static unsigned qr_host_sum_calls[1024];
 
 // Threads a host block (tests only).
 extern "C" int qr_host_set_block(int threads) {
@@ -122,15 +107,21 @@ int cudaMemcpyToSymbol(T& dst, const void* src, size_t n) {
   memcpy(&dst, src, n);
   return cudaSuccess;
 }
+// A fiber's barrier: hand the turn back to the block's scheduler, which
+// resumes this fiber once every thread of the block has arrived.
+inline void qr_host_arrive() {
+  QrHostFibers* f = qr_host_bar;
+  swapcontext(&f->ctx[f->current], &f->host);
+}
 inline void __syncthreads() {
-  if (qr_host_bar) qr_host_bar->arrive_and_wait();
+  if (qr_host_bar) qr_host_arrive();
 }
 inline int __syncthreads_count(int pred) {
   if (!qr_host_bar) return pred != 0;
-  const unsigned k = qr_host_sum_calls++ % 3;
+  const unsigned k = qr_host_sum_calls[threadIdx.x]++ % 3;
   if (threadIdx.x == 0) qr_host_sum[(k + 1) % 3].store(0);
   if (pred) qr_host_sum[k].fetch_add(1);
-  qr_host_bar->arrive_and_wait();
+  qr_host_arrive();
   return qr_host_sum[k].load();
 }
 inline int __syncthreads_or(int pred) {
@@ -141,10 +132,10 @@ inline int __syncthreads_or(int pred) {
 inline unsigned __ballot_sync(unsigned, int pred) {
   const int bit = (int)(1u << (threadIdx.x % 32));
   if (!qr_host_bar) return pred ? (unsigned)bit : 0u;
-  const unsigned k = qr_host_sum_calls++ % 3;
+  const unsigned k = qr_host_sum_calls[threadIdx.x]++ % 3;
   if (threadIdx.x == 0) qr_host_sum[(k + 1) % 3].store(0);
   if (pred) qr_host_sum[k].fetch_or(bit);
-  qr_host_bar->arrive_and_wait();
+  qr_host_arrive();
   return (unsigned)qr_host_sum[k].load();
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
@@ -156,6 +147,11 @@ inline float __uint_as_float(unsigned a) {
   float f;
   memcpy(&f, &a, 4);
   return f;
+}
+inline int __float_as_int(float f) {
+  int a;
+  memcpy(&a, &f, 4);
+  return a;
 }
 inline unsigned __float_as_uint(float f) {
   unsigned a;
@@ -179,12 +175,31 @@ inline int min(int a, int b) { return a < b ? a : b; }
 #define QR_HOST_SMEM_FLOATS (227 * 256)
 #define QR_SHARED_FLOATS(name) alignas(16) static float name[QR_HOST_SMEM_FLOATS]
 
+// The body a fiber runs: the launch's kernel and argument, and the
+// fiber's card thread index (makecontext passes int arguments only).
+static void (*qr_host_body)(const void*);
+static const void* qr_host_arg;
+static void qr_host_fiber(int t) {
+  QrHostFibers* f = qr_host_bar;
+  qr_host_body(qr_host_arg);
+  f->done[t] = 1;
+  swapcontext(&f->ctx[t], &f->host);
+}
+template <class K, class A>
+static void qr_host_call(const void* arg) {
+  (*static_cast<const std::pair<K, const A*>*>(arg)->first)(
+      *static_cast<const std::pair<K, const A*>*>(arg)->second);
+}
+
 // Runs kernel(arg) over `blocks` blocks of `threads` card threads, as
-// blocks of qr_host_block host threads.
+// blocks of qr_host_block host threads. A block of fibers runs in rounds:
+// each live fiber in turn, in thread order, until it arrives at a barrier
+// or returns; a round ends with every live fiber at the same barrier.
 template <class K, class A>
 void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
                     size_t smem, const A& arg) {
-  if (smem > sizeof(float) * QR_HOST_SMEM_FLOATS) {
+  if (smem > sizeof(float) * QR_HOST_SMEM_FLOATS ||
+      qr_host_block > sizeof(qr_host_sum_calls) / sizeof(unsigned)) {
     qr_host_error = cudaErrorInvalidValue;
     return;
   }
@@ -192,28 +207,48 @@ void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
   const unsigned total = blocks * threads;
   blockDim.x = nb;
   gridDim.x = (total + nb - 1) / nb;
-  for (unsigned b = 0; b < (total + nb - 1) / nb; ++b) {
-    if (nb == 1) {
+  threadIdx.y = threadIdx.z = blockIdx.y = blockIdx.z = 0;
+  if (nb == 1) {
+    for (unsigned b = 0; b < gridDim.x; ++b) {
       blockIdx.x = b;
       threadIdx.x = 0;
       kernel(arg);
-      continue;
     }
-    QrHostBarrier bar((int)nb);
-    qr_host_bar = &bar;
-    for (auto& slot : qr_host_sum) slot.store(0);
-    std::vector<std::thread> team;
-    for (unsigned t = 0; t < nb; ++t)
-      team.emplace_back([&, t] {
-        blockIdx.x = b;
-        threadIdx.x = t;
-        qr_host_sum_calls = 0;
-        kernel(arg);
-        bar.arrive_and_drop();
-      });
-    for (auto& th : team) th.join();
-    qr_host_bar = nullptr;
+    return;
   }
+  static QrHostFibers fibers;
+  fibers.ctx.resize(nb);
+  fibers.done.assign(nb, 0);
+  while (fibers.stacks.size() < nb)
+    fibers.stacks.push_back(static_cast<char*>(malloc(kQrHostStack)));
+  const std::pair<K, const A*> call(kernel, &arg);
+  qr_host_body = &qr_host_call<K, A>;
+  qr_host_arg = &call;
+  qr_host_bar = &fibers;
+  for (unsigned b = 0; b < gridDim.x; ++b) {
+    blockIdx.x = b;
+    for (unsigned t = 0; t < nb; ++t) {
+      getcontext(&fibers.ctx[t]);
+      fibers.ctx[t].uc_stack.ss_sp = fibers.stacks[t];
+      fibers.ctx[t].uc_stack.ss_size = kQrHostStack;
+      fibers.ctx[t].uc_link = nullptr;
+      makecontext(&fibers.ctx[t], (void (*)())qr_host_fiber, 1, (int)t);
+      fibers.done[t] = 0;
+      qr_host_sum_calls[t] = 0;
+    }
+    for (auto& slot : qr_host_sum) slot.store(0);
+    for (unsigned live = nb; live > 0;) {
+      live = 0;
+      for (unsigned t = 0; t < nb; ++t) {
+        if (fibers.done[t]) continue;
+        fibers.current = t;
+        threadIdx.x = t;
+        swapcontext(&fibers.host, &fibers.ctx[t]);
+        live += !fibers.done[t];
+      }
+    }
+  }
+  qr_host_bar = nullptr;
 }
 
 #define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg) \

@@ -3,9 +3,11 @@
 Counterpart of qaray_tpu/fb/device_accum.py. The per-pixel Welford planes
 live on the render device; each round's radiance updates them there, and
 only the convergence mask, the count of skipped lanes and the final planes
-cross to the host. Where JAX returned new arrays, these functions update
-the planes in place (one copy of the image state instead of two). With
-photon maps a fourth plane max-folds the irradiance debug flags.
+cross to the host. The folds read nothing on the host: the count of
+skipped lanes comes back as a device tensor, which the Renderer reads when
+it retires the dispatch. Where JAX returned new arrays, these functions
+update the planes in place (one copy of the image state instead of two).
+With photon maps a fourth plane max-folds the irradiance debug flags.
 
 The recurrence is the reference's (SuperSamplerHalton::Accumulate,
 scene/scene.cpp:113-123):
@@ -42,16 +44,17 @@ def _welford(mean, std, count, colors):
 def _fold(state, where, colors, skip):
     """Welford update of the rows `where` (an index tensor or a slice);
     rows of skipped lanes keep their values and count. Returns the number
-    of skipped lanes."""
+    of skipped lanes as a 0-d int tensor on the device (None without
+    skip)."""
     m, sd, c = state["mean"][where], state["std"][where], state["count"][where]
     mean, std, count = _welford(m, sd, c, colors)
-    n_skip = 0
+    n_skip = None
     if skip is not None:
         keep = skip[:, None]
         mean = torch.where(keep, m, mean)
         std = torch.where(keep, sd, std)
         count = torch.where(skip, c, count)
-        n_skip = int(skip.sum())
+        n_skip = skip.sum()
     state["mean"][where] = mean
     state["std"][where] = std
     state["count"][where] = count
@@ -64,7 +67,7 @@ def accumulate_round(state, pixel_ids, colors, skip=None, irr=None):
     skip: optional bool [B], lanes NOT folded by this call (gather-escalated
     lanes, folded later with their exact radiance); irr: optional bool [B],
     max-folded into the irradiance plane (skipped lanes not, as in the JAX
-    package). Returns the number of skipped lanes."""
+    package). Returns the number of skipped lanes (_fold)."""
     ids = pixel_ids.long()
     n_skip = _fold(state, ids, colors, skip)
     if "irr" in state and irr is not None:
@@ -86,14 +89,23 @@ def accumulate_contig(state, start: int, colors, skip=None, irr=None):
     return n_skip
 
 
-def unconverged_ids(state, threshold, spp) -> np.ndarray:
+def unconverged_ids(state, threshold, spp, on_device: bool = False):
     """Pixels still over the adaptive threshold at exactly `spp` samples
-    (the host-side compaction input; one bool plane crosses to the host)."""
-    th = torch.as_tensor(threshold, dtype=torch.float32,
-                         device=state["std"].device)
-    over = (state["std"] > th[None, :]).any(dim=-1)
+    (the host-side compaction input; one bool plane crosses to the host,
+    the round's one synchronizing read). With on_device, (host ids, the
+    same ids on the device, copied there from pinned memory without a
+    wait)."""
+    std = state["std"]
+    over = ((std[:, 0] > threshold[0]) | (std[:, 1] > threshold[1])
+            | (std[:, 2] > threshold[2]))
     mask = (over & (state["count"] == spp)).cpu().numpy()
-    return np.nonzero(mask)[0].astype(np.int32)
+    ids = np.nonzero(mask)[0].astype(np.int32)
+    if not on_device:
+        return ids
+    host = torch.from_numpy(ids)
+    if std.device.type == "cuda":
+        host = host.pin_memory()
+    return ids, host.to(std.device, non_blocking=True)
 
 
 def sync_to_fb(state, fb):

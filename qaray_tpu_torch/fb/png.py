@@ -1,4 +1,5 @@
-"""PNG writing: PIL when present, else a minimal pure-python encoder.
+"""PNG writing: the native encoder, else PIL, else a minimal pure-python
+encoder.
 
 Replaces the reference's vendored lodepng (fb/framebuffer.cpp:109-143).
 """
@@ -12,9 +13,15 @@ import numpy as np
 def write_png(filename: str, array: np.ndarray):
     """array: [H, W] (grey) or [H, W, 3] (RGB) uint8.
 
-    Encoder preference: PIL, then the pure python encoder below.
+    Encoder preference: the port's native zlib encoder
+    (qaray_tpu_torch/native.py), then PIL, then the pure python encoder
+    below.
     """
     array = np.ascontiguousarray(array.astype(np.uint8))
+    from qaray_tpu_torch import native
+
+    if native.png_write_native(filename, array):
+        return
     try:
         from PIL import Image
 

@@ -23,7 +23,8 @@ one lane at a time or in blocks of threads (qr_host_set_block), so that
 tests without a card can hold the source's arithmetic to the plain version
 (ops/megakernel.mega_render_host, ops/adjoint.adjoint_render_host,
 ops/tiles.tiled_sweep_host, ops/mesh_sweep.sweep_host,
-ops/analytic.closest_host, closest_full_host, shadow_host). No entry point
+ops/analytic.closest_host, closest_full_host, shadow_host,
+ops/bvh_packed.walk_host). No entry point
 of the port uses it.
 """
 
@@ -37,8 +38,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = {"adjoint": "adjoint.cu", "analytic": "analytic.cu",
-           "megakernel": "megakernel.cu", "photon": "photon.cu",
-           "tiles": "tiles.cu"}
+           "bvh": "bvh.cu", "megakernel": "megakernel.cu",
+           "photon": "photon.cu", "tiles": "tiles.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
@@ -106,8 +107,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def load_host(name: str) -> ctypes.CDLL:
-    """`name`'s source compiled for the CPU by g++ (C++20 for the host
-    blocks' std::barrier; -O1, no FMA contraction, as the card's build has
+    """`name`'s source compiled for the CPU by g++ (C++20 for the shim's
+    std::atomic_ref; -O1, no FMA contraction, as the card's build has
     none), loaded; raises RuntimeError without g++
     or for a source that does not go through csrc/host/cuda_runtime.h's
     macros (every source does)."""

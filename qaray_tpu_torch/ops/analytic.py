@@ -163,21 +163,23 @@ _FULL_KEYS = ("t", "prim_idx", "mtl", "n", "uvw", "front", "p",
               "has_texture")
 
 
-def closest_full(p, d, prims: AnalyticPrims, want_uv=True):
+def closest_full(p, d, prims: AnalyticPrims, want_uv=True, plain=False):
     """Closest hit and the winner's attributes: t, prim_idx, p (world hit
     point at t, or at t=1 on a miss), n (world, unit), uvw, front, mtl,
     has_texture. Miss lanes carry benign values (prim 0 on the kernel; the
     plain version evaluates prim 0 at t=1). want_uv False leaves uvw 0 on
     every lane (_kernel_full's static want_uv: no material texture reads
-    it). Differentiable in t only (_ClosestFull)."""
+    it). Differentiable in t only (_ClosestFull). plain: the plain version
+    on any device (QARAY_NO_PALLAS, meta.force_xla)."""
     _check_rays(p, d, prims)
     out = _ClosestFull.apply(p, d, prims.m_w2o, prims.t_o2w, prims,
-                             bool(want_uv))
+                             bool(want_uv), bool(plain))
     return dict(zip(_FULL_KEYS, out))
 
 
-def _closest_full_fwd(p, d, prims: AnalyticPrims, want_uv, own_t=False):
-    if p.device.type == "cpu":
+def _closest_full_fwd(p, d, prims: AnalyticPrims, want_uv, own_t=False,
+                      plain=False):
+    if p.device.type == "cpu" or plain:
         return closest_full_plain(p, d, prims, want_uv)
     out = _full_launch(_lib(), p, d, prims, want_uv, _stream(),
                        "K2b closest_full", own_t)
@@ -285,9 +287,10 @@ class _ClosestFull(torch.autograd.Function):
     forward, winner-only backward; the attributes are detached."""
 
     @staticmethod
-    def forward(ctx, p, d, m_w2o, t_o2w, prims, want_uv):
+    def forward(ctx, p, d, m_w2o, t_o2w, prims, want_uv, plain):
         full = _closest_full_fwd(p, d, prims, want_uv,
-                                 own_t=any(ctx.needs_input_grad[:4]))
+                                 own_t=any(ctx.needs_input_grad[:4]),
+                                 plain=plain)
         out = tuple(full[k] for k in _FULL_KEYS)
         ctx.kind = prims.kind
         ctx.save_for_backward(p, d, m_w2o, t_o2w, full["t"],
@@ -297,7 +300,7 @@ class _ClosestFull(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dt, *_attrs):
-        return (*_winner_grads(ctx, dt), None, None)
+        return (*_winner_grads(ctx, dt), None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -310,10 +313,11 @@ def shadow_plain(p, d, t_max, prims: AnalyticPrims):
     return (t_all < t_max[:, None]).any(dim=-1)
 
 
-def shadow(p, d, t_max, prims: AnalyticPrims):
-    """Occluded [B] bool: some primitive has BIAS < t < t_max."""
+def shadow(p, d, t_max, prims: AnalyticPrims, plain=False):
+    """Occluded [B] bool: some primitive has BIAS < t < t_max. plain: the
+    plain version on any device (QARAY_NO_PALLAS, meta.force_xla)."""
     _check_rays(p, d, prims, t_max)
-    if p.device.type == "cpu":
+    if p.device.type == "cpu" or plain:
         return shadow_plain(p, d, t_max, prims)
     n = p.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=p.device)

@@ -188,24 +188,25 @@ def _run(p, d, t_cur, walk, any_hit, steps):
     return out
 
 
-def sweep_closest(p, d, t_cur, coeff16, walk=None, steps=None):
+def sweep_closest(p, d, t_cur, coeff16, walk=None, steps=None, plain=False):
     """Closest triangle below t_cur per ray: (t [B], row [B] or -1, row2
     [B] runner-up or -1), the dense sweep's (t, row, row2) on every ray.
     Rows index coeff16 (the world triangle ids). walk: the compiled scene's
     tables (walk_of), which the kernel reads; steps: optional int32 [B]
-    filled on the card with the clusters each ray visited."""
+    filled on the card with the clusters each ray visited. plain: the
+    plain version on any device (QARAY_NO_PALLAS, meta.force_xla)."""
     _check(p, d, t_cur, coeff16)
-    if p.device.type == "cpu":
+    if p.device.type == "cpu" or plain:
         return stream_closest(p, d, t_cur, unpack_coeff16(coeff16),
                               chunk=_plain_chunk(coeff16))
     return _run(p, d, t_cur, walk, False, steps)
 
 
-def sweep_occluded(p, d, t_max, coeff16, walk=None, steps=None):
+def sweep_occluded(p, d, t_max, coeff16, walk=None, steps=None, plain=False):
     """Occluded [B] bool: some triangle has BIAS < t < t_max. On the card,
-    the walk stops a ray at its first occluder."""
+    the walk stops a ray at its first occluder (plain: as sweep_closest)."""
     _check(p, d, t_max, coeff16)
-    if p.device.type == "cpu":
+    if p.device.type == "cpu" or plain:
         return stream_any_hit(p, d, t_max, unpack_coeff16(coeff16),
                               chunk=_plain_chunk(coeff16))
     return _run(p, d, t_max, walk, True, steps)

@@ -230,7 +230,8 @@ def _check_tree(tiles: TiledMesh, tree, device):
 
 
 def tiled_sweep_kernel(p, d, t_cur, tiles: TiledMesh, coeffT, *, tree,
-                       any_hit=False, max_steps=0, steps=None, work=None):
+                       any_hit=False, max_steps=0, steps=None, work=None,
+                       plain=False):
     """Counterpart of pallas_tiled_sweep, one ray at a time.
 
     closest: (t [B], row [B], row2 [B], resolved [B] bool), sorted-row ids
@@ -242,7 +243,8 @@ def tiled_sweep_kernel(p, d, t_cur, tiles: TiledMesh, coeffT, *, tree,
     tile_tree (the walk on the card reads it). steps, work: optional int32 [B]
     tensors filled with the clusters each ray visited and 256 for each of
     those whose entry bound was below the ray's best t when it was visited
-    (any hit: every visited cluster), for roofline bounds."""
+    (any hit: every visited cluster), for roofline bounds. plain: the
+    plain version on any device (QARAY_NO_PALLAS, meta.force_xla)."""
     _check(p, d, t_cur, coeffT, tiles)
     _check_tree(tiles, tree, p.device)
     for name, out in (("steps", steps), ("work", work)):
@@ -252,7 +254,7 @@ def tiled_sweep_kernel(p, d, t_cur, tiles: TiledMesh, coeffT, *, tree,
                                 or not out.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 "
                              f"{list(t_cur.shape)} on the rays' device")
-    if p.device.type == "cpu":
+    if p.device.type == "cpu" or plain:
         out = walk_plain(p, d, t_cur, coeffT, tiles.cbounds, any_hit,
                          max_steps)
         for dst, src in ((steps, out[4]), (work, out[5])):
@@ -284,7 +286,7 @@ def tiled_sweep_host(p, d, t_cur, tiles: TiledMesh, coeffT, *, tree,
 
 
 def tiled_closest_twophase(p, d, t_cur, tiles: TiledMesh, coeffT, *, tree,
-                           budget: int = 12):
+                           budget: int = 12, plain=False):
     """Divergence-compacted closest hit: a walk of at most `budget`
     clusters per ray on coherence-sorted rays; the rays it leaves
     unresolved are packed together (stable sort by the resolved flag) and
@@ -300,16 +302,18 @@ def tiled_closest_twophase(p, d, t_cur, tiles: TiledMesh, coeffT, *, tree,
     ps, ds, ts = p[perm], d[perm], t_cur[perm]
     if budget <= 0:
         t, r, r2, _ = tiled_sweep_kernel(ps, ds, ts, tiles, coeffT,
-                                         tree=tree)
+                                         tree=tree, plain=plain)
         return t[inv], r[inv], r2[inv]
     t1, r1, r21, res = tiled_sweep_kernel(ps, ds, ts, tiles, coeffT,
-                                          max_steps=budget, tree=tree)
+                                          max_steps=budget, tree=tree,
+                                          plain=plain)
     iota = torch.arange(ps.shape[0], dtype=torch.int64, device=p.device)
     perm2 = torch.argsort(torch.where(res, iota + (1 << 30), iota))
     inv2 = torch.argsort(perm2)
     t_seed = torch.where(res, torch.full_like(ts, -1.0), ts)
     t2, r2b, r22, _ = tiled_sweep_kernel(ps[perm2], ds[perm2], t_seed[perm2],
-                                         tiles, coeffT, tree=tree)
+                                         tiles, coeffT, tree=tree,
+                                         plain=plain)
     t_f = torch.where(res, t1, t2[inv2])
     r_f = torch.where(res, r1, r2b[inv2])
     r2_f = torch.where(res, r21, r22[inv2])

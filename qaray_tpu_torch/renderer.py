@@ -20,8 +20,21 @@ flagged, skipped by the fold and rendered again on the wavefront engine
 with the exact estimate (same key words, same paths), folded in sample
 order so that per-pixel counts stay exact.
 
-Multi-device rendering, checkpoints and rank-debug planes arrive with their
-slices of the port and raise NotImplementedError here.
+Dispatches run one deep, as in the JAX package (_render_round,
+_retire_inflight): a dispatch and its fold are enqueued before the
+previous one is retired, and the fold reads nothing on the host. Retiring
+reads the dispatch's skipped-lane counts (copied to pinned memory behind
+an event when it was enqueued), and, only where lanes escalated, their
+plane; the first round's depth plane comes the same way. Lane ids are
+built on the device. Escalated lanes fold where the JAX Renderer folds
+them: after the next chunk's main fold, and in a packed dispatch after all
+of its samples' main folds. checkpoint_every saves the framebuffer state
+every so many samples of phase 1 (FrameBuffer.save_state, the JAX
+package's npz fields), and load_checkpoint resumes from its smallest
+count.
+
+Multi-device rendering and rank-debug planes arrive with their slice of
+the port and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -81,11 +94,10 @@ class Renderer:
         self.param = param or RendererParam()
         p = self.param
         for flag, what in ((p.num_devices > 1, "multi-device rendering"),
-                           (p.rank_debug, "rank-debug planes"),
-                           (p.checkpoint_every, "checkpoints")):
+                           (p.rank_debug, "rank-debug planes")):
             if flag:
                 raise NotImplementedError(
-                    f"{what} come with a later slice of the port")
+                    f"{what} come with the multi-device slice of the port")
         self.device = torch.device(device)
         self.stop_flag = False
         self.scene_arrays = None
@@ -94,10 +106,17 @@ class Renderer:
         self.photon_maps = None
         self._progress_cb: Optional[Callable] = None
         self._accum = None
+        self._inflight = None
+        # The one-deep pipeline; False keeps the synchronous loop, which
+        # reads each dispatch before the next is enqueued (tests and
+        # chip_smoke.py compare the two).
+        self._pipelined = True
 
-    def compute_scene(self, scene_desc):
-        self.scene_arrays, self.meta = compile_scene(scene_desc,
-                                                     device=self.device)
+    def compute_scene(self, scene_desc, world_bvh: bool = True):
+        """Compile the scene (world_bvh=False keeps meshes per instance in
+        object space) and build its photon maps where asked."""
+        self.scene_arrays, self.meta = compile_scene(
+            scene_desc, device=self.device, world_bvh=world_bvh)
         self.fb = FrameBuffer(self.meta.img_width, self.meta.img_height)
         if self.param.use_photon_map:
             from qaray_tpu_torch.photon.build import (
@@ -171,11 +190,15 @@ class Renderer:
             self.meta, cfg, self.photon_maps))
         self._accum = device_accum.init_state(fb, self.device,
                                               want_irr=self._want_aux())
+        self._inflight = None
         all_ids = np.arange(num_pixels, dtype=np.int32)
+        all_dev = torch.arange(num_pixels, dtype=torch.int32,
+                               device=self.device)
         start = time.time()
 
         # Phase 1: spp_min samples for every pixel, several sample indices
-        # per dispatch when the image alone underfills the batch.
+        # per dispatch when the image alone underfills the batch. A resumed
+        # render (load_checkpoint) continues from the smallest count.
         s = int(fb.count.min())
         batch = self._effective_batch()
         pack = max(1, batch // max(num_pixels, 1))
@@ -184,23 +207,29 @@ class Renderer:
                 return self.sync_fb()
             if num_pixels <= batch:
                 k = min(pack, p.spp_min - s)
-                self._render_packed(cfg, all_ids, list(range(s, s + k)),
-                                    words, record_depth=(s == 0))
+                self._render_packed(cfg, all_ids, all_dev,
+                                    list(range(s, s + k)), words,
+                                    record_depth=(s == 0))
             else:
                 k = 1
-                self._render_round(cfg, all_ids, s, words,
+                self._render_round(cfg, all_ids, all_dev, s, words,
                                    record_depth=(s == 0))
             s += k
             self._report(s)
+            self._maybe_checkpoint(s)
 
-        # Phase 2: adaptive refinement of the unconverged pixels.
+        # Phase 2: adaptive refinement of the unconverged pixels. The
+        # convergence mask needs the pipeline retired.
         s = p.spp_min
         while s < p.spp_max:
-            active = device_accum.unconverged_ids(self._accum, p.threshold, s)
+            self._flush()
+            active, active_dev = device_accum.unconverged_ids(
+                self._accum, p.threshold, s, on_device=True)
             if active.size == 0 or self.stop_flag:
                 break
             for _ in range(min(p.round_spp, p.spp_max - s)):
-                self._render_round(cfg, active, s, words, record_depth=False)
+                self._render_round(cfg, active, active_dev, s, words,
+                                   record_depth=False)
                 s += 1
             self._report(s)
 
@@ -210,16 +239,26 @@ class Renderer:
         return fb
 
     def sync_fb(self):
-        """Mirror the device accumulator into the host FrameBuffer."""
+        """Retire the in-flight dispatch and mirror the device accumulator
+        into the host FrameBuffer."""
+        self._flush()
         if self._accum is not None:
             device_accum.sync_to_fb(self._accum, self.fb)
         return self.fb
 
-    def _lanes(self, pixel_ids: np.ndarray, sample_ids: np.ndarray):
-        w = self.meta.img_width
-        ids = torch.as_tensor(pixel_ids, device=self.device)
-        return (ids % w, ids // w,
-                torch.as_tensor(sample_ids, device=self.device))
+    def load_checkpoint(self, path: str):
+        """Resume a render from a saved framebuffer state (FrameBuffer.
+        save_state's npz; the JAX package's checkpoints load too)."""
+        self.fb = FrameBuffer.load_state(path)
+        assert (self.fb.width, self.fb.height) == (
+            self.meta.img_width, self.meta.img_height,
+        ), "checkpoint resolution mismatch"
+
+    def _maybe_checkpoint(self, spp_done: int):
+        ce = self.param.checkpoint_every
+        if ce and spp_done % ce == 0:
+            self.sync_fb()
+            self.fb.save_state(self.param.checkpoint_path)
 
     def _dispatch(self, cfg, px, py, sid, words):
         """render_batch with this render's maps: (radiance, depth, irr or
@@ -231,89 +270,148 @@ class Renderer:
         esc = out[-1] if self._mega_photon else None
         return out[0], out[1], irr, esc
 
-    def _render_packed(self, cfg, pixel_ids, sample_indices, words,
-                       record_depth: bool):
-        """len(sample_indices) samples per pixel in one dispatch, folded
-        into the accumulator in sample order (the recurrence is
-        order-sensitive; the order matches the reference loop)."""
-        n = pixel_ids.size
-        ids = np.tile(pixel_ids, len(sample_indices))
-        sids = np.repeat(np.asarray(sample_indices, np.int32), n)
-        px, py, sid = self._lanes(ids, sids)
-        radiance, depth, irr, esc = self._dispatch(cfg, px, py, sid, words)
-        fixed = self._render_escalated(ids, sids, esc)
-        for k in range(len(sample_indices)):
-            self._fold(pixel_ids, k * n, radiance, esc, irr, fixed)
-        if record_depth:
-            self.fb.set_depth(pixel_ids, depth[:n].cpu().numpy())
-
-    def _render_round(self, cfg, pixel_ids, sample_idx: int, words,
-                      record_depth: bool):
-        """One sample for each pixel id, chunked to the batch size."""
-        chunk = self._effective_batch()
-        for lo in range(0, pixel_ids.size, chunk):
-            ids = pixel_ids[lo:lo + chunk]
-            sids = np.full(ids.size, sample_idx, np.int32)
-            px, py, sid = self._lanes(ids, sids)
-            radiance, depth, irr, esc = self._dispatch(cfg, px, py, sid,
-                                                       words)
-            fixed = self._render_escalated(ids, sids, esc)
-            self._fold(ids, 0, radiance, esc, irr, fixed)
-            if record_depth:
-                self.fb.set_depth(ids, depth.cpu().numpy())
-
-    def _fold(self, pixel_ids: np.ndarray, lo: int, radiance, esc=None,
-              irr=None, fixed=None):
+    def _fold_main(self, pixel_ids, dev_ids, lo, radiance, esc, irr):
         """Fold lanes [lo, lo + len(pixel_ids)) of a dispatch, one sample
-        of each pixel id. Escalated lanes are skipped, then folded with
-        their exact radiance from `fixed` (_render_escalated)."""
+        of each pixel id, skipping the escalated lanes; returns their count
+        as a device tensor (None without escalation flags). Contiguous ids
+        take the slice update, as in the JAX package."""
         sl = slice(lo, lo + pixel_ids.size)
         esc = None if esc is None else esc[sl]
         irr = None if irr is None else irr[sl]
         if pixel_ids.size and np.all(np.diff(pixel_ids) == 1):
-            device_accum.accumulate_contig(self._accum, int(pixel_ids[0]),
-                                           radiance[sl], skip=esc, irr=irr)
-        else:
-            device_accum.accumulate_round(
-                self._accum, torch.as_tensor(pixel_ids, device=self.device),
-                radiance[sl], skip=esc, irr=irr)
-        if fixed is not None:
-            self._accumulate_escalated(pixel_ids, lo, fixed)
+            return device_accum.accumulate_contig(
+                self._accum, int(pixel_ids[0]), radiance[sl], skip=esc,
+                irr=irr)
+        return device_accum.accumulate_round(self._accum, dev_ids,
+                                             radiance[sl], skip=esc, irr=irr)
 
-    def _render_escalated(self, ids, sids, esc):
-        """Render a dispatch's gather-escalated lanes again, all in one call,
-        on the wavefront engine, whose gather applies the reference's
-        radius cap exactly (EstimateIrradiance<100>); the same key words
-        give the same paths. Returns (lane indices, their radiance), or
-        None where no lane escalated."""
-        if esc is None:
-            return None
-        lanes = np.nonzero(esc.cpu().numpy())[0]
-        if lanes.size == 0:
+    def _render_packed(self, cfg, pixel_ids, dev_ids, sample_indices, words,
+                       record_depth: bool):
+        """len(sample_indices) samples per pixel in one dispatch, folded in
+        sample order (the recurrence is order-sensitive; the order matches
+        the reference loop), then their escalated lanes in sample order, as
+        the JAX package's _render_packed folds them: the previous dispatch
+        is retired after this one is enqueued and before its folds."""
+        n = pixel_ids.size
+        k = len(sample_indices)
+        sid = (torch.arange(k, dtype=torch.int32, device=self.device)
+               .repeat_interleave(n) + sample_indices[0])
+        lanes = dev_ids.repeat(k)
+        w = self.meta.img_width
+        radiance, depth, irr, esc = self._dispatch(cfg, lanes % w, lanes // w,
+                                                   sid, words)
+        self._retire_inflight()
+        job = _Dispatch(pixel_ids, lanes, sid, esc, n)
+        job.skips = [self._fold_main(pixel_ids, dev_ids, j * n, radiance,
+                                     esc, irr) for j in range(k)]
+        self._stage(job, depth if record_depth else None)
+
+    def _render_round(self, cfg, pixel_ids, dev_ids, sample_idx: int, words,
+                      record_depth: bool):
+        """One sample for each pixel id, chunked to the batch size. Each
+        chunk is dispatched and folded before the previous one is retired,
+        as the JAX package's _render_round pipelines them: a chunk's
+        escalated lanes fold after the next chunk's main fold."""
+        chunk = self._effective_batch()
+        for lo in range(0, pixel_ids.size, chunk):
+            ids = pixel_ids[lo:lo + chunk]
+            lanes = dev_ids[lo:lo + chunk]
+            sid = torch.full((ids.size, ), sample_idx, dtype=torch.int32,
+                             device=self.device)
+            radiance, depth, irr, esc = self._dispatch(
+                cfg, lanes % self.meta.img_width,
+                lanes // self.meta.img_width, sid, words)
+            job = _Dispatch(ids, lanes, sid, esc, ids.size)
+            job.skips = [self._fold_main(ids, lanes, 0, radiance, esc, irr)]
+            self._retire_inflight()
+            self._stage(job, depth if record_depth else None)
+
+    def _stage(self, job, depth):
+        """Make `job` the dispatch in flight (the previous one retired),
+        with what its retire reads (the skipped-lane counts, the first
+        round's depth) already on its way to the host: on the card, copies
+        into pinned memory behind an event, so that the read waits for this
+        dispatch and not for the next one. The synchronous loop (_pipelined
+        False) reads it at once, before the next dispatch."""
+        if job.esc is not None:
+            job.counts = torch.stack(job.skips)
+        if depth is not None:
+            job.depth = depth[:job.n]
+        if self.device.type == "cuda":
+            for name in ("counts", "depth"):
+                src = getattr(job, name)
+                if src is not None:
+                    dst = torch.empty(src.shape, dtype=src.dtype,
+                                      pin_memory=True)
+                    setattr(job, name, dst.copy_(src, non_blocking=True))
+            job.event = torch.cuda.Event()
+            job.event.record()
+        self._inflight = job
+        if not self._pipelined:
+            self._read(job)
+
+    def _read(self, job):
+        """The host reads of a dispatch: its skipped-lane counts, and where
+        any lane escalated the escalated lanes' exact radiance, rendered on
+        the wavefront engine, whose gather applies the reference's radius
+        cap (EstimateIrradiance<100>; the same key words give the same
+        paths)."""
+        if job.done_reading:
+            return
+        job.done_reading = True
+        if job.event is not None:
+            job.event.synchronize()
+        if job.counts is not None and int(job.counts.sum()):
+            job.fixed = self._render_escalated(job.lanes, job.sid, job.esc)
+
+    def _render_escalated(self, lanes, sid, esc):
+        """Render a dispatch's escalated lanes again, all in one call, on
+        the wavefront engine (lanes, sid: the dispatch's device pixel and
+        sample ids). Returns (escalated lane indices as numpy, their
+        radiance, the same indices on the device), or None where no lane
+        escalated."""
+        idx = torch.nonzero(esc).squeeze(1)
+        if idx.numel() == 0:
             return None
         from qaray_tpu_torch.integrators.engine import render_batch_wavefront
 
-        px, py, sid = self._lanes(ids[lanes], sids[lanes])
+        w = self.meta.img_width
+        ids = lanes[idx]
         radiance, _ = render_batch_wavefront(
-            self.scene_arrays, self.meta, self.integrator_config(), px, py,
-            sid, self._words, self.photon_maps)
-        return lanes, radiance
+            self.scene_arrays, self.meta, self.integrator_config(), ids % w,
+            ids // w, sid[idx], self._words, self.photon_maps)
+        return idx.cpu().numpy(), radiance, idx
 
-    def _accumulate_escalated(self, pixel_ids, lo: int, fixed):
-        """Fold the exact radiance of the escalated lanes among [lo, lo +
-        len(pixel_ids)): the main fold skipped them, so each pixel still
-        gets exactly one sample, in sample order."""
-        lanes, radiance = fixed
-        sel = np.nonzero((lanes >= lo) & (lanes < lo + pixel_ids.size))[0]
-        if sel.size:
-            device_accum.accumulate_round(
-                self._accum,
-                torch.as_tensor(pixel_ids[lanes[sel] - lo],
-                                device=self.device),
-                radiance[torch.as_tensor(sel, device=self.device)])
+    def _retire_inflight(self):
+        """Retire the in-flight dispatch: its reads (_read), then the fold
+        of its escalated lanes with their exact radiance, segment by
+        segment in sample order (the main fold skipped them, so each pixel
+        still gets exactly one sample), and the depth plane on the first
+        round."""
+        job, self._inflight = self._inflight, None
+        if job is None:
+            return
+        self._read(job)
+        if job.depth is not None:
+            self.fb.set_depth(job.pixel_ids, job.depth.cpu().numpy())
+        if job.fixed is None:
+            return
+        lanes, radiance, idx = job.fixed
+        ids = job.lanes[idx]
+        cuts = np.searchsorted(lanes, np.arange(0, job.lanes.shape[0] + 1,
+                                                job.n))
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            if b > a:
+                device_accum.accumulate_round(self._accum, ids[a:b],
+                                              radiance[a:b])
+
+    _flush = _retire_inflight
 
     def _report(self, spp_done: int):
         if self._progress_cb is not None:
+            # The accumulator at a round boundary: observers that read
+            # pixels call sync_fb.
+            self._flush()
             self._progress_cb(spp_done, self.param.spp_max)
         pe = self.param.progressive_every
         if pe and spp_done % pe == 0 and spp_done < self.param.spp_max:
@@ -321,3 +419,24 @@ class Renderer:
             snapshot.finalize(self.param.use_srgb, self.param.spp_max)
             snapshot.save_image(f"{self.param.progressive_prefix}"
                                 f"colorBuffer_{spp_done:04d}spp.png")
+
+
+class _Dispatch:
+    """A dispatch in flight: its host pixel ids (one segment of n lanes per
+    sample), its device lane ids, sample ids and escalation flags, the
+    device counts of skipped lanes of each segment's main fold (and their
+    host copy), the first round's depth, the event behind those copies,
+    and, once read, the escalated lanes' exact radiance."""
+
+    def __init__(self, pixel_ids, lanes, sid, esc, n):
+        self.pixel_ids = pixel_ids
+        self.lanes = lanes
+        self.sid = sid
+        self.esc = esc
+        self.n = n
+        self.skips = None
+        self.counts = None
+        self.depth = None
+        self.event = None
+        self.done_reading = False
+        self.fixed = None

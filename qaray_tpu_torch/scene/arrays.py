@@ -2,10 +2,10 @@
 
 Counterpart of qaray_tpu/scene/arrays.py. NamedTuples of tensors stand in
 for the JAX pytrees; SceneMeta is the same static, hashable tuple. The port
-carries analytic primitives, world-baked triangle meshes, materials with
-their texture slots, lights, camera, the texture atlas and the textured
-background/environment colours. A scene without meshes has `mesh` and
-`instances` None.
+carries analytic primitives, triangle meshes (world-baked or per
+instance), materials with their texture slots, lights, camera, the texture
+atlas and the textured background/environment colours. A scene without
+meshes has `mesh` and `instances` None.
 """
 
 from __future__ import annotations
@@ -193,6 +193,9 @@ class KernelTables(NamedTuple):
     mesh_rows: Optional[torch.Tensor] = None
     mesh_attr: Optional[torch.Tensor] = None
     mesh_tree: Optional[torch.Tensor] = None
+    # Per-instance object-space meshes: each instance's M_w2o row-major and
+    # t_o2w, the rows W1 (ops/bvh_packed.py) moves the rays with.
+    inst_xf: Optional[torch.Tensor] = None  # [I, 12] float32
 
 
 class SceneArrays(NamedTuple):
@@ -290,6 +293,10 @@ def with_kernel_tables(arrays: SceneArrays, meta: SceneMeta) -> SceneArrays:
         mesh = dict(mesh_rows=m.mega_c16.reshape(-1, 16),
                     mesh_attr=m.mega_attr.reshape(-1, 16),
                     mesh_tree=m.mega_tree)
+    if meta.num_mesh_instances and not meta.world_bvh:
+        inst = arrays.instances
+        mesh["inst_xf"] = f32(torch.cat([inst.m_w2o.reshape(-1, 9),
+                                         inst.t_o2w], dim=1))
     return arrays._replace(kernel=KernelTables(
         mtl=f32(mtl), light=f32(light), cam=f32(cam_tab),
         light_kind=ints(meta.light_kinds),

@@ -1,10 +1,11 @@
 """Host-side BVH build over triangles, flattened for device traversal.
 
-Counterpart of qaray_tpu/scene/bvh.py (its numpy SAH builder) and of the host
-part of qaray_tpu/ops/bvh_packed.py (pack_bvh). The same build policy as
-the reference's vendored cyBVH (src/ext/cyBVH.h): binary tree, leaves of up
-to `max_leaf` triangles, split by a binned surface-area heuristic (the
-JAX package's default builder). The arrays are plain SoA numpy:
+Counterpart of qaray_tpu/scene/bvh.py and of the host part of
+qaray_tpu/ops/bvh_packed.py (pack_bvh). The same build policy as the
+reference's vendored cyBVH (src/ext/cyBVH.h): binary tree, leaves of up to
+`max_leaf` triangles, split by a binned surface-area heuristic (method
+"sah", the default) or by the reference's MeanSplit (method "mean"). The
+arrays are plain SoA numpy:
 
     bounds  [N, 6]  (min xyz, max xyz)
     left    [N]     left child index, or -1 for leaf
@@ -12,16 +13,16 @@ JAX package's default builder). The arrays are plain SoA numpy:
     count   [N]     0 for inner, element count for leaf
     elems   [F]     triangle indices in leaf order
 
-The JAX package may build the same tree with its C++ builder; the port
-keeps only the numpy one. The walks over these arrays (bvh_traverse,
-traverse_bvh_packed) come with the BVH-walk slice of the port; the mesh
-routes of this slice (the dense sweep, and the tiled cluster walk over its
-own tree of cluster boxes) do not walk this tree, but the compiled scene carries it so that its tables equal
-the JAX package's.
+build_bvh takes the port's native builder (qaray_tpu_torch/native.py) where
+it loads and the numpy builders below where it does not; all give the same
+tree, node for node. QARAY_BVH=sah|mean overrides the method, as in the
+JAX package. The BVH walks (ops/bvh_traverse.py, ops/bvh_packed.py) read
+these arrays and pack_bvh's fat-node tables.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -38,10 +39,46 @@ class FlatBVH(NamedTuple):
 _SAH_BINS = 16
 
 
-def build_bvh(tri_verts: np.ndarray, max_leaf: int = 4) -> FlatBVH:
-    """tri_verts: [F, 3, 3] triangle vertex positions.
+def _empty_bvh() -> FlatBVH:
+    """One empty leaf."""
+    return FlatBVH(
+        bounds=np.zeros((1, 6), np.float32),
+        left=np.array([-1], np.int32),
+        right=np.array([0], np.int32),
+        count=np.array([0], np.int32),
+        elems=np.zeros((0,), np.int32),
+    )
 
-    Binned SAH build: 16 centroid bins on the widest centroid axis;
+
+def build_bvh(tri_verts: np.ndarray, max_leaf: int = 4,
+              use_native: bool = True, method: str = "sah") -> FlatBVH:
+    """tri_verts: [F, 3, 3] triangle vertex positions (object space).
+
+    method "sah": binned surface-area heuristic; "mean": the reference's
+    cyBVH MeanSplit (spatial median on the widest axis, 3-axis fallback;
+    cyBVH.h:380-420). The walks' results do not depend on the method, only
+    the tree's shape does. QARAY_BVH overrides `method`. The native builder
+    runs where use_native and the library loads; the numpy builders give
+    the same tree otherwise."""
+    if os.environ.get("QARAY_BVH"):
+        method = os.environ["QARAY_BVH"]
+    if method not in ("sah", "mean"):
+        raise ValueError(f"unknown BVH build method {method!r}")
+    if use_native:
+        from qaray_tpu_torch import native
+
+        out = native.bvh_build_native(tri_verts.astype(np.float32),
+                                      max_leaf, method=method)
+        if out is not None:
+            return FlatBVH(*out)
+    if method == "sah":
+        return _build_bvh_sah_numpy(tri_verts, max_leaf)
+    return _build_bvh_numpy(tri_verts, max_leaf)
+
+
+def _build_bvh_sah_numpy(tri_verts: np.ndarray,
+                         max_leaf: int = 4) -> FlatBVH:
+    """Binned SAH build: 16 centroid bins on the widest centroid axis;
     split minimizing SA_L*N_L + SA_R*N_R; spatial-median fallback when
     binning degenerates (all centroids in one bin).
 
@@ -52,14 +89,8 @@ def build_bvh(tri_verts: np.ndarray, max_leaf: int = 4) -> FlatBVH:
     leaves as that stack build does: depth first, right child first, both
     children numbered when their parent is split."""
     num_tris = tri_verts.shape[0]
-    if num_tris == 0:  # one empty leaf
-        return FlatBVH(
-            bounds=np.zeros((1, 6), np.float32),
-            left=np.array([-1], np.int32),
-            right=np.array([0], np.int32),
-            count=np.array([0], np.int32),
-            elems=np.zeros((0,), np.int32),
-        )
+    if num_tris == 0:
+        return _empty_bvh()
 
     tri_min = tri_verts.min(axis=1)
     tri_max = tri_verts.max(axis=1)
@@ -192,6 +223,66 @@ def build_bvh(tri_verts: np.ndarray, max_leaf: int = 4) -> FlatBVH:
         right=right_o,
         count=count,
         elems=np.concatenate(elems).astype(np.int32),
+    )
+
+
+def _build_bvh_numpy(tri_verts: np.ndarray, max_leaf: int = 4) -> FlatBVH:
+    """MeanSplit build (the JAX package's numpy builder, one node at a time
+    off a stack): spatial median on the widest axis, the other two axes on
+    failure, then half the element list."""
+    num_tris = tri_verts.shape[0]
+    if num_tris == 0:
+        return _empty_bvh()
+    tri_min = tri_verts.min(axis=1)  # [F, 3]
+    tri_max = tri_verts.max(axis=1)
+    tri_center = 0.5 * (tri_min + tri_max)
+    bounds_list, left_list, right_list, count_list = [], [], [], []
+    elem_order = []
+
+    def new_node():
+        bounds_list.append(np.zeros(6, np.float32))
+        left_list.append(-1)
+        right_list.append(0)
+        count_list.append(0)
+        return len(bounds_list) - 1
+
+    root = new_node()
+    stack = [(root, np.arange(num_tris, dtype=np.int64))]
+    while stack:
+        node, ids = stack.pop()
+        bmin = tri_min[ids].min(axis=0)
+        bmax = tri_max[ids].max(axis=0)
+        bounds_list[node] = np.concatenate([bmin, bmax]).astype(np.float32)
+        if len(ids) <= max_leaf:
+            left_list[node] = -1
+            right_list[node] = len(elem_order)
+            count_list[node] = len(ids)
+            elem_order.extend(ids.tolist())
+            continue
+        centers = tri_center[ids]
+        axes = np.argsort(-(bmax - bmin))
+        ids_l = ids_r = None
+        for axis in axes:
+            mid = 0.5 * (bmin[axis] + bmax[axis])
+            mask = centers[:, axis] < mid
+            n_l = int(mask.sum())
+            if 0 < n_l < len(ids):
+                ids_l, ids_r = ids[mask], ids[~mask]
+                break
+        if ids_l is None:
+            half = len(ids) // 2
+            ids_l, ids_r = ids[:half], ids[half:]
+        lchild, rchild = new_node(), new_node()
+        left_list[node] = lchild
+        right_list[node] = rchild
+        stack.append((lchild, ids_l))
+        stack.append((rchild, ids_r))
+    return FlatBVH(
+        bounds=np.stack(bounds_list).astype(np.float32),
+        left=np.asarray(left_list, np.int32),
+        right=np.asarray(right_list, np.int32),
+        count=np.asarray(count_list, np.int32),
+        elems=np.asarray(elem_order, np.int32),
     )
 
 

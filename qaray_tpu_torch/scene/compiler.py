@@ -9,10 +9,11 @@ to the device in one step.
 
 Textures are interned into one flat atlas: the background's and the
 environment's first, then the materials' in table order, as the JAX
-package does. The per-instance object-space meshes that the JAX package
-builds with world_bvh=False, QARAY_NO_WORLD_BVH or above 8M world triangles
-raise NotImplementedError: they are traced by the BVH walks, which come
-with the BVH-walk slice.
+package does. With world_bvh=False, QARAY_NO_WORLD_BVH or above 8M world
+triangles the meshes stay in object space instead (_build_mesh_arrays):
+each unique mesh gets its own tree, packed into one pnodes/ltri table, and
+each instance its root refs, transform and materials; ops/trace.py walks
+them with W1 (ops/bvh_packed.py).
 """
 
 from __future__ import annotations
@@ -177,6 +178,77 @@ class SceneCompiler:
             self._flatten(child, world)
 
     # -- meshes --------------------------------------------------------------
+
+    def _build_mesh_arrays(self):
+        """Per-instance object-space meshes
+        (qaray_tpu/scene/compiler.py::_build_mesh_arrays): the unique
+        meshes concatenated, each with its own BVH whose node and element
+        indices are offset into the global arrays, packed together
+        (pack_bvh), and per instance its root node and packed root ref,
+        material (single, or the MultiMtl base and count), object-space
+        bound box and transform. Returns (MeshArrays tables as numpy,
+        instance tables, bvh depth)."""
+        tri_v, tri_n, tri_uv, tri_has_uv, tri_mtl, parts = [], [], [], [], \
+            [], []
+        records = {}
+        tri_off = node_off = 0
+        depth = 1
+        for mesh, *_ in self.inst_mesh:
+            if id(mesh) in records:
+                continue
+            v, n, uv, has_uv, fm = self._mesh_face_data(mesh)
+            bvh = bvh_mod.build_bvh(v, MAX_LEAF)
+            depth = max(depth, bvh_mod.bvh_depth(bvh))
+            records[id(mesh)] = {
+                "root": node_off,
+                "bbox": (np.concatenate([v.reshape(-1, 3).min(0),
+                                         v.reshape(-1, 3).max(0)])
+                         if v.size else np.array([1, 1, 1, 0, 0, 0],
+                                                 np.float32)),
+            }
+            tri_v.append(v.astype(np.float32))
+            tri_n.append(n.astype(np.float32))
+            tri_uv.append(uv.astype(np.float32))
+            tri_has_uv.append(has_uv)
+            tri_mtl.append(fm.astype(np.int32))
+            leaf = bvh.left < 0
+            parts.append((bvh.bounds,
+                          np.where(leaf, -1, bvh.left + node_off),
+                          np.where(leaf, bvh.right + tri_off,
+                                   bvh.right + node_off),
+                          bvh.count, bvh.elems + tri_off))
+            tri_off += v.shape[0]
+            node_off += len(bvh.left)
+        all_v = np.concatenate(tri_v)
+        g = [np.concatenate([part[k] for part in parts]) for k in range(5)]
+        pnodes, ltri, node_ref = bvh_mod.pack_bvh(*g, all_v)
+        mesh_tabs = dict(
+            tri_v=all_v, tri_n=np.concatenate(tri_n),
+            tri_uv=np.concatenate(tri_uv),
+            tri_has_uv=np.concatenate(tri_has_uv),
+            tri_mtl=np.concatenate(tri_mtl), bvh_bounds=g[0],
+            bvh_left=g[1], bvh_right=g[2], bvh_count=g[3], bvh_elems=g[4],
+            pnodes=pnodes, ltri=ltri,
+        )
+        n_inst = len(self.inst_mesh)
+        inst = dict(root=np.zeros(n_inst, np.int32),
+                    mtl=-np.ones(n_inst, np.int32),
+                    mtl_base=np.zeros(n_inst, np.int32),
+                    num_sub_mtl=np.zeros(n_inst, np.int32),
+                    m_w2o=np.stack(self.inst_m).astype(np.float32),
+                    t_o2w=np.stack([t for _, t in self.inst_world])
+                    .astype(np.float32),
+                    obj_bbox=np.zeros((n_inst, 6), np.float32),
+                    proot=np.zeros(n_inst, np.int32))
+        for i, (mesh, single, base, nsub) in enumerate(self.inst_mesh):
+            rec = records[id(mesh)]
+            inst["root"][i] = rec["root"]
+            inst["proot"][i] = node_ref[rec["root"]]
+            inst["mtl"][i] = single
+            inst["mtl_base"][i] = base
+            inst["num_sub_mtl"][i] = nsub
+            inst["obj_bbox"][i] = rec["bbox"]
+        return mesh_tabs, inst, depth
 
     @staticmethod
     def _mesh_face_data(mesh: D.MeshDesc):
@@ -484,15 +556,20 @@ class SceneCompiler:
             self._flatten(child, D.Affine())
         mesh_tabs = inst_tabs = None
         depth = 1
+        world = False
         if self.inst_mesh:
             total = sum(m.faces.shape[0] for m, *_ in self.inst_mesh)
-            if not self.world_bvh or total > WORLD_BVH_MAX_TRIS:
-                raise NotImplementedError(
-                    "per-instance object-space meshes (world_bvh=False, "
-                    "QARAY_NO_WORLD_BVH, or above "
-                    f"{WORLD_BVH_MAX_TRIS} world triangles) are traced "
-                    "by the BVH walks: BVH-walk slice of the port")
-            mesh_tabs, inst_tabs, depth = self._build_world_mesh_arrays()
+            world = self.world_bvh and total <= WORLD_BVH_MAX_TRIS
+            if world:
+                mesh_tabs, inst_tabs, depth = self._build_world_mesh_arrays()
+            else:
+                mesh_tabs, inst_tabs, depth = self._build_mesh_arrays()
+            if torch.device(device).type == "cuda":
+                # W1 walks any of these trees (per-instance trees always, a
+                # world tree on the bvh route) with a stack of depth + 2 refs.
+                from qaray_tpu_torch.ops.bvh_packed import check_stack
+
+                check_stack(depth + 2)
         # The background's and the environment's textures are interned
         # before the materials', so the atlas lists them first.
         background = self._env_color(self.scene.background)
@@ -519,8 +596,8 @@ class SceneCompiler:
         def group(cls, tables):
             return cls(**{k: dev(v) for k, v in tables.items()})
 
-        world = mesh_tabs is not None
-        num_tris = int(mesh_tabs["tri_v"].shape[0]) if world else 0
+        meshes = mesh_tabs is not None
+        num_tris = int(mesh_tabs["tri_v"].shape[0]) if meshes else 0
 
         arrays = SceneArrays(
             analytic=analytic_prims(**{k: dev(v) for k, v in prims.items()}),
@@ -530,15 +607,16 @@ class SceneCompiler:
             environment=group(EnvColor, environment),
             camera=group(CameraArrays, self._camera()),
             textures=group(TextureAtlas, self._texture_atlas()),
-            mesh=group(MeshArrays, mesh_tabs) if world else None,
-            instances=group(MeshInstances, inst_tabs) if world else None,
+            mesh=group(MeshArrays, mesh_tabs) if meshes else None,
+            instances=group(MeshInstances, inst_tabs) if meshes else None,
         )
         lights = self.scene.lights
         meta = SceneMeta(
             img_width=self.scene.camera.img_width,
             img_height=self.scene.camera.img_height,
             num_analytic=n_analytic,
-            num_mesh_instances=int(world),
+            num_mesh_instances=(int(world) if world
+                                else len(self.inst_mesh)),
             num_tris=num_tris,
             num_lights=len(lights),
             num_materials=len(self.materials),
@@ -573,6 +651,7 @@ class SceneCompiler:
 def compile_scene(scene: D.SceneDesc, device="cuda", world_bvh: bool = True):
     """Compile a parsed SceneDesc into (SceneArrays on `device`, SceneMeta).
 
-    Meshes are baked to world space (world_bvh=True, the default);
-    world_bvh=False raises NotImplementedError (BVH-walk slice)."""
+    Meshes are baked to world space (world_bvh=True, the default) and
+    stay per instance in object space with world_bvh=False (or
+    QARAY_NO_WORLD_BVH=1, or above WORLD_BVH_MAX_TRIS world triangles)."""
     return SceneCompiler(scene, world_bvh=world_bvh).compile(device)

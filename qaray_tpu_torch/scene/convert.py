@@ -35,12 +35,10 @@ def from_numpy_arrays(tree, meta, device="cuda"):
     JAX compiler left an optional table out); a scene without mesh
     instances gets None for both, as the port's compiler gives it. The
     texture atlas and the texture columns of the materials, the background
-    and the environment come across as they are. Raises NotImplementedError
-    for per-instance object-space meshes (BVH-walk slice)."""
+    and the environment come across as they are; per-instance scenes
+    (world_bvh=False) too, with W1's transform rows packed from the
+    instances' (with_kernel_tables)."""
     meta = SceneMeta(**meta._asdict())
-    if meta.num_mesh_instances and not meta.world_bvh:
-        raise NotImplementedError("per-instance object-space meshes come "
-                                  "with the BVH-walk slice")
 
     def dev(a):
         return torch.as_tensor(np.array(a), device=device)

@@ -83,11 +83,37 @@ def load_mtl(path: str) -> List[Dict]:
 def load_obj(path: str, load_mtl_files: bool = True) -> MeshDesc:
     """Load a triangle mesh. Raises FileNotFoundError if `path` is missing.
 
-    The port keeps only the python parser (the JAX package's optional
-    native C++ fast path for geometry-only files is not carried over).
+    Geometry-only files (no mtllib/usemtl) go through the port's native
+    C++ parser (qaray_tpu_torch/native.py) where it loads; files that carry
+    materials take the python path, which synthesises the MTL materials.
     """
-    if not os.path.exists(path):
+    try:
+        with open(path, "rb") as f:
+            head = f.read()
+        has_mtl = (b"usemtl" in head) or (b"mtllib" in head)
+    except OSError:
         raise FileNotFoundError(path)
+    if not has_mtl:
+        from qaray_tpu_torch import native
+
+        out = native.obj_load_native(path)
+        if out is not None:
+            v, vn, vt, f_v, f_vt, f_vn = out
+            directory = os.path.dirname(os.path.abspath(path))
+            if vn.shape[0] == 0 or np.all(f_vn < 0):
+                vn, f_vn = compute_vertex_normals(v, f_v)
+            return MeshDesc(
+                name=os.path.basename(path),
+                vertices=v,
+                faces=f_v,
+                normals=vn,
+                face_normals=f_vn,
+                texcoords=vt if vt.shape[0] else None,
+                face_texcoords=f_vt if vt.shape[0] else None,
+                face_materials=-np.ones((f_v.shape[0],), np.int32),
+                obj_materials=[],
+                directory=directory + os.sep if directory else "",
+            )
     return _load_obj_python(path, load_mtl_files)
 
 

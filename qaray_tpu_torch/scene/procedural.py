@@ -3,9 +3,10 @@
 icosphere(subdiv) is the subdivided icosahedron of the mesh-scale
 measurements (20 * 4**subdiv triangles: ico5 = 20,480, ico6 = 81,920);
 with_mesh puts such a mesh in place of the first OBJ node of a parsed
-scene, keeping its transform and material; with_texture binds a checker or
-an image to a material slot, the background or the environment;
-with_glass gives one object a glass material of its own.
+scene, keeping its transform and material, and with_shared_mesh in place
+of every OBJ node's, one mesh instanced by them all; with_texture binds a
+checker or an image to a material slot, the background or the
+environment; with_glass gives one object a glass material of its own.
 """
 
 from __future__ import annotations
@@ -71,6 +72,27 @@ def with_mesh(scene, verts, faces, name: str = "procedural"):
     node.mesh = type(node.mesh)(name=name,
                                 vertices=np.asarray(verts, np.float32),
                                 faces=np.asarray(faces, np.int32))
+    return scene
+
+
+def with_shared_mesh(scene, verts, faces, name: str = "procedural"):
+    """A copy of `scene` whose every OBJ node holds one shared mesh (verts,
+    faces): each node an instance of it with the node's own transform and
+    material (one tree per unique mesh in a per-instance compile)."""
+    scene = copy.deepcopy(scene)
+    nodes, stack = [], [scene.root]
+    while stack:
+        node = stack.pop()
+        if node.mesh is not None:
+            nodes.append(node)
+        stack.extend(node.children)
+    if not nodes:
+        raise ValueError("the scene has no OBJ node to replace")
+    mesh = type(nodes[0].mesh)(name=name,
+                               vertices=np.asarray(verts, np.float32),
+                               faces=np.asarray(faces, np.int32))
+    for node in nodes:
+        node.mesh = mesh
     return scene
 
 

@@ -1,0 +1,188 @@
+"""The port's BVH walks (ops/bvh_traverse.py, ops/bvh_packed.py) against
+the JAX package's, and W1's source (csrc/bvh.cu) built for the host
+against the plain packed walk.
+
+The rays and soups are tests/test_bvh.py's. Bars: against JAX, t within
+1e-5 relative (test_bvh's) and bary within 5e-5 (XLA rounds a few
+operations of the triangle test differently, and the weights are ratios
+of areas that cancel: 1.2e-5 on a centroid-aimed ray), the triangle and
+the front flag equal, any hit equal; the port's packed walk against its stacked walk and W1 against
+the plain packed walk, bit for bit (the same operations in the same
+order)."""
+
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qaray_tpu.ops.bvh_packed import traverse_bvh_packed as jax_packed
+from qaray_tpu.ops.bvh_traverse import traverse_bvh as jax_stacked
+from qaray_tpu.scene.arrays import MeshArrays as JaxMesh
+from qaray_tpu_torch.core.constants import BIGFLOAT
+from qaray_tpu_torch.ops import bvh_packed, bvh_traverse
+from qaray_tpu_torch.scene import bvh as tbvh
+from qaray_tpu_torch.scene.arrays import MeshArrays
+
+
+def soup(n_tris, seed):
+    rs = np.random.RandomState(seed)
+    centers = rs.uniform(-2, 2, (n_tris, 1, 3))
+    return (centers + rs.uniform(-0.4, 0.4, (n_tris, 3, 3))).astype(
+        np.float32)
+
+
+def rays(n, seed):
+    rs = np.random.RandomState(seed)
+    p = rs.uniform(-4, 4, (n, 3)).astype(np.float32)
+    d = rs.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return p, d
+
+
+def tables(tri_v):
+    """(port MeshArrays, JAX MeshArrays, pnodes, ltri, root ref, depth) of
+    one soup's SAH tree."""
+    b = tbvh.build_bvh(tri_v, 4)
+    pnodes, ltri, ref = tbvh.pack_bvh(b.bounds, b.left, b.right, b.count,
+                                      b.elems, tri_v)
+    f = tri_v.shape[0]
+    soa = dict(tri_v=tri_v, tri_n=np.zeros_like(tri_v),
+               tri_uv=np.zeros((f, 3, 2), np.float32),
+               tri_has_uv=np.zeros(f, bool), tri_mtl=np.zeros(f, np.int32),
+               bvh_bounds=b.bounds, bvh_left=b.left, bvh_right=b.right,
+               bvh_count=b.count, bvh_elems=b.elems)
+    tm = MeshArrays(**{k: torch.tensor(v) for k, v in soa.items()})
+    jm = JaxMesh(**{k: jnp.asarray(v) for k, v in soa.items()})
+    return tm, jm, pnodes, ltri, int(ref[0]), tbvh.bvh_depth(b)
+
+
+def close_to_jax(jax_out, port_out):
+    jt, jtri, jbary, jfront = (np.asarray(x) for x in jax_out)
+    t, tri, bary, front = (x.numpy() for x in port_out)
+    np.testing.assert_array_equal(tri, jtri)
+    np.testing.assert_array_equal(front, jfront)
+    np.testing.assert_allclose(t, jt, rtol=1e-5)
+    np.testing.assert_allclose(bary, jbary, atol=5e-5)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walks_match_jax(any_hit):
+    """300 triangles, 512 rays (test_bvh's packed-against-stacked case):
+    closest, or any hit below t 5. Both port walks against both JAX walks;
+    the port's packed walk bit for bit its stacked walk."""
+    tri_v = soup(300, 7)
+    p, d = rays(512, 8)
+    tm, jm, pnodes, ltri, root, depth = tables(tri_v)
+    t0 = np.full(512, 5.0 if any_hit else BIGFLOAT, np.float32)
+    kw = dict(stack_size=depth + 2, any_hit=any_hit)
+    jp = jax_packed(jnp.asarray(p), jnp.asarray(d),
+                    jnp.full(512, root, jnp.int32), jnp.asarray(t0),
+                    jnp.asarray(pnodes), jnp.asarray(ltri), **kw)
+    js = jax_stacked(jnp.asarray(p), jnp.asarray(d),
+                     jnp.zeros(512, jnp.int32), jnp.asarray(t0), jm, **kw)
+    tp = bvh_packed.traverse_bvh_packed(
+        torch.tensor(p), torch.tensor(d), torch.full((512, ), root,
+                                                     dtype=torch.int32),
+        torch.tensor(t0), torch.tensor(pnodes), torch.tensor(ltri), **kw)
+    ts = bvh_traverse.traverse_bvh(torch.tensor(p), torch.tensor(d),
+                                   torch.zeros(512, dtype=torch.int32),
+                                   torch.tensor(t0), tm, **kw)
+    if any_hit:
+        occ = [np.asarray((o[1] >= 0) & (o[0] < t0)) for o in (jp, js)]
+        occ += [((o[1] >= 0) & (o[0] < torch.tensor(t0))).numpy()
+                for o in (tp, ts)]
+        for o in occ[1:]:
+            np.testing.assert_array_equal(o, occ[0])
+        assert 0 < occ[0].sum() < 512
+        return
+    close_to_jax(jp, tp)
+    close_to_jax(js, ts)
+    for a, b in zip(tp, ts):
+        assert torch.equal(a, b)
+    assert 0 < (tp[1] >= 0).sum() < 512
+
+
+def test_packed_single_leaf_root():
+    """Three triangles: the root is a leaf ref, popped as the first step's
+    slot-0 work. Half the rays aim at a triangle's centroid."""
+    tri_v = soup(3, 5)
+    p, d = rays(64, 6)
+    aim = tri_v.mean(axis=1)[np.arange(32) % 3] - p[:32]
+    d[:32] = aim / np.linalg.norm(aim, axis=1, keepdims=True)
+    _, _, pnodes, ltri, root, _ = tables(tri_v)
+    assert root < 0
+    jt = jax_packed(jnp.asarray(p), jnp.asarray(d),
+                    jnp.full(64, root, jnp.int32), jnp.full(64, BIGFLOAT),
+                    jnp.asarray(pnodes), jnp.asarray(ltri), stack_size=4)
+    tt = bvh_packed.traverse_bvh_packed(
+        torch.tensor(p), torch.tensor(d),
+        torch.full((64, ), root, dtype=torch.int32),
+        torch.full((64, ), BIGFLOAT), torch.tensor(pnodes),
+        torch.tensor(ltri), stack_size=4)
+    close_to_jax(jt, tt)
+    assert (tt[1] >= 0).any()
+
+
+def instance_table(n_inst, seed):
+    """n_inst affine instances, the third mirrored: [n_inst, 12] rows of
+    M_w2o (row-major) and t_o2w."""
+    rs = np.random.RandomState(seed)
+    rows = []
+    for i in range(n_inst):
+        m_o2w = rs.normal(size=(3, 3)) * 0.3 + np.eye(3)
+        if i == 2:
+            m_o2w[:, 0] *= -1
+        rows.append(np.concatenate([np.linalg.inv(m_o2w).reshape(9),
+                                    rs.uniform(-1.5, 1.5, 3)]))
+    return torch.tensor(np.stack(rows).astype(np.float32))
+
+
+@pytest.mark.parametrize("instances", [0, 5])
+def test_w1_source_on_the_host_matches_plain(instances):
+    """csrc/bvh.cu compiled by g++ (one thread a block) against the plain
+    loop, bit for bit: t, instance, triangle, bary, front, the occlusion
+    below t 3 (a third of the rays start occluded), and the work counts
+    (inner nodes popped, triangles tested); the plain loop without work
+    counts walks instances together, for the same bits. instances 0 walks
+    the soup's tree as a world tree (no transform); 5 walks it as five
+    transformed instances, one of them mirrored."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    tri_v = soup(300, 7)
+    p, d = rays(512, 8)
+    _, _, pnodes, ltri, root, depth = tables(tri_v)
+    pt, dt = torch.tensor(p), torch.tensor(d)
+    tabs = (torch.tensor(pnodes), torch.tensor(ltri),
+            torch.full((max(instances, 1), ), root, dtype=torch.int32),
+            instance_table(instances, 3) if instances else None)
+    kw = dict(stack_size=depth + 2)
+    t0 = torch.full((512, ), BIGFLOAT)
+    before = bvh_packed.launches["W1"]
+    got, work = bvh_packed.walk_host(pt, dt, t0, *tabs, **kw)
+    want_work = torch.zeros_like(work)
+    want = bvh_packed.closest(pt, dt, t0, *tabs, work=want_work, **kw)
+    batched = bvh_packed.closest(pt, dt, t0, *tabs, **kw)
+    for a, b, c in zip(want, got, batched):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(work, want_work) and (work[:, 0] > 0).all()
+    if instances:
+        assert len(set(got[1][got[1] >= 0].tolist())) == instances
+    t_max = torch.full((512, ), 3.0)
+    occ_in = torch.arange(512) % 3 == 0
+    got, work = bvh_packed.walk_host(pt, dt, t_max, *tabs, any_hit=True,
+                                     occ_in=occ_in, **kw)
+    want = bvh_packed.occluded(pt, dt, t_max, occ_in, *tabs,
+                               work=want_work, **kw)
+    assert torch.equal(want, got) and torch.equal(work, want_work)
+    assert torch.equal(bvh_packed.occluded(pt, dt, t_max, occ_in, *tabs,
+                                           **kw), got)
+    assert (got & ~occ_in).any() and not (got | occ_in).all()
+    assert bvh_packed.launches["W1"] == before
+
+
+def test_w1_refuses_a_deep_stack():
+    """A tree deeper than W1's stack raises, naming the cap."""
+    with pytest.raises(ValueError, match="QR_BVH_STACK"):
+        bvh_packed.check_stack(bvh_packed.STACK_CAP + 1)

@@ -33,7 +33,9 @@ aligned copies, bit for bit, and so do K2a and K2b on such views and on
 the first 1, 31 and 65,537 rays; K2b without the uv equals K2b with it
 but for uvw, which is 0; trace_closest asks K2b for the uv only on a
 scene with a material texture; on the autograd route K2b's saved t and
-prim_idx share no storage with its attributes.
+prim_idx share no storage with its attributes. W1 (the packed BVH walk)
+equals its plain walk bit for bit on a world tree and over transformed
+instances.
 """
 
 import numpy as np
@@ -206,9 +208,9 @@ def test_trace_closest_asks_for_uv_where_textured(cuda, monkeypatch):
     seen = []
     full = analytic.closest_full
 
-    def record(p, d, prims, want_uv=True):
+    def record(p, d, prims, want_uv=True, **kw):
         seen.append(want_uv)
-        return full(p, d, prims, want_uv=want_uv)
+        return full(p, d, prims, want_uv=want_uv, **kw)
 
     monkeypatch.setattr(analytic, "closest_full", record)
     p, d = _random_rays(4096, 13)
@@ -942,3 +944,68 @@ def test_render_batch_gradients_on_megakernel_route(cuda):
             assert g is None or g.abs().max() == 0, f
             continue
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("scene,world", [("mesh_scene", True),
+                                         ("grid_scene", False)])
+def test_w1_equals_plain(cuda, scene, world):
+    """W1 (csrc/bvh.cu) on mesh_scene's world tree and on grid_scene's 25
+    transformed instances against its plain walk, bit for bit: closest
+    hits and occlusion, on the camera rays of a 200x150 frame."""
+    from qaray_tpu_torch.integrators.engine import generate_camera_rays
+    from qaray_tpu_torch.ops import bvh_packed
+
+    desc = load_scene(f"tests/assets/{scene}.xml")
+    desc.camera.img_width, desc.camera.img_height = 200, 150
+    arr, meta = compile_scene(desc, device="cuda", world_bvh=world)
+    tabs = ((arr.mesh.pnodes, arr.mesh.ltri, arr.instances.proot[:1], None)
+            if world else (arr.mesh.pnodes, arr.mesh.ltri,
+                           arr.instances.proot, arr.kernel.inst_xf))
+    p, d, *_ = generate_camera_rays(arr, meta, *_lanes(200, 150, 1, "cuda"),
+                                    None)
+    p, d = p.contiguous(), d.contiguous()
+    n = p.shape[0]
+    t = torch.full((n, ), 1e30, device="cuda")
+    kw = dict(stack_size=meta.bvh_depth + 2)
+    got = bvh_packed.closest(p, d, t, *tabs, **kw)
+    want = bvh_packed.closest(p, d, t, *tabs, plain=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[2] >= 0).any()
+    t_max = torch.full((n, ), 60.0, device="cuda")
+    occ = bvh_packed.occluded(p, d, t_max, None, *tabs, **kw)
+    assert torch.equal(occ, bvh_packed.occluded(p, d, t_max, None, *tabs,
+                                                plain=True, **kw))
+
+
+def test_no_pallas_takes_plain_versions(cuda, monkeypatch):
+    """QARAY_NO_PALLAS (and meta.force_xla) send trace_closest and
+    trace_shadow to the plain versions on the card: no K2b, K2c, K3 or W1
+    launch, the kernels' hits within tests/test_pallas.py's bars and
+    occlusion on all but 0.5 % of the rays."""
+    from qaray_tpu_torch.ops import bvh_packed, trace
+
+    arr, meta = compile_scene(load_scene("tests/assets/grid_scene.xml"),
+                              device="cuda", world_bvh=False)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n = 1 << 14
+    p = (arr.camera.pos + 0.1 * torch.randn((n, 3), device="cuda",
+                                            generator=gen)).contiguous()
+    aim = torch.rand((n, 3), device="cuda", generator=gen) * 8.0 - 4.0
+    d = ((aim - p) / (aim - p).norm(dim=1, keepdim=True)).contiguous()
+    t_max = torch.full((n, ), 60.0, device="cuda")
+    want = trace.trace_closest(arr, meta, p, d)
+    want_occ = trace.trace_shadow(arr, meta, p, d, t_max)
+    counts = (analytic.launches, bvh_packed.launches)
+    before = [dict(c) for c in counts]
+    for forced in ("env", "meta"):
+        if forced == "env":
+            monkeypatch.setenv("QARAY_NO_PALLAS", "1")
+            m = meta
+        else:
+            monkeypatch.delenv("QARAY_NO_PALLAS")
+            m = meta._replace(force_xla=True)
+        got = trace.trace_closest(arr, m, p, d)
+        occ = trace.trace_shadow(arr, m, p, d, t_max)
+        assert [dict(c) for c in counts] == before
+        assert (occ != want_occ).float().mean().item() < 0.005
+        _t_bars(want["t"], want["mtl"], got["t"], got["mtl"])

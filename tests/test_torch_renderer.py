@@ -217,17 +217,33 @@ def test_cuda_entry_point_without_card_raises(tmp_path):
     assert not (tmp_path / "x_colorBuffer.png").exists()
 
 
-def test_later_slices_raise():
-    """What later slices bring raises: several devices, rank-debug planes,
-    the preview server, checkpoints. Photon maps no longer do."""
+def test_later_slices_raise(monkeypatch):
+    """What later slices bring raises, naming its slice: several devices,
+    rank-debug planes, the preview server, profiling. Photon maps,
+    checkpoints and per-instance meshes (compute_scene(world_bvh=False),
+    QARAY_NO_WORLD_BVH) no longer do."""
     from qaray_tpu_torch import cli
     from qaray_tpu_torch.renderer import Renderer, RendererParam
+    from qaray_tpu_torch.scene.xml_parser import load_scene
 
-    for flag in ("-devices", "-rank-debug", "-serve"):
-        with pytest.raises(NotImplementedError):
+    for flag, slice_ in (("-devices", "multi-device"),
+                         ("-rank-debug", "multi-device"),
+                         ("-serve", "preview-server"),
+                         ("-profile", "timing and profiling")):
+        with pytest.raises(NotImplementedError, match=slice_):
             cli.parse_args(["scene.xml", flag, "2"])
-    with pytest.raises(NotImplementedError):
-        Renderer(RendererParam(checkpoint_every=1), device="cpu")
+    for param in (RendererParam(num_devices=2),
+                  RendererParam(rank_debug=True)):
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            Renderer(param, device="cpu")
+    Renderer(RendererParam(checkpoint_every=1), device="cpu")
+    scene = "tests/assets/grid_scene.xml"
+    _, meta = Renderer(device="cpu").compute_scene(load_scene(scene),
+                                                   world_bvh=False)
+    assert not meta.world_bvh and meta.num_mesh_instances == 25
+    monkeypatch.setenv("QARAY_NO_WORLD_BVH", "1")
+    _, meta = Renderer(device="cpu").compute_scene(load_scene(scene))
+    assert not meta.world_bvh and meta.num_mesh_instances == 25
     param, _, _, _ = cli.parse_args(["scene.xml", "-use-photon-map",
                                      "-photon-map-size", "300"])
     assert param.use_photon_map and param.photon_map_size == 300

@@ -189,17 +189,25 @@ def test_kernel_tables_match_pack_tables():
 
 @pytest.mark.parametrize("name", ["mesh", "texture"])
 def test_later_slices_raise(name):
-    """Per-instance object-space meshes, which the BVH walks trace
-    (BVH-walk slice), and several devices (multi-device slice) still
-    raise. texture_scene compiles, and since the photon slice a
-    photon-mapped config renders it (without maps: no gathers)."""
-    if name == "mesh":
-        with pytest.raises(NotImplementedError):
-            compile_scene(load_scene("tests/assets/mesh_scene.xml"),
-                          device="cpu", world_bvh=False)
-        return
+    """Several devices (multi-device slice) still raise. Per-instance
+    object-space meshes no longer do since the BVH-walk slice: mesh_scene
+    compiles per instance and renders on the wavefront engine.
+    texture_scene compiles, and since the photon slice a photon-mapped
+    config renders it (without maps: no gathers)."""
     from qaray_tpu_torch.integrators import engine
     from qaray_tpu_torch.renderer import Renderer, RendererParam
+
+    if name == "mesh":
+        arr, meta = compile_scene(load_scene("tests/assets/mesh_scene.xml"),
+                                  device="cpu", world_bvh=False)
+        assert not meta.world_bvh and meta.num_mesh_instances == 1
+        lane = torch.arange(8, dtype=torch.int32)
+        rad, _ = engine.render_batch(arr, meta, engine.IntegratorConfig(),
+                                     lane * 40, lane * 30, lane, (0, 3))
+        assert torch.isfinite(rad).all()
+        with pytest.raises(NotImplementedError):
+            Renderer(RendererParam(num_devices=2), device="cpu")
+        return
 
     arr, meta = compile_scene(load_scene("tests/assets/texture_scene.xml"),
                               device="cpu")
