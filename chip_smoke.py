@@ -56,10 +56,14 @@ Phases, each fatal on failure:
           mesh_scene's icosphere and on ico5 as world trees (1M random
           rays, ico5's 262,144 vertex-aimed rays, 480,000 camera rays),
           with the lanes where W1 and the dense sweep resolve an exact tie
-          in t to different triangles counted, and on grid_scene's 25
+          in t to different triangles counted, on grid_scene's 25
           transformed instances (its 480,000 camera rays and 1M random
-          rays); under QARAY_MESH_PATH=bvh, ops/trace's world-mesh closest
-          hit is one W1 launch;
+          rays) and on 300 transformed instances of mesh_scene's
+          icosphere, one mirrored (scene.procedural.scatter_instances:
+          more than one of the chunks of instances a block of W1 stages;
+          16,384 rays around them, as the plain loop walks 300 instances
+          in groups); under QARAY_MESH_PATH=bvh, ops/trace's
+          world-mesh closest hit is one W1 launch;
   3. the megakernel against the wavefront engine, with the
      tests/test_megakernel.py bars:
        a. K1a: softdof_scene.xml at 200x150, 2 samples per pixel,
@@ -159,9 +163,13 @@ Phases, each fatal on failure:
      on the main path and its plain version's time, and the device's idle
      share in one Renderer.render() of 4a, 4c, 4d, 4g, 4e, 4k and 4o's
      per-instance route; K6's at the gradient path's shape of 4m. W1 at
-     4o's largest closest-hit launch and on ico5's camera rays, its bound
-     from its work counters (inner nodes, triangle tests) and its
-     registers and spills. The Renderer's synchronous loop against its
+     4o's largest closest-hit and any-hit launches, 4p's largest
+     closest-hit launch (ico5's deep tree an instance) and on ico5's
+     camera rays (its world tree), each with its bound from its work
+     counters (inner nodes, triangle tests, the rays' moves into instance
+     space), those counters a ray and a warp's slowest lane against the
+     mean, and both instantiations' registers, spills, stack frame, shared
+     memory and blocks an SM. The Renderer's synchronous loop against its
      one-deep pipeline in turns (sync, pipe, pipe, sync) on softdof,
      mesh_scene, ico5, texture_scene and the photon-mapped
      caustics_scene: wall, device busy and idle share, the four renders'
@@ -763,12 +771,14 @@ def main():
     from qaray_tpu_torch.photon.cluster import cluster_photon_map
     from qaray_tpu_torch.scene.procedural import (
         icosphere,
+        scatter_instances,
         with_glass,
         with_mesh,
         with_shared_mesh,
         with_texture,
     )
     from qaray_tpu_torch.scene.textures import load_image
+    from qaray_tpu_torch.tools.kernel_times import w1_walked
     from qaray_tpu_torch.scene.xml_parser import load_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -815,8 +825,10 @@ def main():
             if "Function properties for" in line and symbol_part in line:
                 spill = dict((k, int(v)) for v, k in re.findall(
                     r"(\d+) bytes spill (stores|loads)", lines[i + 1]))
+                frame = re.search(r"(\d+) bytes stack frame", lines[i + 1])
                 regs = re.search(r"Used (\d+) registers", lines[i + 2])
                 return dict(registers=int(regs.group(1)),
+                            stack_frame_bytes=int(frame.group(1)),
                             spill_store_bytes=spill["stores"],
                             spill_load_bytes=spill["loads"])
         raise AssertionError(f"no ptxas report for {symbol_part} in {name}")
@@ -1166,6 +1178,13 @@ def main():
     check(not m_g.world_bvh and m_g.num_mesh_instances == 25
           and m_g.num_tris == 320, "grid_scene per instance: 25 instances "
           "of one 320-triangle tree")
+    # 300 transformed instances of mesh_scene's icosphere (one mirrored),
+    # scattered around it: more than one of W1's staged chunks.
+    a_i, m_i = compile_scene(mesh_base, device="cuda", world_bvh=False)
+    many_xf = torch.tensor(scatter_instances(
+        a_i.kernel.inst_xf[0].cpu().numpy(), 300, 5), device="cuda")
+    many_tabs = (a_i.mesh.pnodes, a_i.mesh.ltri,
+                 a_i.instances.proot[:1].repeat(300).contiguous(), many_xf)
     w1_sets = {}
     w1_err = 0.0
 
@@ -1189,9 +1208,12 @@ def main():
                               ("camera", cp, cd, None))),
             ("grid 25 instances", a_g, m_g, (
                 ("camera", gp.contiguous(), gd.contiguous(), None),
-                ("random", *mesh_rays(1 << 20, 31))))):
+                ("random", *mesh_rays(1 << 20, 31)))),
+            ("300 instances", a_i, m_i, (
+                ("random", *mesh_rays(1 << 14, 37)), ))):
         tabs = ((arr.mesh.pnodes, arr.mesh.ltri, arr.instances.proot[:1],
                  None) if meta.world_bvh else
+                many_tabs if what == "300 instances" else
                 (arr.mesh.pnodes, arr.mesh.ltri, arr.instances.proot,
                  arr.kernel.inst_xf))
         stack = meta.bvh_depth + 2
@@ -1208,7 +1230,8 @@ def main():
             check(all(torch.equal(x, y) for x, y in zip(got, want)),
                   f"W1 closest {what} {name} ({n_} rays): (t, instance, "
                   "triangle, bary, front) equal to the plain walk's, "
-                  f"{int((got[2] >= 0).sum())} hits")
+                  f"{int((got[2] >= 0).sum())} hits on "
+                  f"{len(set(got[1][got[1] >= 0].tolist()))} instances")
             budget = t_ if t_ is not None else torch.full((n_,), 60.0,
                                                           device="cuda")
             occ_in = torch.arange(n_, device="cuda") % 7 == 0
@@ -1913,23 +1936,29 @@ def main():
     finally:
         os.environ.pop("QARAY_MESH_PATH", None)
 
-    # W1's launches on the per-instance routes by rays, and the rays of
-    # the first closest-hit launch at the largest size, for phase 5.
+    # W1's launches on the per-instance routes by rays, and the inputs of
+    # the first closest-hit and any-hit launches at the largest size of
+    # each kind, for phase 5 (w1_rays[kind]: p, d, t, occ_in, tables,
+    # keywords).
     w1_sizes, w1_rays = {}, {}
     w1_closest, w1_occluded = bvh_packed.closest, bvh_packed.occluded
 
-    def w1_closest_sized(p_, d_, t_, *tabs_, **kw):
+    def w1_keep(kind, p_, d_, t_, occ_, tabs_, kw):
         n_ = p_.shape[0]
-        w1_sizes[("closest", n_)] = w1_sizes.get(("closest", n_), 0) + 1
-        if n_ >= max([0] + [k[1] for k in w1_rays]):
-            w1_rays.clear()
-            w1_rays[("closest", n_)] = (p_.clone(), d_.clone(), t_.clone(),
-                                        tabs_, kw)
+        w1_sizes[(kind, n_)] = w1_sizes.get((kind, n_), 0) + 1
+        if kind not in w1_rays or n_ > w1_rays[kind][0].shape[0]:
+            w1_rays[kind] = (p_.clone(), d_.clone(), t_.clone(),
+                             None if occ_ is None else occ_.clone(), tabs_,
+                             kw)
+
+    def w1_closest_sized(p_, d_, t_, *tabs_, **kw):
+        w1_keep("closest", p_, d_, t_, None, tabs_, kw)
         return w1_closest(p_, d_, t_, *tabs_, **kw)
 
     def w1_occluded_sized(p_, d_, t_, occ_, *tabs_, **kw):
-        n_ = p_.shape[0]
-        w1_sizes[("any hit", n_)] = w1_sizes.get(("any hit", n_), 0) + 1
+        w1_keep("any hit", p_, d_, t_, torch.zeros(
+            p_.shape[0], dtype=torch.bool, device=p_.device)
+            if occ_ is None else occ_, tabs_, kw)
         return w1_occluded(p_, d_, t_, occ_, *tabs_, **kw)
 
     bvh_packed.closest, bvh_packed.occluded = (w1_closest_sized,
@@ -1955,6 +1984,7 @@ def main():
     print("  W1's launches in 4o by kind and rays: " + ", ".join(
         f"{k} {n} x {c}" for (k, n), c in sorted(w1_sizes.items())),
         flush=True)
+    w1_4o = dict(w1_rays)
 
     print("phase 4p: a 5x5 grid of ico5 instances (grid_scene with "
           "procedural.with_shared_mesh) 800x600 x 1 spp: 20,480 triangles "
@@ -1974,7 +2004,18 @@ def main():
         what = "baked" if world else "per instance"
         check(r5.meta.num_tris == (512000 if world else 20480),
               f"grid of ico5 {what}: {r5.meta.num_tris} triangles")
-        r5.render()  # warm-up
+        # The warm-up render keeps the per-instance route's largest
+        # closest-hit launch for phase 5.
+        w1_rays.clear()
+        bvh_packed.closest, bvh_packed.occluded = (w1_closest_sized,
+                                                   w1_occluded_sized)
+        try:
+            r5.render()  # warm-up
+        finally:
+            bvh_packed.closest, bvh_packed.occluded = (w1_closest,
+                                                       w1_occluded)
+        if not world:
+            w1_4p = w1_rays["closest"]
         r5.fb = FrameBuffer(800, 600)
         torch.cuda.synchronize()
         reset_counts()
@@ -2732,54 +2773,85 @@ def main():
         print(f"  K6 {symbol}: {json.dumps(info)}", flush=True)
     torch.cuda.synchronize()
 
-    # W1 at the per-instance route's largest closest-hit launch of 4o (the
-    # first bounce of a packed phase-1 dispatch over 25 instances), and on
-    # the camera rays of ico5's world tree (4n's route). Its bound counts
-    # the work its counters report: inner nodes (two slab tests each) and
-    # triangle tests, and the rays' moves into each instance's space.
-    (_, n_w), (p_w, d_w, t_w, tabs_w, kw_w) = next(iter(w1_rays.items()))
+    # W1 at four launches: the per-instance route's largest closest-hit
+    # and any-hit launches of 4o (25 instances of a 320-triangle tree), the
+    # largest closest-hit launch of 4p (25 instances of ico5's deep tree)
+    # and the camera rays of ico5's world tree (4n's route). Its bound
+    # counts the work its counters report: inner nodes (two slab tests
+    # each) and triangle tests, and the rays' moves into each instance's
+    # space: every instance for a closest hit, and for an any hit those up
+    # to the first that occludes the ray (kernel_times.w1_walked: one
+    # any-hit launch an instance, not counted on the main path).
     w1_rows = {}
-    for what, (p_, d_, t_, tabs_, kw_) in (
-            ("grid per instance", (p_w, d_w, t_w, tabs_w, kw_w)),
-            ("ico5 world", (cp, cd, torch.full((cp.shape[0],), BIG,
-                                               device="cuda"),
-                            w1_sets["ico5 camera"][2],
-                            dict(stack_size=w1_sets["ico5 camera"][3])))):
+    ico5_launch = (cp, cd, torch.full((cp.shape[0],), BIG, device="cuda"),
+                   None, w1_sets["ico5 camera"][2],
+                   dict(stack_size=w1_sets["ico5 camera"][3]))
+    for what, (p_, d_, t_, occ_, tabs_, kw_) in (
+            ("4o closest", w1_4o["closest"]),
+            ("4o any hit", w1_4o["any hit"]),
+            ("4p closest", w1_4p), ("ico5 world", ico5_launch)):
         n_ = p_.shape[0]
-        work = torch.zeros((n_, 2), dtype=torch.int32, device="cuda")
-        bvh_packed.closest(p_, d_, t_, *tabs_, work=work, **kw_)
-        ms, src = kernel_ms(lambda: bvh_packed.closest(p_, d_, t_, *tabs_,
-                                                       **kw_), "bvh_kernel")
-        plain_ms = cuda_ms(lambda: bvh_packed.closest(
-            p_, d_, t_, *tabs_, **dict(kw_, plain=True)), 1)
-        inner, tested = (int(x) for x in work.sum(0))
         n_inst = tabs_[2].numel()
-        table_bytes = sum(x.numel() * x.element_size()
-                          for x in tabs_ if x is not None)
-        nbytes = n_ * (24 + 4 + 25) + table_bytes
+        kw_ = {k: v for k, v in kw_.items() if k != "plain"}
+        work = torch.zeros((n_, 2), dtype=torch.int32, device="cuda")
+        if occ_ is None:
+            call = (lambda plain=False: bvh_packed.closest(
+                p_, d_, t_, *tabs_, plain=plain, **kw_))
+            bvh_packed.closest(p_, d_, t_, *tabs_, work=work, **kw_)
+            moves = n_ * n_inst
+            nbytes = n_ * (24 + 4) + n_ * 25
+        else:
+            call = (lambda plain=False: bvh_packed.occluded(
+                p_, d_, t_, occ_, *tabs_, plain=plain, **kw_))
+            bvh_packed.occluded(p_, d_, t_, occ_, *tabs_, work=work, **kw_)
+            moves = int(w1_walked((p_, d_, t_, occ_, tabs_, kw_)).sum())
+            nbytes = n_ * (24 + 4 + 1) + n_
+        ms, src = kernel_ms(call, "bvh_kernel")
+        # The plain loop walks each instance until its slowest ray is done:
+        # on 4p's deep trees that takes minutes, so it is timed at 4o's
+        # closest-hit launch and on ico5's world tree only.
+        plain_ms = (cuda_ms(lambda: call(plain=True), 1)
+                    if what in ("4o closest", "ico5 world") else None)
+        inner, tested = (int(x) for x in work.sum(0))
+        nbytes += sum(x.numel() * x.element_size()
+                      for x in tabs_ if x is not None)
         ops = (inner * OPS_PER_NODE + tested * OPS_PER_TRI
-               + (n_ * n_inst * OPS_PER_XFORM if tabs_[3] is not None else 0))
+               + (moves * OPS_PER_XFORM if tabs_[3] is not None else 0))
         b_ms, b_by = bound(nbytes, ops)
         steps = work.sum(1).double()
         warp = steps[: n_ // 32 * 32].reshape(-1, 32)
+        smem = bvh_packed.block_smem_bytes(n_inst)
         w1_rows[what] = dict(
             ms=ms, timed_by=src, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, lanes=n_, instances=n_inst,
+            stack_size=kw_["stack_size"], smem_bytes=smem,
+            instance_moves_per_ray=moves / n_ if tabs_[3] is not None else 0,
             inner_nodes_per_ray=inner / n_, tri_tests_per_ray=tested / n_,
             warp_max_over_mean=(warp.max(1).values.mean()
                                 / warp.mean(1).mean()).item())
-        print(f"  W1 {what}, {n_} rays x {n_inst} instances: {ms:.4f} ms by "
-              f"{src}, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms by "
-              f"{b_by}; {inner / n_:.2f} inner nodes and {tested / n_:.2f} "
-              "triangle tests a ray, a warp's slowest lane "
-              f"{w1_rows[what]['warp_max_over_mean']:.3f}x its mean",
-              flush=True)
-    numbers["W1"].update(w1_rows["grid per instance"])
-    numbers["W1"]["ico5_world"] = w1_rows["ico5 world"]
+        print(f"  W1 {what}, {n_} rays x {n_inst} instances (stack "
+              f"{kw_['stack_size']}, {smem} bytes of shared memory a "
+              f"block): {ms:.4f} ms by {src}, plain {plain_ms} ms, "
+              f"bound {b_ms:.5f} ms by {b_by}; {inner / n_:.2f} inner nodes "
+              f"and {tested / n_:.2f} triangle tests a ray, a warp's "
+              f"slowest lane {w1_rows[what]['warp_max_over_mean']:.3f}x its "
+              "mean", flush=True)
+    numbers["W1"].update(w1_rows["4o closest"])
+    for what in ("4o any hit", "4p closest", "ico5 world"):
+        numbers["W1"][what.replace(" ", "_")] = w1_rows[what]
     numbers["W1"]["ptxas"] = {
         k: ptxas_info("bvh", sym) for k, sym in (
             ("closest", "bvh_kernelILb0E"), ("any_hit", "bvh_kernelILb1E"))}
+    for k, info in numbers["W1"]["ptxas"].items():
+        info["blocks_per_sm"] = {
+            what: blocks_per_sm(info["registers"], bvh_packed.THREADS,
+                                row["smem_bytes"])
+            for what, row in w1_rows.items()
+            if (what == "4o any hit") == (k == "any_hit")}
     print(f"  W1 ptxas: {json.dumps(numbers['W1']['ptxas'])}", flush=True)
+    check(all(i["spill_store_bytes"] == 0 and i["spill_load_bytes"] == 0
+              for i in numbers["W1"]["ptxas"].values()),
+          "W1: neither instantiation spills")
     torch.cuda.synchronize()
 
     # Device busy share of one Renderer.render() at the 4a, 4c, 4d, 4g, 4e

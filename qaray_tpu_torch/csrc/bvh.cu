@@ -8,40 +8,61 @@
 // another. The plain version is ops/bvh_packed.py (traverse_bvh_packed and
 // the instance loops around it).
 //
-// Here one thread walks one ray. Its stack of packed refs lives in local
-// memory, stack_size (the tree's depth + 2, as in the JAX package) of at
-// most QR_BVH_STACK entries; a deeper tree is refused by the wrapper and
-// by the scene compiler. A step pops a ref; an inner node's fat row (64
-// bytes: both children's boxes and refs) is read once, both children are
-// slab-tested against the ray's t at the step's start, the triangles of a
-// hit leaf child are tested at once (consecutive 48-byte rows of ltri,
-// whose column 9 carries the bit-cast world triangle id), and the hit
-// inner children are pushed far child first, each only while its entry
-// lies below the t the leaves left. A popped leaf ref (only a tree whose
-// root is a leaf) is tested as the step's first leaf. With instances, one
-// launch walks every instance for each ray: the ray is moved to the
-// instance's object space (p_obj = M_w2o (p - t_o2w), products summed in a
-// fixed order), the walk starts at the instance's root ref with the best
-// t so far, and a hit replaces the best where tri >= 0 and t < best t, as
-// the JAX loop takes it. The any hit stops a ray's walk at its first
-// occluder and skips the instances after one.
+// Here one thread walks one ray over every instance, in instance order,
+// with the best t so far. For each instance the ray is moved to its object
+// space (p_obj = M_w2o (p - t_o2w), products summed in a fixed order) and
+// its walk starts at the instance's root. A step takes an inner node's fat
+// row (64 bytes: both children's boxes and refs), slab-tests both children
+// against the ray's t at the step's start, tests the triangles of a hit
+// leaf child at once (consecutive 48-byte rows of ltri, whose column 9
+// carries the bit-cast world triangle id), and takes the hit inner
+// children whose entry lies below the t the leaves left, near child first.
+// A leaf root (a tree of one leaf) is tested as the step's first leaf. A
+// hit replaces the best where t < best t, as the JAX loop takes it. The
+// any hit stops a ray at its first occluder and skips the instances after
+// one.
 //
 // Every operation is the plain version's, in its order, and the build
 // has no FMA contraction (ops/_build.py), so t, the triangle, the
-// barycentrics and the front flag are the plain walk's bits; ties in t go
-// to the triangle visited first in the same visit order.
+// barycentrics, the front flag and the work counts are the plain walk's
+// bits; ties in t go to the triangle visited first in the same visit order.
 //
-// What bounds it on the H100: operations (two slab tests an inner node,
-// about 50 a triangle test), by the work counter's count, but a ray's walk
-// is a chain of dependent loads (a node's row decides the next), so the
-// latency of those loads and the divergence of a warp's rays decide the
-// time; nothing is shared among rays but the read-only cache, through
-// which every row is read.
+// What bounds it on the H100. By its work counters it is bound by
+// operations (two slab tests an inner node, about 50 a triangle test), but
+// a closest-hit launch lasts as long as its slowest rays' walks, each a
+// chain of dependent steps on one thread: rays that graze a mesh, or lie
+// within 1e-7 of parallel to an axis (whose slab the test then leaves
+// unbounded, so that they enter every box their other two axes cross),
+// walk hundreds to thousands of nodes. On grid_scene's 5x5 grid of ico5
+// instances one ray walks 10,515 steps, and the launch without its
+// slowest 1 % of rays takes a sixteenth of its time (tools/w1_layout.py).
+// Only a shorter step shortens such a walk. What the design does about it:
+// - The next step's node stays in registers: of two hit inner children the
+//   near one is walked next and only the far one goes on the stack (as
+//   pushing far then near and popping gives), so a step stores and loads
+//   the stack only where it pops. The stack, stack_size refs of at most
+//   QR_BVH_STACK, is a thread's own (local memory, cached in L1).
+// - A leaf's triangle rows are loaded one ahead: the next row is in flight
+//   while the current one is tested.
+// - The instance table is warp-uniform, so each block stages it in shared
+//   memory kChunk instances at a time (coalesced 16-byte loads): each
+//   instance's transform, its root's fat row and its root ref. A walk
+//   starts from there, with no load of the root's ref and then of its row
+//   from device memory. Every thread walks the chunk, then the block
+//   stages the next; every thread reaches every barrier (a thread past n,
+//   an occluded shadow ray or one whose walk is done walks no instance).
+// - No floor on blocks an SM: __launch_bounds__ gives the compiler the
+//   registers the walk wants (held to 64, it spilled and ran slower).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+// The launches and their shared memory go through macros that
+// csrc/host/cuda_runtime.h defines otherwise, so that the CPU tests can
+// compile this source with g++ and run it on the CPU
+// (ops/bvh_packed.walk_host).
 #ifndef QR_LAUNCH
+#define QR_SHARED_FLOATS(name) extern __shared__ __align__(16) float name[]
 #define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg) \
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(arg)
 #endif
@@ -53,6 +74,11 @@
 namespace {
 
 constexpr int kThreads = 128;
+// Instances staged at once, and the floats of one staged instance: M_w2o
+// and t_o2w (0-11), its root's two child boxes (12-23) and refs (24-25,
+// bit-cast), the root's own ref (26, bit-cast), one pad: 7 KB a block.
+constexpr int kChunk = 64;
+constexpr int kRec = 28;
 
 struct BvhParams {
   const float* p;      // [n, 3] world ray origins
@@ -89,13 +115,12 @@ __device__ __forceinline__ float area(int i, int j, const V3& a, const V3& b,
 }
 
 // ops/intersect.intersect_triangles for one ray and one ltri row.
-__device__ __forceinline__ bool tri_test(const float* row, const V3& p,
+// The row is (r0, r1, r2): the vertices in columns 0-8.
+__device__ __forceinline__ bool tri_test(const float4& r0, const float4& r1,
+                                         const float4& r2, const V3& p,
                                          const V3& d, float t_max, float& t,
                                          float& a, float& b, float& c,
                                          bool& front) {
-  const float4 r0 = __ldg(reinterpret_cast<const float4*>(row));
-  const float4 r1 = __ldg(reinterpret_cast<const float4*>(row) + 1);
-  const float4 r2 = __ldg(reinterpret_cast<const float4*>(row) + 2);
   const V3 v0{r0.x, r0.y, r0.z}, v1{r0.w, r1.x, r1.y}, v2{r1.z, r1.w, r2.x};
   const V3 e1{v1.x - v0.x, v1.y - v0.y, v1.z - v0.z};
   const V3 e2{v2.x - v0.x, v2.y - v0.y, v2.z - v0.z};
@@ -144,164 +169,203 @@ __device__ __forceinline__ bool slab(const float* box, const V3& p,
 
 struct Hit {
   float t, a, b, c;
-  int tri;
+  int tri, inst;
   bool front;
 };
 
-// One ray's walk from `root` below best.t (traverse_bvh_packed's body, a
-// step per iteration). Updates best where a triangle beats it.
-template <bool kAnyHit>
-__device__ void walk(const BvhParams& P, const V3& p, const V3& d, int root,
-                     Hit& best, int* work) {
-  const bool small[3] = {fabsf(d.x) < 1e-7f, fabsf(d.y) < 1e-7f,
-                         fabsf(d.z) < 1e-7f};
-  const V3 rcp{small[0] ? 1.0f : 1.0f / d.x, small[1] ? 1.0f : 1.0f / d.y,
-               small[2] ? 1.0f : 1.0f / d.z};
-  int stack[QR_BVH_STACK];
-  stack[0] = root;
-  int sp = 1;
-  const int top = P.stack_size - 1;
-  int inner = 0, tested = 0;
-  while (sp > 0) {
-    const int sp_pop = sp - 1;
-    const int ref = stack[sp_pop];
-    const float t_step = best.t;
-    int offs[2] = {0, 0}, cnts[2] = {0, 0};
-    bool push0 = false, push1 = false;
-    float entry0 = 0.0f, entry1 = 0.0f;
-    int ref0 = 0, ref1 = 0;
-    if (ref < 0) {  // a popped leaf: the root of a one-leaf tree
-      const int e = -ref - 1;
-      offs[0] = e >> 3;
-      cnts[0] = e & 7;
-    } else {
-      ++inner;
-      float row[16];
-      const float4* r4 = reinterpret_cast<const float4*>(P.pnodes) + 4 * ref;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 v = __ldg(r4 + q);
-        row[4 * q] = v.x;
-        row[4 * q + 1] = v.y;
-        row[4 * q + 2] = v.z;
-        row[4 * q + 3] = v.w;
-      }
-      ref0 = __float_as_int(row[12]);
-      ref1 = __float_as_int(row[13]);
-      const bool hit0 = slab(row, p, rcp, small, t_step, entry0);
-      const bool hit1 = slab(row + 6, p, rcp, small, t_step, entry1);
-      if (hit0 && ref0 < 0) {
-        const int e = -ref0 - 1;
-        offs[0] = e >> 3;
-        cnts[0] = e & 7;
-      }
-      if (hit1 && ref1 < 0) {
-        const int e = -ref1 - 1;
-        offs[1] = e >> 3;
-        cnts[1] = e & 7;
-      }
-      push0 = hit0 && ref0 >= 0;
-      push1 = hit1 && ref1 >= 0;
+// The triangles of a leaf ref's decoded (off, cnt), in order, below best.t;
+// a hit that beats best.t becomes the best, of instance `inst`. Each row is
+// loaded while the one before it is tested.
+__device__ __forceinline__ void test_leaf(const BvhParams& P, int off,
+                                          int cnt, const V3& p, const V3& d,
+                                          int inst, Hit& best, int& tested) {
+  cnt = cnt < P.max_leaf ? cnt : P.max_leaf;
+  if (cnt <= 0) return;
+  const float4* rows = reinterpret_cast<const float4*>(P.ltri) + 3 * off;
+  float4 r0 = __ldg(rows), r1 = __ldg(rows + 1), r2 = __ldg(rows + 2);
+  for (int k = 0; k < cnt; ++k) {
+    const float4 q0 = r0, q1 = r1, q2 = r2;
+    if (k + 1 < cnt) {
+      rows += 3;
+      r0 = __ldg(rows);
+      r1 = __ldg(rows + 1);
+      r2 = __ldg(rows + 2);
     }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int cnt = cnts[s] < P.max_leaf ? cnts[s] : P.max_leaf;
-      for (int k = 0; k < cnt; ++k) {
-        const float* row = P.ltri + 12 * (size_t)(offs[s] + k);
-        float t, a, b, c;
-        bool fr;
-        ++tested;
-        if (tri_test(row, p, d, best.t, t, a, b, c, fr) && t < best.t) {
-          best.t = t;
-          best.a = a;
-          best.b = b;
-          best.c = c;
-          best.front = fr;
-          best.tri = __float_as_int(__ldg(row + 9));
-        }
-      }
+    float t, a, b, c;
+    bool fr;
+    ++tested;
+    if (tri_test(q0, q1, q2, p, d, best.t, t, a, b, c, fr) && t < best.t) {
+      best.t = t;
+      best.a = a;
+      best.b = b;
+      best.c = c;
+      best.front = fr;
+      best.tri = __float_as_int(q2.y);  // column 9: the world triangle id
+      best.inst = inst;
     }
-    push0 = push0 && entry0 < best.t;
-    push1 = push1 && entry1 < best.t;
-    const bool both = push0 && push1;
-    const bool near0 = entry0 < entry1;
-    const int first = both ? (near0 ? ref1 : ref0) : (push0 ? ref0 : ref1);
-    const int second = near0 ? ref0 : ref1;
-    int sp1 = sp_pop;
-    if (push0 || push1) {
-      stack[sp1 < top ? sp1 : top] = first;
-      ++sp1;
-    }
-    if (both) {
-      stack[sp1 < top ? sp1 : top] = second;
-      ++sp1;
-    }
-    sp = sp1;
-    if (kAnyHit && best.tri >= 0) sp = 0;
-  }
-  if (work) {
-    work[0] += inner;
-    work[1] += tested;
   }
 }
 
-// The ray in instance i's object space: M_w2o (p - t_o2w), M_w2o d, each
-// row's products summed left to right (ops/intersect._apply).
-__device__ __forceinline__ void to_object(const float* xf, const V3& p,
+// The ray in a staged instance's object space: M_w2o (p - t_o2w), M_w2o d,
+// each row's products summed left to right (ops/intersect._apply). rec: a
+// staged instance (kRec floats, 16-byte aligned).
+__device__ __forceinline__ void to_object(const float* rec, const V3& p,
                                           const V3& d, V3& po, V3& dob) {
-  const V3 r{p.x - xf[9], p.y - xf[10], p.z - xf[11]};
-  po = V3{xf[0] * r.x + xf[1] * r.y + xf[2] * r.z,
-          xf[3] * r.x + xf[4] * r.y + xf[5] * r.z,
-          xf[6] * r.x + xf[7] * r.y + xf[8] * r.z};
-  dob = V3{xf[0] * d.x + xf[1] * d.y + xf[2] * d.z,
-           xf[3] * d.x + xf[4] * d.y + xf[5] * d.z,
-           xf[6] * d.x + xf[7] * d.y + xf[8] * d.z};
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+  const float4 m0 = r4[0], m1 = r4[1], m2 = r4[2];
+  const V3 r{p.x - m2.y, p.y - m2.z, p.z - m2.w};
+  po = V3{m0.x * r.x + m0.y * r.y + m0.z * r.z,
+          m0.w * r.x + m1.x * r.y + m1.y * r.z,
+          m1.z * r.x + m1.w * r.y + m2.x * r.z};
+  dob = V3{m0.x * d.x + m0.y * d.y + m0.z * d.z,
+           m0.w * d.x + m1.x * d.y + m1.y * d.z,
+           m1.z * d.x + m1.w * d.y + m2.x * d.z};
+}
+
+// Stage instances [c0, c0 + cn) as kRec-float records: the transforms as
+// float4 (xf rows are 48 bytes, 16-byte aligned), then each root's ref and,
+// for an inner root, its fat row's boxes and child refs.
+__device__ __forceinline__ void stage(const BvhParams& P, int c0, int cn,
+                                      float* s_inst) {
+  if (P.xf) {
+    const float4* src = reinterpret_cast<const float4*>(P.xf) + 3 * c0;
+    for (int j = threadIdx.x; j < 3 * cn; j += blockDim.x)
+      reinterpret_cast<float4*>(s_inst + kRec * (j / 3))[j % 3] =
+          __ldg(src + j);
+  }
+  const float4* nodes = reinterpret_cast<const float4*>(P.pnodes);
+  for (int j = threadIdx.x; j < 4 * cn; j += blockDim.x) {
+    const int k = j >> 2, q = j & 3;
+    const int root = __ldg(P.roots + c0 + k);
+    float4 v = root >= 0 ? __ldg(nodes + 4 * (size_t)root + q)
+                         : float4{0.0f, 0.0f, 0.0f, 0.0f};
+    if (q == 3) v.z = __int_as_float(root);
+    reinterpret_cast<float4*>(s_inst + kRec * k + 12)[q] = v;
+  }
+}
+
+// Instance `inst`'s walk from its staged record: the ray moved to its
+// object space, then one inner node a step (traverse_bvh_packed's body),
+// the root's row from shared memory and every other row from pnodes. A
+// step slab-tests both children against the t at its start, tests the
+// triangles of the hit leaf children (child 0 first), then takes the hit
+// inner children whose entry lies below the t the leaves left: the near
+// one is the next step's node and the far one goes on the stack, as
+// pushing far then near and popping gives; with none, the next node is
+// popped. A leaf root (a tree of one leaf) is tested as a step's first
+// leaf.
+template <bool kAnyHit>
+__device__ __forceinline__ void walk_instance(const BvhParams& P,
+                                              const float* rec, const V3& p,
+                                              const V3& d, int inst,
+                                              int* stack, Hit& best,
+                                              int& inner, int& tested) {
+  V3 po = p, dob = d;
+  if (P.xf) to_object(rec, p, d, po, dob);
+  const bool small[3] = {fabsf(dob.x) < 1e-7f, fabsf(dob.y) < 1e-7f,
+                         fabsf(dob.z) < 1e-7f};
+  const V3 rcp{small[0] ? 1.0f : 1.0f / dob.x,
+               small[1] ? 1.0f : 1.0f / dob.y,
+               small[2] ? 1.0f : 1.0f / dob.z};
+  const float4* r4 = reinterpret_cast<const float4*>(rec + 12);
+  float4 a = r4[0], b = r4[1], c = r4[2], e = r4[3];
+  const int root = __float_as_int(e.z);
+  if (root < 0) {
+    const int lf = -root - 1;
+    test_leaf(P, lf >> 3, lf & 7, po, dob, inst, best, tested);
+    return;
+  }
+  const float4* nodes = reinterpret_cast<const float4*>(P.pnodes);
+  const int top = P.stack_size - 1;
+  int sp = 0;  // refs on the stack under the node in hand
+  while (true) {
+    ++inner;
+    const float t_step = best.t;
+    const float row[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                           b.z, b.w, c.x, c.y, c.z, c.w};
+    const int ref0 = __float_as_int(e.x), ref1 = __float_as_int(e.y);
+    float entry0, entry1;
+    const bool hit0 = slab(row, po, rcp, small, t_step, entry0);
+    const bool hit1 = slab(row + 6, po, rcp, small, t_step, entry1);
+    if (hit0 && ref0 < 0) {
+      const int lf = -ref0 - 1;
+      test_leaf(P, lf >> 3, lf & 7, po, dob, inst, best, tested);
+    }
+    if (hit1 && ref1 < 0) {
+      const int lf = -ref1 - 1;
+      test_leaf(P, lf >> 3, lf & 7, po, dob, inst, best, tested);
+    }
+    if (kAnyHit && best.tri >= 0) return;
+    const bool push0 = hit0 && ref0 >= 0 && entry0 < best.t;
+    const bool push1 = hit1 && ref1 >= 0 && entry1 < best.t;
+    int next;
+    if (push0 && push1) {
+      const bool near0 = entry0 < entry1;
+      stack[sp < top ? sp : top] = near0 ? ref1 : ref0;
+      ++sp;
+      next = near0 ? ref0 : ref1;
+    } else if (push0 || push1) {
+      next = push0 ? ref0 : ref1;
+    } else {
+      if (sp == 0) return;
+      --sp;
+      next = stack[sp < top ? sp : top];
+    }
+    a = __ldg(nodes + 4 * (size_t)next);
+    b = __ldg(nodes + 4 * (size_t)next + 1);
+    c = __ldg(nodes + 4 * (size_t)next + 2);
+    e = __ldg(nodes + 4 * (size_t)next + 3);
+  }
 }
 
 template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads)
-    bvh_kernel(const BvhParams P) {
+__global__ void __launch_bounds__(kThreads) bvh_kernel(const BvhParams P) {
+  QR_SHARED_FLOATS(smem);
+  float* s_inst = smem;
+  int stack[QR_BVH_STACK];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= P.n) return;
-  const V3 p{P.p[3 * r], P.p[3 * r + 1], P.p[3 * r + 2]};
-  const V3 d{P.d[3 * r], P.d[3 * r + 1], P.d[3 * r + 2]};
-  const float tcur = P.tcur[r];
-  int wk[2] = {0, 0};
-  int* work = P.work ? wk : nullptr;
+  const bool live = r < P.n;
+  V3 p{0.0f, 0.0f, 0.0f}, d{0.0f, 0.0f, 0.0f};
+  float tcur = 0.0f;
+  bool open = live;  // instances still to walk
+  if (live) {
+    p = V3{P.p[3 * r], P.p[3 * r + 1], P.p[3 * r + 2]};
+    d = V3{P.d[3 * r], P.d[3 * r + 1], P.d[3 * r + 2]};
+    tcur = P.tcur[r];
+    if (kAnyHit && P.occ_in) open = !P.occ_in[r];
+  }
+  const bool occ_in = live && !open;
+  Hit best{tcur, 0.0f, 0.0f, 0.0f, -1, -1, false};
+  int inner = 0, tested = 0;
+  for (int c0 = 0; c0 < P.n_inst; c0 += kChunk) {
+    // Every thread arrives here once a chunk: the last chunk's reads are
+    // done before its records are overwritten, and a block with no ray
+    // left open stops.
+    if (c0 > 0 && !__syncthreads_or(open)) break;
+    const int cn = P.n_inst - c0 < kChunk ? P.n_inst - c0 : kChunk;
+    stage(P, c0, cn, s_inst);
+    __syncthreads();
+    for (int i = 0; i < cn && open; ++i) {
+      walk_instance<kAnyHit>(P, s_inst + kRec * i, p, d, c0 + i, stack,
+                             best, inner, tested);
+      if (kAnyHit && best.tri >= 0) open = false;
+    }
+  }
+  if (!live) return;
   if (kAnyHit) {
-    bool occ = P.occ_in ? P.occ_in[r] : false;
-    for (int i = 0; i < P.n_inst && !occ; ++i) {
-      V3 po = p, dob = d;
-      if (P.xf) to_object(P.xf + 12 * i, p, d, po, dob);
-      Hit h{tcur, 0.0f, 0.0f, 0.0f, -1, false};
-      walk<true>(P, po, dob, P.roots[i], h, work);
-      occ = h.tri >= 0 && h.t < tcur;
-    }
-    P.occ[r] = occ;
+    P.occ[r] = occ_in || best.tri >= 0;
   } else {
-    Hit best{tcur, 0.0f, 0.0f, 0.0f, -1, false};
-    int best_inst = -1;
-    for (int i = 0; i < P.n_inst; ++i) {
-      V3 po = p, dob = d;
-      if (P.xf) to_object(P.xf + 12 * i, p, d, po, dob);
-      Hit h{best.t, 0.0f, 0.0f, 0.0f, -1, false};
-      walk<false>(P, po, dob, P.roots[i], h, work);
-      if (h.tri >= 0 && h.t < best.t) {
-        best = h;
-        best_inst = i;
-      }
-    }
     P.t[r] = best.t;
     P.tri[r] = best.tri;
-    P.inst[r] = best_inst;
+    P.inst[r] = best.inst;
     P.bary[3 * r] = best.a;
     P.bary[3 * r + 1] = best.b;
     P.bary[3 * r + 2] = best.c;
     P.front[r] = best.front;
   }
   if (P.work) {
-    P.work[2 * r] = wk[0];
-    P.work[2 * r + 1] = wk[1];
+    P.work[2 * r] = inner;
+    P.work[2 * r + 1] = tested;
   }
 }
 
@@ -313,7 +377,7 @@ extern "C" int qr_bvh_stack_cap() { return QR_BVH_STACK; }
 // cudaGetLastError(). xf null: one world-space tree (n_inst 1, no
 // transform, inst 0 where hit). any_hit: writes occ (occ_in optional);
 // else t, tri, inst, bary, front. work optional. stack_size must lie in
-// [1, QR_BVH_STACK].
+// [1, QR_BVH_STACK]; pnodes, ltri and xf 16-byte aligned.
 extern "C" int qr_bvh_walk(const float* p, const float* d, const float* tcur,
                            const bool* occ_in, const float* pnodes,
                            const float* ltri, const int* roots,
@@ -327,9 +391,11 @@ extern "C" int qr_bvh_walk(const float* p, const float* d, const float* tcur,
                     xf,   n,     n_inst, stack_size, max_leaf, t,
                     tri,  inst,  bary, front, occ,   work};
   const int blocks = (n + kThreads - 1) / kThreads;
+  const int chunk = n_inst < kChunk ? n_inst : kChunk;
+  const size_t smem = sizeof(float) * (size_t)kRec * chunk;
   if (any_hit)
-    QR_LAUNCH(bvh_kernel<true>, blocks, kThreads, 0, stream, P);
+    QR_LAUNCH(bvh_kernel<true>, blocks, kThreads, smem, stream, P);
   else
-    QR_LAUNCH(bvh_kernel<false>, blocks, kThreads, 0, stream, P);
+    QR_LAUNCH(bvh_kernel<false>, blocks, kThreads, smem, stream, P);
   return (int)cudaGetLastError();
 }

@@ -148,6 +148,11 @@ inline float __uint_as_float(unsigned a) {
   memcpy(&f, &a, 4);
   return f;
 }
+inline float __int_as_float(int a) {
+  float f;
+  memcpy(&f, &a, 4);
+  return f;
+}
 inline int __float_as_int(float f) {
   int a;
   memcpy(&a, &f, 4);

@@ -48,12 +48,24 @@ def _lib(host: bool = False):
         walk = _build.bind(lib, "qr_bvh_walk", "ppppppppiiiiipppppppp")
         cap = _build.bind(lib, "qr_bvh_stack_cap", "")
         _fns[host] = (walk, cap())
+        if host:
+            _fns["block"] = _build.bind(lib, "qr_host_set_block", "i")
     return _fns[host]
 
 
 # The kernel's stack holds this many refs (QR_BVH_STACK in csrc/bvh.cu): a
 # tree deeper than STACK_CAP - 2 is refused, not walked.
 STACK_CAP = 64
+# W1's block (kThreads), the instances a block stages in shared memory at
+# once (kChunk) and the floats of one staged instance (kRec), as in
+# csrc/bvh.cu.
+THREADS, CHUNK, REC_FLOATS = 128, 64, 28
+
+
+def block_smem_bytes(n_inst: int) -> int:
+    """Dynamic shared memory of a W1 block (qr_bvh_walk's launch): the
+    staged chunk of instances."""
+    return 4 * REC_FLOATS * min(n_inst, CHUNK)
 
 
 def check_stack(stack_size: int):
@@ -306,6 +318,10 @@ def _launch(host, p, d, t, occ_in, pnodes, ltri, proot, xf, max_leaf,
         if cap != STACK_CAP:
             raise RuntimeError(f"csrc/bvh.cu's stack holds {cap} refs, the "
                                f"wrapper expects {STACK_CAP}")
+        for x in (pnodes, ltri) + (() if xf is None else (xf, )):
+            if x.data_ptr() % 16:
+                raise ValueError("W1 reads pnodes, ltri and xf as float4: "
+                                 "they must be 16-byte aligned")
         p, d, t = p.contiguous(), d.contiguous(), t.contiguous()
         occ_in = None if occ_in is None else occ_in.contiguous()
         rc = fn(p.data_ptr(), d.data_ptr(), t.data_ptr(),
@@ -371,15 +387,25 @@ def occluded(p, d, t_max, occ_in, pnodes, ltri, proot, xf=None,
 
 
 def walk_host(p, d, t, pnodes, ltri, proot, xf=None, any_hit=False,
-              occ_in=None, max_leaf: int = 4, stack_size: int = 40):
-    """csrc/bvh.cu built for the CPU by g++ (_build.load_host) and run one
-    ray at a time on CPU tensors: closest's or occluded's outputs, and the
-    work counts [B, 2]. For tests that hold the source to the plain
-    version where there is no card; counts no launch."""
+              occ_in=None, max_leaf: int = 4, stack_size: int = 40,
+              block: int = 1):
+    """csrc/bvh.cu built for the CPU by g++ (_build.load_host) and run on
+    CPU tensors in host blocks of `block` threads (fibers sharing the
+    block's shared memory and barriers; 128 is a card block): closest's or
+    occluded's outputs, and the work counts [B, 2]. For tests that hold
+    the source to the plain version where there is no card; counts no
+    launch."""
+    from qaray_tpu_torch.ops import _build
+
     for x in (p, d, t):
         if x.device.type != "cpu":
             raise ValueError("walk_host takes CPU tensors")
     _check(p, d, t, pnodes, ltri, proot, xf, stack_size)
     work = torch.zeros((p.shape[0], 2), dtype=torch.int32)
-    return _launch(True, p, d, t, occ_in, pnodes, ltri, proot, xf, max_leaf,
-                   stack_size, any_hit, work, None), work
+    _lib(True)
+    _build.check(_fns["block"](block), "host block size")
+    try:
+        return _launch(True, p, d, t, occ_in, pnodes, ltri, proot, xf,
+                       max_leaf, stack_size, any_hit, work, None), work
+    finally:
+        _fns["block"](1)

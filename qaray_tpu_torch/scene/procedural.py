@@ -6,7 +6,8 @@ with_mesh puts such a mesh in place of the first OBJ node of a parsed
 scene, keeping its transform and material, and with_shared_mesh in place
 of every OBJ node's, one mesh instanced by them all; with_texture binds a
 checker or an image to a material slot, the background or the
-environment; with_glass gives one object a glass material of its own.
+environment; with_glass gives one object a glass material of its own;
+scatter_instances makes a table of many transformed instances of one.
 """
 
 from __future__ import annotations
@@ -165,3 +166,29 @@ def with_glass(scene, name: str, refraction=(0.9, 0.9, 0.9), ior=1.5,
     scene.materials.append(mtl)
     node.mtl_name = mtl.name
     return scene
+
+
+def scatter_instances(xf_row, n: int, seed: int, spread: float = 2.0,
+                      scale: float = 0.3):
+    """n instances of the instance whose W1 transform row is xf_row ([12]:
+    M_w2o row-major, then t_o2w): instance k is the original turned by a
+    random rotation, scaled by `scale` and moved by a random offset within
+    `spread` times the original's scale (its object-to-world matrix's
+    largest column) on every axis; instance 1 is mirrored. Returns a
+    float32 [n, 12] numpy array of such rows (inverse matrices in
+    float64, rounded once)."""
+    rs = np.random.RandomState(seed)
+    row = np.asarray(xf_row, np.float64)
+    m_o2w = np.linalg.inv(row[:9].reshape(3, 3))
+    reach = spread * float(np.linalg.norm(m_o2w, axis=0).max())
+    rows = []
+    for k in range(n):
+        q, r = np.linalg.qr(rs.normal(size=(3, 3)))
+        turn = q * np.sign(np.diag(r))
+        if k == 1:
+            turn[:, 0] *= -1.0
+        m = m_o2w @ turn * scale
+        rows.append(np.concatenate([np.linalg.inv(m).reshape(9),
+                                    row[9:12] + rs.uniform(-reach, reach,
+                                                           3)]))
+    return np.stack(rows).astype(np.float32)

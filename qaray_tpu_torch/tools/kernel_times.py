@@ -26,11 +26,18 @@ shapes, for comparing two trees in one call:
   on chip_smoke.py phase 2a's random rays and on the rays of bounces 0
   and 1 of one wavefront batch of softdof of that size (batch_rays); K2b
   also without the uv where the tree's closest_full takes want_uv, and
-  the time of a call of its wrapper by CUDA events (wrapper_ms).
+  the time of a call of its wrapper by CUDA events (wrapper_ms);
+- W1 at four launches (w1_launches): the largest closest-hit and any-hit
+  launches of one Renderer.render() of grid_scene per instance with the
+  defaults (chip_smoke.py 4o), the largest closest-hit launch of the 5x5
+  grid of ico5 per instance at 1 spp (4p), and ico5's world tree on
+  mesh_scene's 480,000 camera rays (4n's route); with ptxas's registers,
+  spills and stack frame of both instantiations from the tree's build.
 
     python -m qaray_tpu_torch.tools.kernel_times [GROUP ...]
 
-GROUP is any of K1 (K1a-K1d and K5), K6, K2c, K3, K4, K2 (default: all).
+GROUP is any of K1 (K1a-K1d and K5), K6, K2c, K3, K4, K2, W1 (default:
+all).
 
 Each time is torch.profiler's device time of the kernel, the mean over 20
 launches after one that is not counted. The script reaches the package
@@ -142,7 +149,139 @@ def glass_desc(desc):
     return desc
 
 
-GROUPS = ("K1", "K6", "K2c", "K3", "K4", "K2")
+def w1_launches(assets, images=None):
+    """W1's four timed launches: {name: (p, d, t, occ_in, tabs, kwargs)},
+    any hit where occ_in is not None ("4o closest", "4o any hit", "4p
+    closest", "ico5 world"). The 4o and 4p launches are captured from one
+    Renderer.render() each (the first launch at the largest size of each
+    kind; the inputs cloned); with a dict `images`, those renders' frame
+    buffers (mean, count, 8-bit image) go into it under "4o" and "4p"."""
+    from qaray_tpu_torch.integrators import engine
+    from qaray_tpu_torch.ops import bvh_packed
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+    from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.procedural import (
+        icosphere,
+        with_mesh,
+        with_shared_mesh,
+    )
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+
+    def desc_of(name):
+        desc = load_scene(os.path.join(assets, name))
+        desc.camera.img_width, desc.camera.img_height = 800, 600
+        return desc
+
+    def largest(desc, param, what):
+        seen = {}
+        closest, occluded = bvh_packed.closest, bvh_packed.occluded
+
+        def keep(kind, p, d, t, occ_in, tabs, kw):
+            if kind not in seen or p.shape[0] > seen[kind][0].shape[0]:
+                seen[kind] = (p.clone(), d.clone(), t.clone(),
+                              None if occ_in is None else occ_in.clone(),
+                              tabs, dict(kw))
+
+        def closest_kept(p, d, t, *tabs, **kw):
+            keep("closest", p, d, t, None, tabs, kw)
+            return closest(p, d, t, *tabs, **kw)
+
+        def occluded_kept(p, d, t, occ_in, *tabs, **kw):
+            keep("any hit", p, d, t, occ_in if occ_in is not None else
+                 torch.zeros(p.shape[0], dtype=torch.bool,
+                             device=p.device), tabs, kw)
+            return occluded(p, d, t, occ_in, *tabs, **kw)
+
+        bvh_packed.closest, bvh_packed.occluded = closest_kept, occluded_kept
+        try:
+            r = Renderer(param, device="cuda")
+            r.compute_scene(desc, world_bvh=False)
+            fb = r.render()
+        finally:
+            bvh_packed.closest, bvh_packed.occluded = closest, occluded
+        if images is not None:
+            images[what] = {k: torch.from_numpy(getattr(fb, k).copy())
+                            for k in ("mean", "count", "img")}
+        return seen
+
+    grid = desc_of("grid_scene.xml")
+    out = {}
+    o = largest(grid, RendererParam(), "4o")
+    out["4o closest"], out["4o any hit"] = o["closest"], o["any hit"]
+    out["4p closest"] = largest(
+        with_shared_mesh(grid, *icosphere(5), name="ico5"),
+        RendererParam(spp_min=1, spp_max=1), "4p")["closest"]
+    arr, meta = compile_scene(with_mesh(desc_of("mesh_scene.xml"),
+                                        *icosphere(5), name="ico5"),
+                              device="cuda")
+    ids = torch.arange(800 * 600, device="cuda", dtype=torch.int32)
+    p, d, *_ = engine.generate_camera_rays(arr, meta, ids % 800, ids // 800,
+                                           ids * 0, None)
+    out["ico5 world"] = (
+        p.contiguous(), d.contiguous(),
+        torch.full((p.shape[0],), 1e30, device="cuda"), None,
+        (arr.mesh.pnodes, arr.mesh.ltri, arr.instances.proot[:1], None),
+        dict(max_leaf=meta.max_leaf, stack_size=meta.bvh_depth + 2))
+    return out
+
+
+def w1_walked(launch):
+    """Instances each ray of an any-hit launch of w1_launches walks: 0
+    where occluded on entry, else up to and including the first instance
+    that occludes it (from one any-hit launch of W1 an instance)."""
+    from qaray_tpu_torch.ops import bvh_packed
+
+    p, d, t, occ_in, tabs, kw = launch
+    kw = {k: v for k, v in kw.items() if k != "plain"}
+    n_inst = tabs[2].numel()
+    first = torch.full((p.shape[0],), n_inst, device=p.device)
+    for i in reversed(range(n_inst)):
+        occ_i = bvh_packed.occluded(p, d, t, None, tabs[0], tabs[1],
+                                    tabs[2][i:i + 1], tabs[3][i:i + 1], **kw)
+        first = torch.where(occ_i, i + 1, first)
+    return torch.where(occ_in, 0, first)
+
+
+def w1_call(launch, plain=False):
+    """fn() that makes one of w1_launches' calls."""
+    from qaray_tpu_torch.ops import bvh_packed
+
+    p, d, t, occ_in, tabs, kw = launch
+    kw = dict(kw, plain=plain)
+    if occ_in is None:
+        return lambda: bvh_packed.closest(p, d, t, *tabs, **kw)
+    return lambda: bvh_packed.occluded(p, d, t, occ_in, *tabs, **kw)
+
+
+def ptxas_report(name, symbols):
+    """{key: registers, spill bytes, stack frame and static shared memory}
+    of the kernels whose mangled names hold symbols[key], from nvcc's
+    -Xptxas=-v report of library `name` of the tree on the import path
+    (ops/_build writes it beside the library)."""
+    import re
+
+    from qaray_tpu_torch.ops import _build
+
+    lines = _build._target(name).with_suffix(".log").read_text().splitlines()
+    out = {}
+    for key, sym in symbols.items():
+        i = next(i for i, ln in enumerate(lines)
+                 if "Function properties for" in ln and sym in ln)
+        frame = re.search(r"(\d+) bytes stack frame", lines[i + 1])
+        spill = dict((k, int(v)) for v, k in re.findall(
+            r"(\d+) bytes spill (stores|loads)", lines[i + 1]))
+        regs = re.search(r"Used (\d+) registers", lines[i + 2])
+        smem = re.search(r"(\d+) bytes smem", lines[i + 2])
+        out[key] = dict(registers=int(regs.group(1)),
+                        stack_frame_bytes=int(frame.group(1)),
+                        spill_store_bytes=spill["stores"],
+                        spill_load_bytes=spill["loads"],
+                        static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
+W1_SYMBOLS = {"closest": "bvh_kernelILb0E", "any_hit": "bvh_kernelILb1E"}
+GROUPS = ("K1", "K6", "K2c", "K3", "K4", "K2", "W1")
 # K2c's sizes: those of its launches on the main path (chip_smoke.py phase
 # 4), from the photon paths' 5,008 to a batch's 3,145,728 escalated
 # soft-shadow rays, and a batch's 65,536 hard shadow rays.
@@ -279,6 +418,12 @@ def main(argv=()):
                         "closest_full_kernel")
             out[f"K2b_wrapper_{n}"] = wrapper_ms(
                 lambda: analytic.closest_full(p, d, prims))
+
+    # W1 at its four launches, and both instantiations' ptxas report.
+    if "W1" in want:
+        for name, launch in w1_launches(assets).items():
+            out[f"W1 {name}"] = device_ms(w1_call(launch), "bvh_kernel")
+        out["W1 ptxas"] = ptxas_report("bvh", W1_SYMBOLS)
 
     # K3 on camera rays as they come; K4a/K4b on ico6's, sorted.
     for what, edit in (("mesh_scene", None),

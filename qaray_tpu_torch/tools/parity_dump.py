@@ -1,9 +1,9 @@
-"""Outputs of the kernels K1c, K2a-K2c, K5 and K6 at the main path's
+"""Outputs of the kernels K1c, K2a-K2c, K5, K6 and W1 at the main path's
 shapes, written by one tree and compared with another's, to hold a
 redesigned kernel to its parent bit for bit on one GPU.
 
     PYTHONPATH=<tree> python qaray_tpu_torch/tools/parity_dump.py \
-        dump OUT.pt [--records FILE]
+        dump OUT.pt [--records FILE] [--only W1]
     python qaray_tpu_torch/tools/parity_dump.py compare A.pt B.pt
     python qaray_tpu_torch/tools/parity_dump.py sass TREE_A TREE_B [LIB ...]
 
@@ -39,7 +39,15 @@ redesigned kernel to its parent bit for bit on one GPU.
   sums and counts on them at r 0.2 and 50. With --records the records,
   the soft-shadow rays and K2a/K2b's batch rays are read from an earlier
   dump, so that both trees gather the same queries and test the same
-  rays.
+  rays;
+- W1: at kernel_times.w1_launches' four launches (4o's largest
+  closest-hit and any-hit launches, 4p's largest closest-hit launch,
+  ico5's world tree on mesh_scene's camera rays) its outputs (t,
+  instance, triangle, bary, front; the any-hit flags) and its work
+  counters (inner nodes, triangle tests), and the frame buffers of the
+  4o and 4p renders those launches were captured from. With --records
+  the launches' inputs are read from the earlier dump. --only W1 dumps
+  W1's outputs alone.
 
 `sass` compares, kernel by kernel, the SASS (cuobjdump -sass) of the
 libraries LIB (default megakernel and adjoint) that runs of two trees
@@ -119,7 +127,40 @@ def soft_shadow_rays(scene, rbg):
     return next(c for c in calls if c[0].shape[0] == 16 << 16)
 
 
-def dump(path, records=None):
+def w1(out, assets, records=None):
+    """W1's outputs and work counters at its four launches, and the 4o and
+    4p renders' frame buffers; the launches' inputs under "W1/records"."""
+    from kernel_times import w1_launches
+    from qaray_tpu_torch.ops import bvh_packed
+
+    images = {}
+    launches = w1_launches(assets, images)
+    if records is not None:
+        launches = {k: tuple(x.cuda() if torch.is_tensor(x) else x
+                             for x in rec[:4]) + launches[k][4:]
+                    for k, rec in records.items()}
+    for what, fb in images.items():
+        out[f"W1/{what} image"] = fb
+    for name, (p, d, t, occ_in, tabs, kw) in launches.items():
+        kw = {k: v for k, v in kw.items() if k != "plain"}
+        counters = torch.zeros((p.shape[0], 2), dtype=torch.int32,
+                               device="cuda")
+        if occ_in is None:
+            res = bvh_packed.closest(p, d, t, *tabs, work=counters, **kw)
+            out[f"W1/{name}"] = dict(zip(
+                ("t", "instance", "triangle", "bary", "front"),
+                (x.cpu() for x in res)), counters=counters.cpu())
+        else:
+            occ = bvh_packed.occluded(p, d, t, occ_in, *tabs,
+                                      work=counters, **kw)
+            out[f"W1/{name}"] = {"occluded": occ.cpu(),
+                                 "counters": counters.cpu()}
+    out["W1/records"] = {k: tuple(None if x is None else x.cpu()
+                                  for x in v[:4])
+                         for k, v in launches.items()}
+
+
+def dump(path, records=None, only=None, earlier=None):
     import qaray_tpu_torch
     from qaray_tpu_torch.core.rng import key_words
     from qaray_tpu_torch.integrators.engine import IntegratorConfig
@@ -152,6 +193,11 @@ def dump(path, records=None):
     ids = torch.arange(800 * 600, device="cuda", dtype=torch.int32)
     px, py, sid = ids % 800, ids // 800, ids * 0
     out = {"package": os.path.dirname(qaray_tpu_torch.__file__)}
+    w1(out, assets, None if earlier is None else earlier.get("W1/records"))
+    if only == "W1":
+        torch.save(out, path)
+        print(f"wrote {path} from {out['package']}", flush=True)
+        return
     edits = {"mesh": ("mesh_scene.xml", None),
              "ico5": ("mesh_scene.xml",
                       lambda d: with_mesh(d, *icosphere(5), name="ico5")),
@@ -383,10 +429,15 @@ def main(argv):
         if not torch.cuda.is_available():
             print("no CUDA device", file=sys.stderr)
             return 2
-        records = None
-        if len(argv) == 4 and argv[2] == "--records":
-            records = torch.load(argv[3])["K5/records"]
-        dump(argv[1], records)
+        opts = dict(zip(argv[2::2], argv[3::2]))
+        if len(argv) % 2 or not set(opts) <= {"--records", "--only"} or (
+                opts.get("--only", "W1") != "W1"):
+            print(__doc__, file=sys.stderr)
+            return 2
+        earlier = (torch.load(opts["--records"]) if "--records" in opts
+                   else None)
+        dump(argv[1], None if earlier is None or "K5/records" not in earlier
+             else earlier["K5/records"], opts.get("--only"), earlier)
         return 0
     if len(argv) == 3 and argv[0] == "compare":
         return compare(argv[1], argv[2])

@@ -8,9 +8,13 @@ operations of the triangle test differently, and the weights are ratios
 of areas that cancel: 1.2e-5 on a centroid-aimed ray), the triangle and
 the front flag equal, any hit equal; the port's packed walk against its stacked walk and W1 against
 the plain packed walk, bit for bit (the same operations in the same
-order)."""
+order), W1 also with its work counters and in host blocks of 32 and 128
+threads that share its staged instances and barriers."""
 
+import functools
+import re
 import shutil
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -139,47 +143,145 @@ def instance_table(n_inst, seed):
     return torch.tensor(np.stack(rows).astype(np.float32))
 
 
-@pytest.mark.parametrize("instances", [0, 5])
-def test_w1_source_on_the_host_matches_plain(instances):
-    """csrc/bvh.cu compiled by g++ (one thread a block) against the plain
-    loop, bit for bit: t, instance, triangle, bary, front, the occlusion
-    below t 3 (a third of the rays start occluded), and the work counts
-    (inner nodes popped, triangles tested); the plain loop without work
-    counts walks instances together, for the same bits. instances 0 walks
-    the soup's tree as a world tree (no transform); 5 walks it as five
-    transformed instances, one of them mirrored."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ for the host build of the kernel source")
-    tri_v = soup(300, 7)
-    p, d = rays(512, 8)
+def lopsided(n_tris, seed):
+    """A soup with its first triangle made three times larger and moved 6
+    away on every axis: the root's children are a leaf (that triangle) and
+    an inner node."""
+    tri_v = soup(n_tris, seed)
+    c = tri_v[0].mean(axis=0)
+    tri_v[0] = (tri_v[0] - c) * np.float32(3.0) + c + np.float32(6.0)
+    return tri_v
+
+
+def through_lone_triangle(p, d, tri_v, seed):
+    """The first half of the rays from beyond the lopsided soup's lone
+    triangle through it towards the rest: their root step hits the leaf
+    child first, and its t decides whether the inner child is pushed."""
+    rs = np.random.RandomState(seed)
+    m = p.shape[0] // 2
+    p[:m] = 2 * tri_v[0].mean(axis=0) + rs.normal(size=(m, 3)) * 0.5
+    aim = rs.normal(size=(m, 3)) * 0.5 - p[:m]
+    d[:m] = aim / np.linalg.norm(aim, axis=1, keepdims=True)
+
+
+SOUPS = {"soup": lambda: soup(300, 7), "lopsided": lambda: lopsided(100, 7),
+         "three": lambda: soup(3, 5)}
+
+
+@functools.lru_cache(maxsize=None)
+def plain_walks(instances, n, kind="soup"):
+    """The plain loop's results on n of the rays over the tree of SOUPS's
+    `kind` (300 triangles; 100 whose root has a leaf child; 3 in a leaf
+    root) (instances 0: as a world tree): the tables, closest from
+    BIGFLOAT with and without work counts, and the occlusion below t 3
+    with a third of the rays occluded on entry, with and without work
+    counts. Cached: the host block sizes of one case compare with the same
+    plain walks, whose instances are walked one at a time where work is
+    counted."""
+    tri_v = SOUPS[kind]()
+    p, d = rays(n, 8)
+    if kind == "lopsided":
+        through_lone_triangle(p, d, tri_v, 9)
     _, _, pnodes, ltri, root, depth = tables(tri_v)
     pt, dt = torch.tensor(p), torch.tensor(d)
     tabs = (torch.tensor(pnodes), torch.tensor(ltri),
             torch.full((max(instances, 1), ), root, dtype=torch.int32),
             instance_table(instances, 3) if instances else None)
     kw = dict(stack_size=depth + 2)
-    t0 = torch.full((512, ), BIGFLOAT)
-    before = bvh_packed.launches["W1"]
-    got, work = bvh_packed.walk_host(pt, dt, t0, *tabs, **kw)
-    want_work = torch.zeros_like(work)
-    want = bvh_packed.closest(pt, dt, t0, *tabs, work=want_work, **kw)
+    t0 = torch.full((n, ), BIGFLOAT)
+    work = torch.zeros((n, 2), dtype=torch.int32)
+    closest = bvh_packed.closest(pt, dt, t0, *tabs, work=work, **kw)
     batched = bvh_packed.closest(pt, dt, t0, *tabs, **kw)
-    for a, b, c in zip(want, got, batched):
+    t_max = torch.full((n, ), 3.0)
+    occ_in = torch.arange(n) % 3 == 0
+    occ_work = torch.zeros_like(work)
+    occ = bvh_packed.occluded(pt, dt, t_max, occ_in, *tabs, work=occ_work,
+                              **kw)
+    occ_batched = bvh_packed.occluded(pt, dt, t_max, occ_in, *tabs, **kw)
+    return dict(rays=(pt, dt), tabs=tabs, kw=kw, t0=t0, closest=closest,
+                work=work, batched=batched, t_max=t_max, occ_in=occ_in,
+                occ=occ, occ_work=occ_work, occ_batched=occ_batched)
+
+
+def w1_host_matches_plain(instances, n, block=1, kind="soup"):
+    """csrc/bvh.cu under g++ in host blocks of `block` threads against the
+    plain loop (plain_walks) bit for bit: closest (t, instance, triangle,
+    bary, front, work counts) and the occlusion (the flags, work counts).
+    The plain loop without work counts walks instances together, for the
+    same bits. Returns the closest hits' instances."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host build of the kernel source")
+    w = plain_walks(instances, n, kind)
+    pt, dt = w["rays"]
+    before = bvh_packed.launches["W1"]
+    got, work = bvh_packed.walk_host(pt, dt, w["t0"], *w["tabs"],
+                                     block=block, **w["kw"])
+    for a, b, c in zip(w["closest"], got, w["batched"]):
         assert torch.equal(a, b) and torch.equal(a, c)
-    assert torch.equal(work, want_work) and (work[:, 0] > 0).all()
-    if instances:
-        assert len(set(got[1][got[1] >= 0].tolist())) == instances
-    t_max = torch.full((512, ), 3.0)
-    occ_in = torch.arange(512) % 3 == 0
-    got, work = bvh_packed.walk_host(pt, dt, t_max, *tabs, any_hit=True,
-                                     occ_in=occ_in, **kw)
-    want = bvh_packed.occluded(pt, dt, t_max, occ_in, *tabs,
-                               work=want_work, **kw)
-    assert torch.equal(want, got) and torch.equal(work, want_work)
-    assert torch.equal(bvh_packed.occluded(pt, dt, t_max, occ_in, *tabs,
-                                           **kw), got)
-    assert (got & ~occ_in).any() and not (got | occ_in).all()
+    assert torch.equal(work, w["work"])
+    assert (work[:, 0] > 0).all() if kind != "three" else (
+        (work[:, 0] == 0).all() and (work[:, 1] > 0).all())
+    occ_in = w["occ_in"]
+    occ, work = bvh_packed.walk_host(pt, dt, w["t_max"], *w["tabs"],
+                                     any_hit=True, occ_in=occ_in,
+                                     block=block, **w["kw"])
+    assert torch.equal(w["occ"], occ) and torch.equal(work, w["occ_work"])
+    assert torch.equal(w["occ_batched"], occ)
+    assert (occ & ~occ_in).any() and not (occ | occ_in).all()
+    assert (work[occ_in] == 0).all()
     assert bvh_packed.launches["W1"] == before
+    return got[1]
+
+
+@pytest.mark.parametrize("instances", [0, 5])
+def test_w1_source_on_the_host_matches_plain(instances):
+    """csrc/bvh.cu compiled by g++ (one thread a block) against the plain
+    loop, bit for bit (w1_host_matches_plain, 512 rays); the plain loop
+    without work counts walks instances together, for the same bits.
+    instances 0 walks the soup's tree as a world tree (no transform); 5
+    walks it as five transformed instances, one of them mirrored, each of
+    which wins some ray."""
+    inst = w1_host_matches_plain(instances, 512)
+    if instances:
+        assert len(set(inst[inst >= 0].tolist())) == instances
+
+
+def staging_chunk():
+    """kChunk of csrc/bvh.cu, the instances a block stages at once, and
+    bvh_packed.CHUNK (its copy for the shared-memory size) equal to it."""
+    src = (Path(bvh_packed.__file__).parent.parent / "csrc" /
+           "bvh.cu").read_text()
+    chunk = int(re.search(r"constexpr int kChunk = (\d+);", src).group(1))
+    assert chunk == bvh_packed.CHUNK
+    return chunk
+
+
+@pytest.mark.parametrize("block", [32, 128])
+@pytest.mark.parametrize("case", ["world", "5 instances", "chunk+3",
+                                  "lopsided world", "lopsided",
+                                  "leaf root"])
+def test_w1_blocks_on_the_host_match_plain(case, block):
+    """csrc/bvh.cu in host blocks of 32 and 128 threads (fibers sharing the
+    staged instances and the stack's shared memory, and its barriers)
+    against the plain loop, bit for bit (w1_host_matches_plain): 500 rays,
+    a multiple of neither block, over the 300-triangle soup's tree as a
+    world tree and as five instances, over a tree whose root has a leaf
+    child (its triangle tested in the root step; half the rays through it)
+    as a world tree and as five instances, and over five instances of a
+    tree that is one leaf; 512 rays over three instances more than one
+    staging chunk of the soup, so that a block stages twice and the second
+    chunk's instances win rays."""
+    chunk = staging_chunk()
+    if case == "chunk+3":
+        inst = w1_host_matches_plain(chunk + 3, 512, block)
+        assert (inst >= chunk).any() and (inst[inst >= 0] < chunk).any()
+        return
+    instances, kind = {"world": (0, "soup"), "5 instances": (5, "soup"),
+                       "lopsided world": (0, "lopsided"),
+                       "lopsided": (5, "lopsided"),
+                       "leaf root": (5, "three")}[case]
+    inst = w1_host_matches_plain(instances, 500, block, kind)
+    assert (inst >= 0).any()
 
 
 def test_w1_refuses_a_deep_stack():

@@ -34,8 +34,9 @@ the first 1, 31 and 65,537 rays; K2b without the uv equals K2b with it
 but for uvw, which is 0; trace_closest asks K2b for the uv only on a
 scene with a material texture; on the autograd route K2b's saved t and
 prim_idx share no storage with its attributes. W1 (the packed BVH walk)
-equals its plain walk bit for bit on a world tree and over transformed
-instances.
+equals its plain walk bit for bit on a world tree, over transformed
+instances and over more instances than a block stages at once, closest
+and any hit (with and without rays occluded on entry).
 """
 
 import numpy as np
@@ -947,13 +948,20 @@ def test_render_batch_gradients_on_megakernel_route(cuda):
 
 
 @pytest.mark.parametrize("scene,world", [("mesh_scene", True),
-                                         ("grid_scene", False)])
+                                         ("grid_scene", False),
+                                         ("mesh_scene", False)])
 def test_w1_equals_plain(cuda, scene, world):
-    """W1 (csrc/bvh.cu) on mesh_scene's world tree and on grid_scene's 25
-    transformed instances against its plain walk, bit for bit: closest
-    hits and occlusion, on the camera rays of a 200x150 frame."""
+    """W1 (csrc/bvh.cu) on mesh_scene's world tree, on grid_scene's 25
+    transformed instances and on 300 transformed instances of mesh_scene's
+    icosphere, one mirrored (scene.procedural.scatter_instances, more than
+    one of the chunks a block stages), against its plain walk, bit for
+    bit: closest hits and occlusion, the latter also with a third of the
+    rays occluded on entry, on the camera rays of a 200x150 frame (for the
+    300 instances, 16,384 rays around them, half aimed at the icosphere's
+    centre)."""
     from qaray_tpu_torch.integrators.engine import generate_camera_rays
     from qaray_tpu_torch.ops import bvh_packed
+    from qaray_tpu_torch.scene.procedural import scatter_instances
 
     desc = load_scene(f"tests/assets/{scene}.xml")
     desc.camera.img_width, desc.camera.img_height = 200, 150
@@ -961,9 +969,24 @@ def test_w1_equals_plain(cuda, scene, world):
     tabs = ((arr.mesh.pnodes, arr.mesh.ltri, arr.instances.proot[:1], None)
             if world else (arr.mesh.pnodes, arr.mesh.ltri,
                            arr.instances.proot, arr.kernel.inst_xf))
-    p, d, *_ = generate_camera_rays(arr, meta, *_lanes(200, 150, 1, "cuda"),
-                                    None)
-    p, d = p.contiguous(), d.contiguous()
+    if scene == "mesh_scene" and not world:
+        xf = torch.tensor(scatter_instances(
+            arr.kernel.inst_xf[0].cpu().numpy(), 300, 5), device="cuda")
+        tabs = (tabs[0], tabs[1], tabs[2][:1].repeat(300).contiguous(), xf)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        n = 1 << 14
+        c = torch.tensor((0.0, 50.0, 5.1), device="cuda")
+        p = c + (torch.rand((n, 3), device="cuda", generator=gen) * 2 - 1
+                 ) * 24.0
+        d = torch.randn((n, 3), device="cuda", generator=gen)
+        aim = torch.where((torch.arange(n, device="cuda") % 2 == 0)[:, None],
+                          c - p, d)
+        d = (aim / aim.norm(dim=1, keepdim=True)).contiguous()
+        p = p.contiguous()
+    else:
+        p, d, *_ = generate_camera_rays(arr, meta,
+                                        *_lanes(200, 150, 1, "cuda"), None)
+        p, d = p.contiguous(), d.contiguous()
     n = p.shape[0]
     t = torch.full((n, ), 1e30, device="cuda")
     kw = dict(stack_size=meta.bvh_depth + 2)
@@ -971,10 +994,14 @@ def test_w1_equals_plain(cuda, scene, world):
     want = bvh_packed.closest(p, d, t, *tabs, plain=True, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (got[2] >= 0).any()
+    if tabs[3] is not None and tabs[3].shape[0] > bvh_packed.CHUNK:
+        assert (got[1] >= bvh_packed.CHUNK).any() and (got[1] == 1).any()
     t_max = torch.full((n, ), 60.0, device="cuda")
-    occ = bvh_packed.occluded(p, d, t_max, None, *tabs, **kw)
-    assert torch.equal(occ, bvh_packed.occluded(p, d, t_max, None, *tabs,
-                                                plain=True, **kw))
+    for occ_in in (None, torch.arange(n, device="cuda") % 3 == 0):
+        occ = bvh_packed.occluded(p, d, t_max, occ_in, *tabs, **kw)
+        assert torch.equal(occ, bvh_packed.occluded(
+            p, d, t_max, occ_in, *tabs, plain=True, **kw))
+        assert occ.any() and not occ.all()
 
 
 def test_no_pallas_takes_plain_versions(cuda, monkeypatch):
