@@ -159,6 +159,31 @@ Phases, each fatal on failure:
           checkpoint_every 2, stopped after its checkpoint at 2 samples
           and resumed from the file by a new Renderer, equal to the
           uninterrupted render bit for bit;
+       r. sharded rendering on one card (parallel/mesh.py):
+          Renderer(num_devices=2), a one-device mesh as in JAX, on softdof
+          with the defaults, its planes equal to 4a's bit for bit;
+          render_batch over the mesh [cuda:0, cuda:0] on 4a's 480,000
+          lanes under rbg and threefry words, every output equal to one
+          render_batch's; 4k's photon-mapped caustics_scene over that mesh,
+          counts equal to 4k's and mean within 1e-5; the Renderer and
+          render_batch unsharded and sharded in turns, and the gather's
+          share of a sharded dispatch;
+       s. two processes of the CLI (-multihost -coordinator localhost:P,2,r
+          -rank-debug; gloo, both on cuda:0) on softdof 800x600 x 2 spp,
+          with the kernels phase 1 built: the primary's colorBuffer.png
+          equal to a one-process render's bit for bit, no colour buffer
+          from rank 1, the ranks' mask planes summing to the spp, each
+          rank's output naming the card; render and process walls and the
+          host seconds blocked in all_gather;
+       t. the sharded gradient: render_value_and_grad over [cuda:0, cuda:0]
+          on 4m's spot_scene lanes (262,144), fast route (K1a and K6 once a
+          shard) and autograd, every field within 1e-5 of 1 + max|b| of
+          the unsharded gradient;
+       u. the CLI with -profile on softdof 200x150: the trace names K1a's
+          kernel (mega_kernel), and the CLI prints "Elapsed Time is";
+       v. the preview server (viz/serve.py) on spot_scene 200x150 x 2 spp,
+          port 0: /status reaches spp 2, /image.png and /depth.png are
+          PNGs, /orbit?dyaw=30 renders a different image;
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time, and the device's idle
      share in one Renderer.render() of 4a, 4c, 4d, 4g, 4e, 4k and 4o's
@@ -1579,16 +1604,17 @@ def main():
         return out
 
     def render_main(what, desc, param, no_mega=False, max_mean=10.0,
-                    world_bvh=True):
-        """One Renderer.render() on the main path: counts set to 0 just
-        before and read just after, plain versions refused. Returns
-        (frame buffer, wall seconds, counts, renderer)."""
+                    world_bvh=True, mesh=None):
+        """One Renderer.render() on the main path (over `mesh`, where one
+        is given): counts set to 0 just before and read just after, plain
+        versions refused. Returns (frame buffer, wall seconds, counts,
+        renderer)."""
         reset_counts()
         if no_mega:
             os.environ["QARAY_NO_MEGAKERNEL"] = "1"
         try:
             with forbid:
-                r = Renderer(param, device="cuda")
+                r = Renderer(param, device="cuda", mesh=mesh)
                 r.compute_scene(desc, world_bvh=world_bvh)
                 torch.cuda.synchronize()
                 t = time.time()
@@ -1658,6 +1684,7 @@ def main():
 
     print("phase 4a: Renderer, softdof 800x600, defaults", flush=True)
     fb, wall, _, renderer = render_main("softdof", scene, RendererParam())
+    fb_a = fb
     with tempfile.TemporaryDirectory() as out_dir:
         prefix = os.path.join(out_dir, "smoke_")
         fb.save_image(prefix + "colorBuffer.png")
@@ -2070,14 +2097,18 @@ def main():
             "resumed from the checkpoint at 2 samples: mean, std, count and "
             "depth equal to the uninterrupted render's, bit for bit")
 
-    launches = {k: sum(c[k] for c in (counts_a, counts_b, counts_c, counts_d,
-                                       counts_e, counts_f, counts_g, counts_h,
-                                       counts_i, *counts_j, counts_k,
-                                       counts_l, *counts_m, *counts_n,
-                                       counts_ow, counts_oi, *counts_p))
+    counts_mp = multi_device_phases(
+        HERE, scene, fb_a, s_arr, s_meta, cfg_pt, bpx, bpy, bsid, rbg,
+        caus_desc, p_photon, fb_k, g_path["spot"], cfg_gp, render_main,
+        reset_counts, read_counts, forbid, forbid_grad, numbers)
+
+    launches = {k: sum(c.get(k, 0) for c in (
+        counts_a, counts_b, counts_c, counts_d, counts_e, counts_f,
+        counts_g, counts_h, counts_i, *counts_j, counts_k, counts_l,
+        *counts_m, *counts_n, counts_ow, counts_oi, *counts_p, *counts_mp))
                 for k in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c",
                           "K3", "K4a", "K4b", "K5", "K6", "W1")}
-    print(f"  launches on the main path (4a-4p): {json.dumps(launches)}",
+    print(f"  launches on the main path (4a-4v): {json.dumps(launches)}",
           flush=True)
     analytic.shadow = shadow_fn
     analytic.closest_full = full_fn
@@ -3054,6 +3085,305 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def multi_device_phases(here, scene, fb_a, s_arr, s_meta, cfg_pt, bpx, bpy,
+                        bsid, rbg, caus_desc, p_photon, fb_k, spot_grad,
+                        cfg_gp, render_main, reset_counts, read_counts,
+                        forbid, forbid_grad, numbers):
+    """Phases 4r-4v: the sharded Renderer and render_batch on one card, two
+    processes of the CLI, the sharded gradient, -profile and the preview
+    server. Each launch count is set to 0 just before a driven path and
+    read just after. Returns those counts (the two processes' K1a and K1d
+    counts as their CLIs printed them); keeps the figures in
+    numbers["multi_device"]."""
+    import io
+    import socket
+    import urllib.request
+
+    from PIL import Image
+
+    from qaray_tpu_torch import cli, diff
+    from qaray_tpu_torch.core.rng import key_words
+    from qaray_tpu_torch.integrators.engine import render_batch
+    from qaray_tpu_torch.parallel.mesh import (
+        make_render_mesh,
+        shard_bounds,
+        shard_render_batch,
+    )
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+    from qaray_tpu_torch.viz.serve import RenderServer
+
+    figures = numbers.setdefault("multi_device", {})
+    counts_out = []
+    mesh2 = make_render_mesh(["cuda:0", "cuda:0"])
+    planes = ("mean", "color_std", "count", "zbuffer", "img")
+
+    def field(out, pattern):
+        m = re.search(pattern, out)
+        return m.group(1) if m else None
+
+    print("phase 4r: sharded rendering on one card: Renderer(num_devices=2) "
+          "(a one-device mesh), render_batch over [cuda:0, cuda:0], and the "
+          "photon-mapped caustics_scene over it", flush=True)
+    fb_r, _, c_r, r_r = render_main("softdof num_devices=2", scene,
+                                    RendererParam(num_devices=2))
+    counts_out.append(c_r)
+    check(r_r._mesh.size == 1 and c_r["K1a"] > 0,
+          f"num_devices=2 on one card is a one-device mesh; K1a launched "
+          f"{c_r['K1a']} times")
+    check(all(np.array_equal(getattr(fb_r, k), getattr(fb_a, k))
+              for k in planes), "its planes equal 4a's, bit for bit")
+    run2 = shard_render_batch(mesh2)
+    tf = key_words("threefry2x32", 0)
+    for words, what in ((rbg, "rbg"), (tf, "threefry")):
+        want = render_batch(s_arr, s_meta, cfg_pt, bpx, bpy, bsid, words,
+                            want_aux=True)
+        reset_counts()
+        with forbid:
+            got = run2(s_arr, s_meta, cfg_pt, bpx, bpy, bsid, words,
+                       want_aux=True)
+            torch.cuda.synchronize()
+        c = read_counts()
+        counts_out.append(c)
+        check(c["K1a"] == 2 and c["wavefront_lanes"] == 0,
+              f"two shards of 240,000 lanes, {what}: K1a launched twice")
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{what}: radiance, depth and aux plane equal to one "
+              "render_batch's, bit for bit")
+    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+        fb_rk, _, c_rk, _ = render_main("caustics_scene photon map, 2 shards",
+                                        caus_desc, p_photon, mesh=mesh2)
+    counts_out.append(c_rk)
+    err_k = float(np.abs(fb_rk.mean - fb_k.mean).max())
+    check(c_rk["K1d"] > 0 and c_rk["K5"] == c_rk["K1d"]
+          and c_rk["K1a"] == c_rk["K1d"],
+          f"K1a and K1d launched {c_rk['K1d']} times, K5 {c_rk['K5']}")
+    check(np.array_equal(fb_rk.count, fb_k.count) and err_k < 1e-5,
+          f"counts equal to 4k's, mean within {err_k:.3g} < 1e-5")
+
+    # Sharded against unsharded, in turns: the Renderer with the defaults
+    # and one 480,000-lane render_batch, and the gather alone (the cat of
+    # the two shards' outputs).
+    walls = []
+    for sharded in (False, True, True, False):
+        r_t = Renderer(RendererParam(), device="cuda",
+                       mesh=mesh2 if sharded else None)
+        r_t.compute_scene(scene)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r_t.render()
+        torch.cuda.synchronize()
+        walls.append(((time.perf_counter() - t) * 1e3, sharded))
+    cuts = shard_bounds(bpx.shape[0], 2)
+    halves = [render_batch(s_arr, s_meta, cfg_pt, bpx[a:b], bpy[a:b],
+                           bsid[a:b], rbg) for a, b in zip(cuts, cuts[1:])]
+    batch_ms = [cuda_ms(lambda: render_batch(s_arr, s_meta, cfg_pt, bpx,
+                                             bpy, bsid, rbg), 5),
+                cuda_ms(lambda: run2(s_arr, s_meta, cfg_pt, bpx, bpy, bsid,
+                                     rbg), 5)]
+    batch_ms += [cuda_ms(lambda: run2(s_arr, s_meta, cfg_pt, bpx, bpy,
+                                      bsid, rbg), 5),
+                 cuda_ms(lambda: render_batch(s_arr, s_meta, cfg_pt, bpx,
+                                              bpy, bsid, rbg), 5)]
+    cat_ms = cuda_ms(lambda: [torch.cat([h[j] for h in halves])
+                              for j in range(2)], 10)
+    share = cat_ms / (0.5 * (batch_ms[1] + batch_ms[2]))
+    print("  Renderer wall ms in turns (unsharded, 2 shards, 2 shards, "
+          "unsharded): " + ", ".join(f"{w:.3f}" for w, _ in walls),
+          flush=True)
+    print("  render_batch 480,000 lanes ms in turns (unsharded, 2 shards, 2 "
+          "shards, unsharded): " + ", ".join(f"{m:.4f}" for m in batch_ms)
+          + f"; the gather (cat) {cat_ms:.4f} ms, {share:.4f} of a sharded "
+          "dispatch", flush=True)
+    figures.update(renderer_turns_ms=[w for w, _ in walls],
+                   batch_turns_ms=batch_ms, gather_ms=cat_ms,
+                   gather_share=share)
+
+    torch.cuda.empty_cache()  # room for the children's contexts
+    print("phase 4s: two processes of the CLI, -multihost -coordinator "
+          "localhost:P,2,r -rank-debug (gloo, both on cuda:0), softdof "
+          "800x600 x 2 spp, against one process", flush=True)
+    child = ("import json, sys\n"
+             f"sys.path.insert(0, {here!r})\n"
+             "from qaray_tpu_torch.cli import main\n"
+             "rc = main(sys.argv[1:])\n"
+             "from qaray_tpu_torch.ops import megakernel\n"
+             "print('launches ' + json.dumps(megakernel.launches), "
+             "flush=True)\n"
+             "sys.exit(rc)\n")
+    base = [SCENE, "-res", "800x600", "-spp", "2"]
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    with tempfile.TemporaryDirectory() as wd:
+        def spawn(args):
+            return subprocess.Popen([sys.executable, "-c", child, *base,
+                                     *args], cwd=wd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+
+        t = time.perf_counter()
+        procs = [spawn(["-multihost", "-coordinator",
+                        f"localhost:{port},2,{r}", "-rank-debug", "-out",
+                        f"mh{r}_"]) for r in range(2)]
+        outs, proc_s = [], []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=300)[0])
+                proc_s.append(time.perf_counter() - t)
+        finally:
+            for p in procs:
+                p.kill()
+        t = time.perf_counter()
+        solo = spawn(["-out", "sp_"])
+        try:
+            solo_out = solo.communicate(timeout=300)[0]
+        finally:
+            solo.kill()
+        solo_s = time.perf_counter() - t
+
+        def png(name):
+            return np.asarray(Image.open(os.path.join(wd, name))).astype(int)
+
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                print(out[-4000:], flush=True)
+            check(p.returncode == 0 and f"multihost: process {r}/2, 2 "
+                  "devices" in out and "collectives on gloo" in out,
+                  f"rank {r} exits 0 after rendering with gloo")
+            on = field(out, rf"multihost: process {r} on ([^\n]*)")
+            check(torch.cuda.get_device_name(0) in (on or ""),
+                  f"rank {r}'s output names the card: {on}")
+            c = json.loads(field(out, r"launches (\{[^\n]*\})"))
+            check(c["K1a"] > 0, f"rank {r} launched K1a {c['K1a']} times")
+            counts_out.append(c)
+        check(solo.returncode == 0, "the single-process CLI exits 0")
+        check(not os.path.exists(os.path.join(wd, "mh1_colorBuffer.png")),
+              "rank 1 writes no colour buffer")
+        check(np.array_equal(png("mh0_colorBuffer.png"),
+                             png("sp_colorBuffer.png")),
+              "the primary's colorBuffer.png equals the single-process "
+              "render's, bit for bit")
+        masks = png("mh0_rank0_maskBuffer.png") + png(
+            "mh1_rank1_maskBuffer.png")
+        check(bool((masks == 2).all()), "the ranks' mask planes sum to the "
+              "spp (2) at every pixel")
+        elapsed = [float(field(o, r"Elapsed Time is ([0-9.]+) s"))
+                   for o in outs + [solo_out]]
+        blocked = [(int(field(o, r"process \d, (\d+) all_gathers")),
+                    float(field(o, r"all_gathers \(gloo\), ([0-9.]+) s")))
+                   for o in outs]
+    print(f"  two processes: render (Elapsed Time) {elapsed[0]:.4f} / "
+          f"{elapsed[1]:.4f} s, process wall {proc_s[0]:.3f} / "
+          f"{proc_s[1]:.3f} s; one process: render {elapsed[2]:.4f} s, "
+          f"process wall {solo_s:.3f} s; all_gathers a rank and the host "
+          f"seconds blocked in them: {blocked}", flush=True)
+    figures.update(two_process_render_s=elapsed[:2],
+                   two_process_wall_s=proc_s, single_render_s=elapsed[2],
+                   single_wall_s=solo_s, all_gather_blocked=blocked)
+
+    print("phase 4t: the sharded gradient, render_value_and_grad over "
+          "[cuda:0, cuda:0] on spot_scene's 262,144 lanes, fast route and "
+          "autograd", flush=True)
+    g_arr, g_meta, gx, gy = spot_grad
+    gs = torch.ones_like(gx)
+    for no_mega in (False, True):
+        route = "autograd" if no_mega else "fast"
+        if no_mega:
+            os.environ["QARAY_NO_MEGAKERNEL"] = "1"
+        try:
+            loss_1, want = diff.render_value_and_grad(g_arr, g_meta, cfg_gp,
+                                                      gx, gy, gs, rbg)
+            reset_counts()
+            with forbid_grad:
+                loss_2, got = diff.render_value_and_grad(
+                    g_arr, g_meta, cfg_gp, gx, gy, gs, rbg, mesh=mesh2)
+                torch.cuda.synchronize()
+            c = read_counts()
+        finally:
+            os.environ.pop("QARAY_NO_MEGAKERNEL", None)
+        counts_out.append(c)
+        if no_mega:
+            check(c["K6"] == 0 and c["K1a"] == 0 and c["K2b"] > 0,
+                  f"autograd route: K2b {c['K2b']} launches, no K1a or K6")
+        else:
+            check(c["K1a"] == 2 and c["K6"] == 2,
+                  "fast route: K1a and K6 launched once a shard")
+        errs = {f: ((getattr(got, f).double() - getattr(want, f).double())
+                    .abs().max() / (1.0 + getattr(want, f).double().abs()
+                                    .max())).item()
+                for f in diff.DiffParams._fields}
+        worst = max(errs.values())
+        print(f"  {route}: loss {float(loss_2):.8g} against "
+              f"{float(loss_1):.8g}; worst field {worst:.3g} of 1 + max|b|",
+              flush=True)
+        check(worst <= 1e-5, f"{route}: every field within 1e-5 of 1 + "
+              "max|b| of the unsharded gradient")
+
+    print("phase 4u: timing and profiling, the CLI with -profile on softdof "
+          "200x150", flush=True)
+    with tempfile.TemporaryDirectory() as pd:
+        buf = io.StringIO()
+        reset_counts()
+        with forbid, contextlib.redirect_stdout(buf):
+            rc = cli.main([SCENE, "-res", "200x150", "-profile",
+                           os.path.join(pd, "prof"), "-out",
+                           os.path.join(pd, "p_")])
+        c = read_counts()
+        trace = os.path.join(pd, "prof", "trace.json")
+        text = open(trace).read() if os.path.exists(trace) else ""
+    counts_out.append(c)
+    line = field(buf.getvalue(), r"(Elapsed Time is [0-9.]+ s)")
+    check(rc == 0 and line is not None, f"the CLI exits 0 and prints "
+          f"'{line}'")
+    check(c["K1a"] > 0 and "mega_kernel" in text, f"K1a launched "
+          f"{c['K1a']} times and the trace ({len(text)} bytes) names its "
+          "kernel, mega_kernel")
+
+    print("phase 4v: the preview server on the card: spot_scene 200x150, "
+          "spp 2, port 0", flush=True)
+    sd = load_scene(SPOT_SCENE)
+    sd.camera.img_width, sd.camera.img_height = 200, 150
+
+    def get(srv, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}",
+                                    timeout=60) as resp:
+            return resp.read()
+
+    def finished(srv, gen0):
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            st = json.loads(get(srv, "/status"))
+            if st["generation"] > gen0 and not st["rendering"] \
+                    and st["spp"] >= 2:
+                return st
+            time.sleep(0.1)
+        raise AssertionError(f"no finished render after generation {gen0}")
+
+    reset_counts()
+    with forbid:
+        srv = RenderServer(Renderer(RendererParam(spp_min=2, spp_max=2),
+                                    device="cuda"), sd, port=0)
+        srv.serve(block=False)
+        try:
+            st = finished(srv, 0)
+            first, depth = get(srv, "/image.png"), get(srv, "/depth.png")
+            get(srv, "/orbit?dyaw=30")
+            finished(srv, st["generation"])
+            second = get(srv, "/image.png")
+        finally:
+            srv.shutdown()
+    c = read_counts()
+    counts_out.append(c)
+    check(st["spp"] >= 2 and first[:4] == depth[:4] == b"\x89PNG",
+          f"/status reached spp {st['spp']}; /image.png and /depth.png are "
+          "PNGs")
+    check(second[:4] == b"\x89PNG" and second != first,
+          "/orbit?dyaw=30 rendered a different image")
+    check(c["K1a"] > 0, f"K1a launched {c['K1a']} times by the server")
+    return counts_out
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """qaray_tpu_torch: the PyTorch/CUDA port of qaray_tpu for NVIDIA Hopper.
 
 A second package beside the JAX one, with its layout (core/ scene/ ops/
-integrators/ photon/ fb/ renderer.py cli.py). It imports torch and never jax or
-qaray_tpu. The TPU's Pallas kernels become CUDA C++ kernels (csrc/), built
+integrators/ photon/ fb/ parallel/ utils/ viz/ diff.py renderer.py
+cli.py). It imports torch and never jax or qaray_tpu. The TPU's Pallas
+kernels become CUDA C++ kernels (csrc/), built
 with nvcc for sm_90a on first use; each sits beside a plain PyTorch version
 that runs for tensors on the CPU. Entry points render on the GPU unless the
 caller passes device="cpu".

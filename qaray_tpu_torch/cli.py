@@ -19,31 +19,36 @@ src/main.cpp:8-61):
     -res WxH                         resolution override
     -out PREFIX                      output file prefix
     -device cpu                      render on the CPU (default: the GPU)
+    -devices N                       shard each dispatch over N devices
+    -multihost                       one process a rank (torch.distributed;
+                                     from MASTER_ADDR, MASTER_PORT, RANK,
+                                     WORLD_SIZE unless -coordinator), the
+                                     render sharded over every rank's device
+    -coordinator A,N,P               the group's address, process count and
+                                     this process's rank
+    -rank-debug                      with -multihost, each rank writes
+                                     PREFIXrank{r}_maskBuffer.png and
+                                     PREFIXrank{r}_sampleBuffer.png
+    -profile DIR                     torch.profiler trace of the render into
+                                     DIR
+    -serve PORT                      the preview server (viz/serve.py) on
+                                     localhost:PORT; blocks
+    -threads N                       the CPU's threads for torch
 
--batch and -threads are accepted for compatibility. Scenes may carry
-checker and file textures on materials, the background and the environment.
-Several devices, multihost runs, rank-debug planes, the preview server and
-profiling come with later slices of the port and raise NotImplementedError.
+-batch is accepted for compatibility. Scenes may carry checker and file
+textures on materials, the background and the environment. In a
+-multihost run only rank 0 writes images.
 """
 
 from __future__ import annotations
 
 import sys
-import time
+
+import torch
 
 from qaray_tpu_torch.integrators.engine import INTEGRATORS
 from qaray_tpu_torch.renderer import Renderer, RendererParam
 from qaray_tpu_torch.scene.xml_parser import load_scene
-
-# Flags of later slices: what they bring, and the slice.
-_LATER = {
-    "-devices": ("multi-device rendering", "multi-device"),
-    "-multihost": ("multihost rendering", "multi-device"),
-    "-rank-debug": ("rank-debug planes", "multi-device"),
-    "-coordinator": ("multihost rendering", "multi-device"),
-    "-serve": ("the preview server", "preview-server"),
-    "-profile": ("profiling", "timing and profiling"),
-}
 
 
 def parse_args(argv):
@@ -72,7 +77,10 @@ def parse_args(argv):
             i += 1
             param.use_srgb = int(argv[i]) != 0
         elif a == "-threads":
+            # The reference's TBB thread count; here the CPU's threads for
+            # torch (the card's work does not depend on it).
             i += 1
+            torch.set_num_threads(int(argv[i]))
         elif a == "-use-photon-map":
             param.use_photon_map = True
         elif a == "-photon-map-size":
@@ -116,10 +124,25 @@ def parse_args(argv):
         elif a == "-platform":
             raise ValueError("-platform selects a JAX backend; the port "
                              "takes -device cpu")
-        elif a in _LATER:
-            what, slice_ = _LATER[a]
-            raise NotImplementedError(
-                f"{a}: {what} come with the {slice_} slice of the port")
+        elif a == "-devices":
+            i += 1
+            param.num_devices = int(argv[i])
+        elif a == "-multihost":
+            # One process a rank, as the reference mpirun's its binary
+            # (Renderer_MPI.cpp:35-53): the same CLI launched once a rank.
+            opts["multihost"] = True
+        elif a == "-rank-debug":
+            param.rank_debug = True
+        elif a == "-coordinator":
+            i += 1
+            addr, nproc, pid = argv[i].rsplit(",", 2)
+            opts["coordinator"] = (addr, int(nproc), int(pid))
+        elif a == "-profile":
+            i += 1
+            opts["profile"] = argv[i]
+        elif a == "-serve":
+            i += 1
+            opts["serve"] = int(argv[i])
         else:
             scene_file = a
         i += 1
@@ -132,6 +155,34 @@ def main(argv=None):
     if scene_file is None:
         print("Error: insufficient input", file=sys.stderr)
         return -1
+    device = opts["device"]
+    if opts.get("multihost"):
+        from qaray_tpu_torch.parallel import distributed
+        from qaray_tpu_torch.parallel.mesh import default_devices
+
+        rank, nprocs = distributed.init_distributed(
+            *opts.get("coordinator", ()), device=device)
+        device = distributed.local_device()
+        param.num_devices = len(default_devices(device.type))
+        print(f"multihost: process {rank}/{nprocs}, "
+              f"{param.num_devices} devices", flush=True)
+        name = (f" ({torch.cuda.get_device_name(device)})"
+                if device.type == "cuda" else "")
+        print(f"multihost: process {rank} on {device}{name}, collectives "
+              f"on {distributed.backend()}", flush=True)
+        try:
+            return _run(param, scene_file, out_prefix, opts, device)
+        finally:
+            from qaray_tpu_torch.parallel.mesh import stats
+
+            print(f"multihost: process {rank}, {stats['all_gathers']} "
+                  f"all_gathers ({distributed.backend()}), "
+                  f"{stats['all_gather_s']:f} s blocked in them", flush=True)
+            distributed.shutdown()
+    return _run(param, scene_file, out_prefix, opts, device)
+
+
+def _run(param, scene_file, out_prefix, opts, device):
     try:
         scene = load_scene(scene_file)
     except (OSError, ValueError) as e:
@@ -139,16 +190,42 @@ def main(argv=None):
         return -1
     if "res" in opts:
         scene.camera.img_width, scene.camera.img_height = opts["res"]
-    renderer = Renderer(param, device=opts["device"])
+    renderer = Renderer(param, device=device)
+
+    if "serve" in opts:
+        from qaray_tpu_torch.viz.serve import RenderServer
+
+        RenderServer(renderer, scene, opts["serve"]).serve(block=True)
+        return 0
+
     renderer.compute_scene(scene)
     renderer.set_progress_callback(
         lambda done, total: print(f"progress: {done}/{total} spp",
                                   flush=True))
     param.progressive_prefix = out_prefix
-    start = time.time()
-    fb = renderer.render()
-    print(f"render: {time.time() - start:.3f} s on {opts['device']}",
-          flush=True)
+
+    from qaray_tpu_torch.utils.timing import FrameTimer, profile
+
+    timer = FrameTimer()
+    timer.start()
+    with profile(opts.get("profile"), renderer.device):
+        fb = renderer.render()
+    timer.stop()
+
+    if opts.get("multihost"):
+        from qaray_tpu_torch.parallel.distributed import (
+            is_primary,
+            process_index,
+        )
+
+        # Each rank's debug planes before the primary-only gate
+        # (Renderer_MPI.cpp:134-138 saves each rank's buffers before the
+        # composite); then only the primary writes images (every rank holds
+        # the whole gathered framebuffer).
+        if param.rank_debug:
+            renderer.save_rank_debug(out_prefix, process_index())
+        if not is_primary():
+            return 0
 
     # Output names follow Renderer_GUI::CleanRender (Renderer_GUI.cpp:65-73).
     fb.save_image(out_prefix + "colorBuffer.png")

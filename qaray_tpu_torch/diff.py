@@ -139,14 +139,16 @@ def _unpack_adjoint(flat, meta, scene) -> DiffParams:
     )
 
 
-def _loss(radiance, target):
-    if target is None:
-        return radiance.mean()
-    return ((radiance - target) ** 2).mean()
+def _loss(radiance, target, n=None):
+    """The mean of radiance (or of (radiance - target)^2) over its
+    elements; with n, their sum over n (a shard's part of the mean over n
+    elements)."""
+    err = radiance if target is None else (radiance - target) ** 2
+    return err.mean() if n is None else err.sum() / n
 
 
 def render_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
-                          target=None):
+                          target=None, mesh=None):
     """(loss, DiffParams gradients) for one sample round.
 
     loss = mean(radiance) when target is None, else mean((radiance -
@@ -158,7 +160,26 @@ def render_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
     cotangent ct on its radiance, and one launch of the fused adjoint
     (ops/adjoint.adjoint_render), which replays the forward's draws: the
     exact gradient of the same estimator. A kernel that does not build or
-    launch raises. Otherwise autograd through render_with_params."""
+    launch raises. Otherwise autograd through render_with_params.
+
+    With a mesh (parallel.mesh.RenderMesh) the lanes are sharded over it:
+    each of this process's shards takes its route on its device with the
+    global element count in its cotangent, and the losses and gradients
+    are summed over the shards and all-reduced across processes: the
+    explicit counterpart of the psum XLA inserts for the JAX package. The
+    sum's order is not one device's, so the result agrees with the
+    unsharded one to rounding, not bit for bit."""
+    if mesh is not None:
+        return _sharded_value_and_grad(scene, meta, cfg, px, py, sample_ids,
+                                       key_words, target, mesh)
+    return _value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
+                           target)
+
+
+def _value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words, target,
+                    n=None):
+    """render_value_and_grad on one device; with n, of the loss's part
+    sum / n over these lanes' n-element share."""
     from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
     from qaray_tpu_torch.ops.adjoint import adjoint_render, adjoint_supported
 
@@ -168,8 +189,8 @@ def render_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
         with torch.no_grad():
             radiance, _ = mega_render(scene, meta, cfg, px, py, sample_ids,
                                       key_words)
-            n = radiance.numel()
-            loss = _loss(radiance, target)
+            loss = _loss(radiance, target, n)
+            n = radiance.numel() if n is None else n
             if target is None:
                 ct = torch.full_like(radiance, 1.0 / n)
             else:
@@ -182,11 +203,54 @@ def render_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
                           for t in extract_params(scene)))
     with torch.enable_grad():
         loss = _loss(render_with_params(scene, meta, cfg, params, px, py,
-                                        sample_ids, key_words), target)
+                                        sample_ids, key_words), target, n)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     return loss.detach(), DiffParams(*(
         torch.zeros_like(p) if g is None else g
         for p, g in zip(params, grads)))
+
+
+def _sharded_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
+                            target, mesh):
+    """render_value_and_grad over the mesh's shards (see there), on px's
+    device."""
+    import torch.distributed as dist
+
+    from qaray_tpu_torch.parallel import distributed
+    from qaray_tpu_torch.parallel.mesh import (
+        device_put_replicated,
+        device_scope,
+        shard_bounds,
+    )
+
+    scenes = device_put_replicated(scene, mesh)
+    n = px.shape[0] * 3
+    cuts = shard_bounds(px.shape[0], mesh.size)
+    dev = px.device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    grads = [torch.zeros_like(t, device=dev) for t in extract_params(scene)]
+    for i in mesh.local:
+        a, b = cuts[i], cuts[i + 1]
+        if a == b:
+            continue
+        d = mesh.devices[i].device
+        with device_scope(d):
+            part, g = _value_and_grad(
+                scenes.on(d), meta, cfg, px[a:b].to(d), py[a:b].to(d),
+                sample_ids[a:b].to(d), key_words,
+                None if target is None else target[a:b].to(d), n)
+        loss = loss + part.to(dev)
+        grads = [x + y.to(dev) for x, y in zip(grads, g)]
+    if mesh.multiprocess:
+        flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads])
+        flat = flat if distributed.backend() == "nccl" else flat.cpu()
+        dist.all_reduce(flat, group=distributed.group())
+        flat = flat.to(dev)
+        loss, c = flat[0], 1
+        for j, g in enumerate(grads):
+            grads[j] = flat[c:c + g.numel()].reshape(g.shape)
+            c += g.numel()
+    return loss, DiffParams(*grads)
 
 
 def params_from_numpy(params, device="cuda") -> DiffParams:

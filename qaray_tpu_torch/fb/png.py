@@ -32,7 +32,10 @@ def write_png(filename: str, array: np.ndarray):
     _write_png_native(filename, array)
 
 
-def _write_png_native(filename: str, array: np.ndarray):
+def png_bytes(array: np.ndarray) -> bytes:
+    """The PNG file of array ([H, W] grey or [H, W, 3] RGB uint8) as bytes,
+    by the pure python encoder (the preview server sends these)."""
+    array = np.ascontiguousarray(array.astype(np.uint8))
     h, w = array.shape[:2]
     color_type = 0 if array.ndim == 2 else 2
     raw = array.reshape(h, -1)
@@ -48,8 +51,11 @@ def _write_png_native(filename: str, array: np.ndarray):
         )
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(scanlines, 6))
+            + chunk(b"IEND", b""))
+
+
+def _write_png_native(filename: str, array: np.ndarray):
     with open(filename, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", ihdr))
-        f.write(chunk(b"IDAT", zlib.compress(scanlines, 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(png_bytes(array))

@@ -1,6 +1,6 @@
 """Renderer: the adaptive-supersampling loop over sample rounds.
 
-Counterpart of qaray_tpu/renderer.py on one device. All active pixels
+Counterpart of qaray_tpu/renderer.py. All active pixels
 advance one sample per dispatch; adaptive sampling is host-side
 active-pixel compaction between rounds, with SuperSamplerHalton's stopping
 rule (scene/scene.cpp:92-98: stop when s >= sppMin and every channel's std
@@ -33,8 +33,15 @@ every so many samples of phase 1 (FrameBuffer.save_state, the JAX
 package's npz fields), and load_checkpoint resumes from its smallest
 count.
 
-Multi-device rendering and rank-debug planes arrive with their slice of
-the port and raise NotImplementedError here.
+With num_devices > 1 (or a mesh given) each dispatch is sharded over a
+device mesh (parallel/mesh.py): the scene and the maps are replicated
+once at compute_scene, every shard renders on its device and the outputs
+come back in lane order to every process, which folds the whole dispatch
+as one device does; the escalated lanes render again on each process's
+own device, unsharded. Across processes (parallel/distributed.py) every
+rank issues the same dispatches, and so the same collectives, in the same
+order. rank_debug counts the lanes this process's devices rendered, for
+save_rank_debug's planes.
 """
 
 from __future__ import annotations
@@ -80,9 +87,11 @@ class RendererParam:
     rng_impl: str = "rbg"
     round_spp: int = 1  # samples per adaptive round after spp_min
     batch_pixels: int = 1 << 20  # max pixel lanes per dispatch
-    num_devices: int = 0
+    num_devices: int = 0  # 0/1 = single device; >1 = shard over a mesh
     progressive_every: int = 0  # save colorBuffer every N spp (0 = off)
     progressive_prefix: str = ""
+    # -rank-debug: count the lanes this process's shards render (the
+    # per-rank debug PNGs of Renderer_MPI.cpp:134-138).
     rank_debug: bool = False
     checkpoint_every: int = 0
     checkpoint_path: str = "render_checkpoint.npz"
@@ -90,15 +99,30 @@ class RendererParam:
 
 class Renderer:
     def __init__(self, param: Optional[RendererParam] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        """device: where the accumulator lives and the unsharded work runs.
+        mesh: a parallel.mesh.RenderMesh to shard over; without one,
+        num_devices > 1 takes the first num_devices of the devices of
+        device's kind (parallel.mesh.default_devices: on one card a mesh of
+        that card, as jax.devices()[:n] gives one chip)."""
         self.param = param or RendererParam()
-        p = self.param
-        for flag, what in ((p.num_devices > 1, "multi-device rendering"),
-                           (p.rank_debug, "rank-debug planes")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} come with the multi-device slice of the port")
         self.device = torch.device(device)
+        self._mesh = mesh
+        self._render_fn = render_batch
+        if mesh is None and self.param.num_devices > 1:
+            from qaray_tpu_torch.parallel.mesh import (
+                default_devices,
+                make_render_mesh,
+            )
+
+            self._mesh = make_render_mesh(
+                default_devices(self.device.type)[:self.param.num_devices])
+        if self._mesh is not None:
+            from qaray_tpu_torch.parallel.mesh import shard_render_batch
+
+            self._render_fn = shard_render_batch(self._mesh)
+        self._rank_mask = None
+        self._replicas = {}
         self.stop_flag = False
         self.scene_arrays = None
         self.meta = None
@@ -133,9 +157,31 @@ class Renderer:
                                 cluster_photon_map(cmap))
             # The reference dumps both maps for its viewer
             # (renderer.cpp:204-209, 284-289): same files, same records.
-            save_photon_map(self.photon_maps[0], "photonmap.dat")
-            save_photon_map(self.photon_maps[1], "caustics.dat")
+            # Across processes the primary writes them.
+            from qaray_tpu_torch.parallel.distributed import is_primary
+
+            if is_primary():
+                save_photon_map(self.photon_maps[0], "photonmap.dat")
+                save_photon_map(self.photon_maps[1], "caustics.dat")
+        # Replicate the scene and the maps over the mesh once (every MPI
+        # rank loads the whole scene, Renderer_MPI.cpp:54); the escalated
+        # lanes keep using this device's copy.
+        self._on_mesh("scene", self.scene_arrays)
+        self._on_mesh("maps", self.photon_maps)
         return self.scene_arrays, self.meta
+
+    def _on_mesh(self, name, tree):
+        """tree, or with a mesh its replicas over the mesh, made once for
+        each tree assigned (parallel.mesh.device_put_replicated)."""
+        if self._mesh is None or tree is None:
+            return tree
+        src, rep = self._replicas.get(name, (None, None))
+        if src is not tree:
+            from qaray_tpu_torch.parallel.mesh import device_put_replicated
+
+            rep = device_put_replicated(tree, self._mesh)
+            self._replicas[name] = (tree, rep)
+        return rep
 
     def _effective_batch(self) -> int:
         """Pixel lanes per dispatch: the MC-GI expansion widens the
@@ -190,6 +236,9 @@ class Renderer:
             self.meta, cfg, self.photon_maps))
         self._accum = device_accum.init_state(fb, self.device,
                                               want_irr=self._want_aux())
+        self._rank_mask = (
+            torch.zeros(num_pixels, dtype=torch.int32, device=self.device)
+            if p.rank_debug and self._mesh is not None else None)
         self._inflight = None
         all_ids = np.arange(num_pixels, dtype=np.int32)
         all_dev = torch.arange(num_pixels, dtype=torch.int32,
@@ -261,14 +310,48 @@ class Renderer:
             self.fb.save_state(self.param.checkpoint_path)
 
     def _dispatch(self, cfg, px, py, sid, words):
-        """render_batch with this render's maps: (radiance, depth, irr or
-        None, esc or None)."""
-        out = render_batch(self.scene_arrays, self.meta, cfg, px, py, sid,
-                           words, self.photon_maps,
-                           want_aux=self._want_aux())
+        """render_batch (sharded over the mesh, where there is one) with
+        this render's maps: (radiance, depth, irr or None, esc or None)."""
+        if self._rank_mask is not None:
+            self._mark_ownership(py * self.meta.img_width + px)
+        out = self._render_fn(self._on_mesh("scene", self.scene_arrays),
+                              self.meta, cfg, px, py, sid, words,
+                              self._on_mesh("maps", self.photon_maps),
+                              want_aux=self._want_aux())
         irr = out[2] if self._want_aux() else None
         esc = out[-1] if self._mega_photon else None
         return out[0], out[1], irr, esc
+
+    def _mark_ownership(self, lanes):
+        """-rank-debug: count, per pixel, the lanes of this dispatch that
+        this process's devices render (the per-rank ownership of
+        Renderer_MPI's static round-robin, Renderer_MPI.cpp:134-138)."""
+        from qaray_tpu_torch.parallel.mesh import shard_bounds
+
+        cuts = shard_bounds(lanes.shape[0], self._mesh.size)
+        for i in self._mesh.local:
+            mine = lanes[cuts[i]:cuts[i + 1]].long()
+            self._rank_mask.index_add_(
+                0, mine, torch.ones_like(mine, dtype=torch.int32))
+
+    def save_rank_debug(self, prefix: str, rank: int):
+        """Write this process's ownership and spp planes
+        (Renderer_MPI.cpp:134-138's per-rank PNGs): rank{r}_maskBuffer.png
+        holds the samples of each pixel that this process rendered (the
+        ranks' planes sum to the pixel's spp), rank{r}_sampleBuffer.png
+        the sample-count plane where it rendered any."""
+        if self._rank_mask is None:
+            return
+        fb = self.fb
+        mask = self._rank_mask.cpu().numpy()
+        fb.save_png(f"{prefix}rank{rank}_maskBuffer.png",
+                    np.clip(mask, 0, 255).astype(np.uint8))
+        spp = getattr(fb, "sample_count_u8", None)
+        if spp is None:
+            fb.finalize(self.param.use_srgb, self.param.spp_max)
+            spp = fb.sample_count_u8
+        fb.save_png(f"{prefix}rank{rank}_sampleBuffer.png",
+                    np.where(mask > 0, spp, 0).astype(np.uint8))
 
     def _fold_main(self, pixel_ids, dev_ids, lo, radiance, esc, irr):
         """Fold lanes [lo, lo + len(pixel_ids)) of a dispatch, one sample

@@ -1036,3 +1036,155 @@ def test_no_pallas_takes_plain_versions(cuda, monkeypatch):
         assert [dict(c) for c in counts] == before
         assert (occ != want_occ).float().mean().item() < 0.005
         _t_bars(want["t"], want["mtl"], got["t"], got["mtl"])
+
+
+# -- sharded rendering and gradients -----------------------------------------
+
+
+@pytest.mark.parametrize("impl", ["rbg", "threefry2x32"])
+def test_sharded_render_batch_equals_single(cuda, impl):
+    """shard_render_batch over ["cuda:0", "cuda:0"] on softdof's 200x150 x
+    2 lanes: every output equal to one render_batch's, bit for bit, with
+    K1a launched once a shard."""
+    from qaray_tpu_torch.core.rng import key_words
+    from qaray_tpu_torch.integrators.engine import render_batch
+    from qaray_tpu_torch.parallel.mesh import (
+        make_render_mesh,
+        shard_render_batch,
+    )
+
+    arr, meta = compile_scene(load_scene(SCENES[1]), device="cuda")
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    px, py, sid = _lanes(200, 150, 2, "cuda")
+    words = key_words(impl, 0)
+    want = render_batch(arr, meta, cfg, px, py, sid, words, want_aux=True)
+    before = megakernel.launches["K1a"]
+    got = shard_render_batch(make_render_mesh(["cuda:0"] * 2))(
+        arr, meta, cfg, px, py, sid, words, want_aux=True)
+    assert megakernel.launches["K1a"] == before + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_sharded_renderer_equals_single(cuda):
+    """Renderer(num_devices=2) on one card (a one-device mesh) and a
+    Renderer over ["cuda:0", "cuda:0"] with rank-debug planes give the
+    single-device render's planes bit for bit (softdof at 200x150)."""
+    from qaray_tpu_torch.parallel.mesh import make_render_mesh
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+
+    desc = load_scene(SCENES[1])
+    desc.camera.img_width, desc.camera.img_height = 200, 150
+    fbs = []
+    for kw, mesh in (({}, None), (dict(num_devices=2), None),
+                     (dict(rank_debug=True),
+                      make_render_mesh(["cuda:0"] * 2))):
+        r = Renderer(RendererParam(**kw), device="cuda", mesh=mesh)
+        r.compute_scene(desc)
+        fbs.append(r.render())
+        if kw.get("num_devices"):
+            assert r._mesh.size == min(2, torch.cuda.device_count())
+    for fb in fbs[1:]:
+        for k in ("mean", "color_std", "count", "zbuffer", "img"):
+            assert np.array_equal(getattr(fb, k), getattr(fbs[0], k)), k
+    assert np.array_equal(r._rank_mask.cpu().numpy(), fbs[2].count)
+
+
+def test_sharded_photon_renderer(cuda, tmp_path, monkeypatch):
+    """caustics_scene with -use-photon-map over ["cuda:0", "cuda:0"] at
+    160x120: K1d and K5 once a shard, counts equal and mean within 1e-5 of
+    the unsharded render."""
+    from qaray_tpu_torch.parallel.mesh import make_render_mesh
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+
+    desc = with_glass(load_scene(SCENES[1]), "mid")
+    desc.camera.img_width, desc.camera.img_height = 160, 120
+    monkeypatch.chdir(tmp_path)
+    fbs, k1d = [], []
+    for mesh in (None, make_render_mesh(["cuda:0"] * 2)):
+        r = Renderer(RendererParam(use_photon_map=True), device="cuda",
+                     mesh=mesh)
+        r.compute_scene(desc)
+        before = megakernel.launches["K1d"]
+        fbs.append(r.render())
+        k1d.append(megakernel.launches["K1d"] - before)
+    assert k1d[1] == 2 * k1d[0] > 0
+    assert np.array_equal(fbs[0].count, fbs[1].count)
+    np.testing.assert_allclose(fbs[0].mean, fbs[1].mean, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["fast", "autograd"])
+def test_sharded_gradient_matches_single(cuda, route, monkeypatch):
+    """render_value_and_grad over ["cuda:0", "cuda:0"] on spot_scene's
+    64x48 lanes against one device: every field within 1e-5 of 1 +
+    max|b|; the fast route launches K1a and K6 once a shard."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.ops import adjoint
+    from qaray_tpu_torch.parallel.mesh import make_render_mesh
+
+    if route == "autograd":
+        monkeypatch.setenv("QARAY_NO_MEGAKERNEL", "1")
+    arr, meta = _grad_scene("spot", (64, 48))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    px, py, sid = _lanes(64, 48, 1, "cuda")
+    loss_1, want = diff.render_value_and_grad(arr, meta, cfg, px, py, sid,
+                                              (0, 3))
+    before = adjoint.launches["K6"]
+    loss_2, got = diff.render_value_and_grad(
+        arr, meta, cfg, px, py, sid, (0, 3),
+        mesh=make_render_mesh(["cuda:0"] * 2))
+    assert adjoint.launches["K6"] - before == (2 if route == "fast" else 0)
+    torch.testing.assert_close(loss_2, loss_1, rtol=0, atol=1e-6)
+    for f in diff.DiffParams._fields:
+        a, b = getattr(got, f).double(), getattr(want, f).double()
+        err = (a - b).abs().max() / (1.0 + b.abs().max())
+        assert err.item() <= 1e-5, f
+
+
+def test_two_process_cli_equals_single(cuda, tmp_path):
+    """Two ranks of the CLI with -multihost on the card (gloo, both on
+    cuda:0) at 200x150 x 2 spp: the primary's colour buffer equal to a
+    single-process render's bit for bit, rank 1 writes no colour buffer,
+    the rank-debug mask planes sum to the spp."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from PIL import Image
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = [sys.executable, "-m", "qaray_tpu_torch.cli",
+            os.path.join(repo, SCENES[1]), "-res", "200x150", "-spp", "2"]
+    env = dict(os.environ, PYTHONPATH=repo)
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        args + ["-multihost", "-coordinator", f"localhost:{port},2,{r}",
+                "-rank-debug", "-out", str(tmp_path / f"mh{r}_")],
+        env=env, cwd=tmp_path, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out[-3000:]
+        assert f"multihost: process {r}/2, 2 devices" in out and "(gloo)" in out
+    assert not (tmp_path / "mh1_colorBuffer.png").exists()
+    single = subprocess.run(args + ["-out", str(tmp_path / "sp_")], env=env,
+                            cwd=tmp_path, capture_output=True, text=True,
+                            timeout=300)
+    assert single.returncode == 0, single.stdout + single.stderr
+
+    def png(name):
+        return np.asarray(Image.open(tmp_path / name)).astype(int)
+
+    assert np.array_equal(png("mh0_colorBuffer.png"), png("sp_colorBuffer.png"))
+    assert np.all(png("mh0_rank0_maskBuffer.png")
+                  + png("mh1_rank1_maskBuffer.png") == 2)

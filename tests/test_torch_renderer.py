@@ -218,24 +218,29 @@ def test_cuda_entry_point_without_card_raises(tmp_path):
 
 
 def test_later_slices_raise(monkeypatch):
-    """What later slices bring raises, naming its slice: several devices,
-    rank-debug planes, the preview server, profiling. Photon maps,
+    """Nothing of the JAX package's Renderer and CLI raises any more: the
+    multi-device slice's flags (-devices, -multihost, -coordinator,
+    -rank-debug), the preview server (-serve) and profiling (-profile)
+    parse into their settings, and Renderer(num_devices=2) or rank_debug
+    builds a mesh (on the CPU, of the one device). Photon maps,
     checkpoints and per-instance meshes (compute_scene(world_bvh=False),
-    QARAY_NO_WORLD_BVH) no longer do."""
+    QARAY_NO_WORLD_BVH) work as well."""
     from qaray_tpu_torch import cli
     from qaray_tpu_torch.renderer import Renderer, RendererParam
     from qaray_tpu_torch.scene.xml_parser import load_scene
 
-    for flag, slice_ in (("-devices", "multi-device"),
-                         ("-rank-debug", "multi-device"),
-                         ("-serve", "preview-server"),
-                         ("-profile", "timing and profiling")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            cli.parse_args(["scene.xml", flag, "2"])
+    param, _, _, opts = cli.parse_args(
+        ["scene.xml", "-devices", "2", "-rank-debug", "-multihost",
+         "-coordinator", "localhost:1234,2,1", "-serve", "0", "-profile",
+         "prof"])
+    assert param.num_devices == 2 and param.rank_debug
+    assert opts["multihost"] and opts["coordinator"] == ("localhost:1234",
+                                                         2, 1)
+    assert opts["serve"] == 0 and opts["profile"] == "prof"
     for param in (RendererParam(num_devices=2),
-                  RendererParam(rank_debug=True)):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            Renderer(param, device="cpu")
+                  RendererParam(num_devices=2, rank_debug=True)):
+        r = Renderer(param, device="cpu")
+        assert r._mesh is not None and r._mesh.size == 1
     Renderer(RendererParam(checkpoint_every=1), device="cpu")
     scene = "tests/assets/grid_scene.xml"
     _, meta = Renderer(device="cpu").compute_scene(load_scene(scene),

@@ -189,11 +189,12 @@ def test_kernel_tables_match_pack_tables():
 
 @pytest.mark.parametrize("name", ["mesh", "texture"])
 def test_later_slices_raise(name):
-    """Several devices (multi-device slice) still raise. Per-instance
-    object-space meshes no longer do since the BVH-walk slice: mesh_scene
-    compiles per instance and renders on the wavefront engine.
-    texture_scene compiles, and since the photon slice a photon-mapped
-    config renders it (without maps: no gathers)."""
+    """Nothing raises any more. Per-instance object-space meshes render
+    since the BVH-walk slice: mesh_scene compiles per instance and renders
+    on the wavefront engine. texture_scene compiles, and since the photon
+    slice a photon-mapped config renders it (without maps: no gathers).
+    Since the multi-device slice a Renderer with num_devices=2 builds its
+    mesh (of the one CPU device) and renders each scene like one device."""
     from qaray_tpu_torch.integrators import engine
     from qaray_tpu_torch.renderer import Renderer, RendererParam
 
@@ -205,8 +206,8 @@ def test_later_slices_raise(name):
         rad, _ = engine.render_batch(arr, meta, engine.IntegratorConfig(),
                                      lane * 40, lane * 30, lane, (0, 3))
         assert torch.isfinite(rad).all()
-        with pytest.raises(NotImplementedError):
-            Renderer(RendererParam(num_devices=2), device="cpu")
+        _mesh_renderer_renders(Renderer, RendererParam, "mesh_scene.xml",
+                               world_bvh=False)
         return
 
     arr, meta = compile_scene(load_scene("tests/assets/texture_scene.xml"),
@@ -215,5 +216,20 @@ def test_later_slices_raise(name):
     rad, _ = engine.render_batch(arr, meta, engine.IntegratorConfig(
         use_photon_map=True), lane, lane, lane, (0, 3))
     assert torch.isfinite(rad).all()
-    with pytest.raises(NotImplementedError):
-        Renderer(RendererParam(num_devices=2), device="cpu")
+    _mesh_renderer_renders(Renderer, RendererParam, "texture_scene.xml")
+
+
+def _mesh_renderer_renders(Renderer, RendererParam, name, **kw):
+    """Renderer(num_devices=2) over its one-device mesh renders the scene
+    at 16x12 x 1 spp as one device does, bit for bit."""
+    fbs = []
+    for n in (0, 2):
+        desc = load_scene(f"tests/assets/{name}")
+        desc.camera.img_width, desc.camera.img_height = 16, 12
+        r = Renderer(RendererParam(num_devices=n, spp_min=1, spp_max=1,
+                                   max_bounce=2, shadow_spp=2,
+                                   shadow_spp_max=2), device="cpu")
+        assert (r._mesh is not None) == (n == 2)
+        r.compute_scene(desc, **kw)
+        fbs.append(r.render())
+    assert np.array_equal(fbs[0].mean, fbs[1].mean)
