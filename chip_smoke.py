@@ -183,18 +183,40 @@ Phases, each fatal on failure:
           kernel (mega_kernel), and the CLI prints "Elapsed Time is";
        v. the preview server (viz/serve.py) on spot_scene 200x150 x 2 spp,
           port 0: /status reaches spp 2, /image.png and /depth.png are
-          PNGs, /orbit?dyaw=30 renders a different image;
+          PNGs, /orbit?dyaw=30 renders a different image, and three
+          /orbit frames (each a new scene compile) capture no graph;
+       w. captured execution (utils/compiled.py, render_batch, the folds,
+          the fast gradient step and the photon batch under CUDA graphs,
+          which every phase from 4a on runs) against the eager one
+          (compiled.eager()), bit for bit, in a process of its own
+          (tools/capture_turns.py, whose profiler has seen no graphs of
+          the phases before): the Renderer on 4a, 4b, 4e, 4k and 4o in
+          turns (eager, captured, captured, eager) under the profiler,
+          later renders capturing nothing; render_batch on both routes and
+          a fold replayed under torch.cuda.set_sync_debug_mode("error");
+          4m's fast route over 3 steps with changing parameters, captured
+          on the first only; a photon map build; captures, their seconds,
+          graphs and peak memory. A first render of a scene in 4a-4v
+          includes its captures; phases 2 and 3 run the plain versions
+          eagerly (QARAY_EAGER);
   5. each kernel's time at the path's shapes beside its bound, its launches
      on the main path and its plain version's time, and the device's idle
-     share in one Renderer.render() of 4a, 4c, 4d, 4g, 4e, 4k and 4o's
-     per-instance route; K6's at the gradient path's shape of 4m. W1 at
+     share in one Renderer.render() of 4a, 4c, 4d, 4g and 4e (4k's and
+     4o's come from 4w); K6's at the gradient path's shape of 4m. W1 at
      4o's largest closest-hit and any-hit launches, 4p's largest
      closest-hit launch (ico5's deep tree an instance) and on ico5's
      camera rays (its world tree), each with its bound from its work
      counters (inner nodes, triangle tests, the rays' moves into instance
      space), those counters a ray and a warp's slowest lane against the
      mean, and both instantiations' registers, spills, stack frame, shared
-     memory and blocks an SM. The Renderer's synchronous loop against its
+     memory and blocks an SM. The device's idle share eager against
+     captured in 4w's turns, and the host's time of one render of 4a and
+     4b in each mode (4w's process: the Renderer's parts by perf_counter,
+     the functions that hold it under cProfile). Every profiled session
+     follows a short one that takes the device records the profiler loses
+     after CUDA graphs are made (flush_profiler); kernels whose records it
+     lost all the same are timed by CUDA events, and say so. The
+     Renderer's synchronous loop against its
      one-deep pipeline in turns (sync, pipe, pipe, sync) on softdof,
      mesh_scene, ico5, texture_scene and the photon-mapped
      caustics_scene: wall, device busy and idle share, the four renders'
@@ -341,6 +363,19 @@ def device_us(evt):
     return 0
 
 
+def flush_profiler():
+    """A torch.profiler session with a few small kernels: in a process that
+    has just made or dropped CUDA graphs the profiler loses device records
+    of its next session, and this one takes that loss."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]):
+        x = torch.zeros(1, device="cuda")
+        for _ in range(4):
+            x = x + 1
+        torch.cuda.synchronize()
+
+
 def kernel_ms(fn, kernel_name, reps=10):
     """Milliseconds per launch of the CUDA kernel whose name contains
     kernel_name (fn launches it once), from torch.profiler's device times
@@ -350,7 +385,7 @@ def kernel_ms(fn, kernel_name, reps=10):
     count is printed when it is short.
     Returns (ms, "profiler" | "events")."""
     fn()
-    torch.cuda.synchronize()
+    flush_profiler()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -747,13 +782,17 @@ def k1c_need(arr, meta, cfg, px, py, sid, words):
     mesh_sweep.sweep_closest = count_closest
     mesh_sweep.sweep_occluded = count_occluded
     engine._VERTEX_FNS[cfg.integrator] = vertex
+    from qaray_tpu_torch.utils import compiled
+
+    # The counting reads each batch on the host: eager, not captured.
     try:
         for lo in range(0, px.shape[0], 65536):
             s_ = slice(lo, lo + 65536)
             state["alive"] = torch.ones(px[s_].shape[0], dtype=torch.bool,
                                         device=px.device)
-            engine.render_batch_wavefront(arr, meta, cfg, px[s_], py[s_],
-                                          sid[s_], words)
+            with compiled.eager():
+                engine.render_batch_wavefront(arr, meta, cfg, px[s_],
+                                              py[s_], sid[s_], words)
     finally:
         mesh_sweep.sweep_closest, mesh_sweep.sweep_occluded = (closest,
                                                                 occluded)
@@ -859,6 +898,11 @@ def main():
         raise AssertionError(f"no ptxas report for {symbol_part} in {name}")
 
     # -- 2. kernels against their plain versions -----------------------------
+    # Phases 2 and 3 hold each kernel against its plain version, which they
+    # run eagerly, as before captured execution (QARAY_EAGER); the main
+    # path from phase 4 on runs captured (utils/compiled.py), and 4w holds
+    # captured against eager.
+    os.environ["QARAY_EAGER"] = "1"
     print("phase 2a: analytic kernels vs plain, 1M random rays", flush=True)
     arr, meta = compile_scene(load_scene(SCENE), device="cuda")
     prims = arr.analytic
@@ -1581,6 +1625,7 @@ def main():
     torch.cuda.synchronize()
 
     # -- 4. the main path ----------------------------------------------------
+    os.environ.pop("QARAY_EAGER", None)
     counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
                 tiles.launches, photon.launches, adjoint.launches,
                 bvh_packed.launches)
@@ -1645,8 +1690,12 @@ def main():
     k2c_sizes = {}
     shadow_fn = analytic.shadow
 
+    # Under capture (utils/compiled.py) these hooks see the calls Python
+    # runs, the warm-ups and the eager ones: a replay runs no Python. They
+    # do nothing while a graph is being captured.
     def shadow_sized(p_, d_, t_, prims_, **kw):
-        if p_.is_cuda and p_.shape[0]:
+        if (p_.is_cuda and p_.shape[0]
+                and not torch.cuda.is_current_stream_capturing()):
             k2c_sizes[p_.shape[0]] = k2c_sizes.get(p_.shape[0], 0) + 1
         return shadow_fn(p_, d_, t_, prims_, **kw)
 
@@ -1660,7 +1709,7 @@ def main():
 
     def full_sized(p_, d_, prims_, **kw):
         n_ = p_.shape[0]
-        if p_.is_cuda and n_:
+        if p_.is_cuda and n_ and not torch.cuda.is_current_stream_capturing():
             k2b_sizes[n_] = k2b_sizes.get(n_, 0) + 1
             keep = (max(k2b_sizes), 65536)
             for m in [m for m in k2b_rays if m not in keep]:
@@ -1672,12 +1721,15 @@ def main():
 
     analytic.closest_full = full_sized
 
-    escalated = [0]
+    # Escalated lanes, and the lanes of their re-renders (padded to their
+    # buckets, as every dispatch is).
+    escalated, escalated_padded = [0], [0]
     render_escalated = Renderer._render_escalated
 
     def count_escalated(self, ids, sids, esc):
         fixed = render_escalated(self, ids, sids, esc)
         escalated[0] += 0 if fixed is None else fixed[0].size
+        escalated_padded[0] += 0 if fixed is None else fixed[3].shape[0]
         return fixed
 
     Renderer._render_escalated = count_escalated
@@ -1828,7 +1880,7 @@ def main():
     print("phase 4k: Renderer, caustics_scene 800x600, -use-photon-map "
           "defaults", flush=True)
     with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
-        escalated[0] = 0
+        escalated[0] = escalated_padded[0] = 0
         fb_k, wall_k, counts_k, r_k = render_main(
             "caustics_scene photon map", caus_desc, p_photon)
         files = {n_: os.path.getsize(os.path.join(wd, n_))
@@ -1848,8 +1900,9 @@ def main():
           and counts_k["K5"] == counts_k["K1d"],
           f"K1a launched {counts_k['K1a']} times, all with K1d, and K5 "
           f"{counts_k['K5']} times")
-    check(counts_k["wavefront_lanes"] == escalated[0],
-          "only the escalated lanes on the wavefront engine")
+    check(counts_k["wavefront_lanes"] == escalated_padded[0],
+          "only the escalated lanes (padded to their buckets, "
+          f"{escalated_padded[0]} lanes) on the wavefront engine")
     check(0.0 < (fb_k.irrad > 0).mean() < 1.0, "irradiance plane filled")
 
     print("phase 4l: caustics_scene 800x600 x 1 spp, -use-photon-map, under "
@@ -1971,6 +2024,8 @@ def main():
     w1_closest, w1_occluded = bvh_packed.closest, bvh_packed.occluded
 
     def w1_keep(kind, p_, d_, t_, occ_, tabs_, kw):
+        if torch.cuda.is_current_stream_capturing():
+            return
         n_ = p_.shape[0]
         w1_sizes[(kind, n_)] = w1_sizes.get((kind, n_), 0) + 1
         if kind not in w1_rays or n_ > w1_rays[kind][0].shape[0]:
@@ -2044,7 +2099,7 @@ def main():
         if not world:
             w1_4p = w1_rays["closest"]
         r5.fb = FrameBuffer(800, 600)
-        torch.cuda.synchronize()
+        flush_profiler()
         reset_counts()
         with forbid, torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2118,6 +2173,10 @@ def main():
     print(f"  K2b's launches in phase 4 by rays (sum {sum(k2b_sizes.values())}"
           ", 4i's comparison at 200x150 with the CPU included): " + ", ".join(
               f"{n} x {c}" for n, c in sorted(k2b_sizes.items())), flush=True)
+    print("  (the sizes count the calls Python runs, the graphs' warm-ups "
+          "and the eager ones, not their replays)", flush=True)
+
+    captured = captured_phase(numbers)
 
     # -- 5. timings at the path's shapes -------------------------------------
     print("phase 5: kernel times at the path's shapes", flush=True)
@@ -2197,14 +2256,19 @@ def main():
         return f32, wsum[1] * OPS_PER_CIPHER
 
     def engine_ms(arr, meta_):
-        """The plain version (the wavefront engine) on the same lanes."""
+        """The plain version (the wavefront engine, eager as in earlier
+        PRs' figures) on the same lanes."""
+        from qaray_tpu_torch.utils import compiled
+
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for lo in range(0, 480000, 65536):
-            render_batch_wavefront(arr, meta_, cfg_pt, bpx[lo:lo + 65536],
-                                   bpy[lo:lo + 65536], bsid[lo:lo + 65536],
-                                   rbg)
+        with compiled.eager():
+            for lo in range(0, 480000, 65536):
+                render_batch_wavefront(arr, meta_, cfg_pt,
+                                       bpx[lo:lo + 65536],
+                                       bpy[lo:lo + 65536],
+                                       bsid[lo:lo + 65536], rbg)
         end.record()
         end.synchronize()
         return start.elapsed_time(end)
@@ -2762,7 +2826,7 @@ def main():
         if no_mega:
             os.environ["QARAY_NO_MEGAKERNEL"] = "1"
         try:
-            torch.cuda.synchronize()
+            flush_profiler()
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 t = time.time()
@@ -2885,16 +2949,20 @@ def main():
           "W1: neither instantiation spills")
     torch.cuda.synchronize()
 
-    # Device busy share of one Renderer.render() at the 4a, 4c, 4d, 4g, 4e
-    # and 4k settings (4k on phase 4k's renderer, whose maps are built) and
-    # of 4o's per-instance route.
+    # Device busy share of one Renderer.render() at the 4a, 4c, 4d, 4g and
+    # 4e settings, captured. 4k's and 4o's (and 4a's, 4b's and 4e's again)
+    # come from 4w's process, in turns against eager: this process has made
+    # some two hundred graphs by now, and its profiler reads device busy
+    # time high after that (softdof: 12.0 ms against 1.4 in 4w's process,
+    # PERF.md §7), and its sessions on the photon-mapped and per-instance
+    # renders cost some ten seconds each.
     def profile_render(what, desc, param, r=None, world_bvh=True):
         if r is None:
             r = Renderer(param, device="cuda")
             r.compute_scene(desc, world_bvh=world_bvh)
         else:
             r.fb = FrameBuffer(r.meta.img_width, r.meta.img_height)
-        torch.cuda.synchronize()
+        flush_profiler()
         reset_counts()
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2921,16 +2989,11 @@ def main():
     profile_render("ico5 defaults", ico5, RendererParam())
     profile_render("texture_scene defaults", tex_desc, RendererParam())
     profile_render("ico6 1 spp", ico6, RendererParam(spp_min=1, spp_max=1))
-    profile_render("caustics_scene photon map defaults", caus_desc, p_photon,
-                   r_k)
-    profile_render("grid_scene per instance defaults", grid_desc,
-                   RendererParam(), world_bvh=False)
 
     # The Renderer's synchronous loop (Renderer._pipelined False) against
-    # its one-deep pipeline, in turns (sync, pipe, pipe, sync; twice on
-    # the photon-mapped scene, whose walls swing most) on one renderer a
-    # scene: wall, device busy and idle share under the profiler, and the
-    # planes of all the renders equal, bit for bit.
+    # its one-deep pipeline, in turns (sync, pipe, pipe, sync) on one
+    # renderer a scene: wall, device busy and idle share under the
+    # profiler, and the planes of all the renders equal, bit for bit.
     def turns(what, desc, param, r=None, rounds=1):
         if r is None:
             r = Renderer(param, device="cuda")
@@ -2942,7 +3005,7 @@ def main():
         for pipelined in (False, True, True, False) * rounds:
             r._pipelined = pipelined
             r.fb = FrameBuffer(w_, h_)
-            torch.cuda.synchronize()
+            flush_profiler()
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]) as pr:
                 t = time.time()
@@ -2967,7 +3030,7 @@ def main():
                        ("ico5", ico5), ("texture_scene", tex_desc)):
         pipeline_turns[what] = turns(what, desc, RendererParam())
     pipeline_turns["caustics_scene photon map"] = turns(
-        "caustics_scene photon map", caus_desc, p_photon, r_k, rounds=2)
+        "caustics_scene photon map", caus_desc, p_photon, r_k)
 
     # Host syncs a dispatch round under torch.cuda.set_sync_debug_mode:
     # one render of softdof with the defaults in each mode.
@@ -3039,6 +3102,21 @@ def main():
                                sync_debug=sync_counts,
                                event_waits=event_waits)
 
+    # The device's idle share eager against captured and the host's time
+    # of one render of 4a and 4b in each mode (phase 4w's process).
+    for name in ("4a", "4b", "4e", "4k", "4o"):
+        rows = captured[name]["turns"]
+        print(f"  {name} {captured[name]['what']}: idle shares " + " / ".join(
+            f"{x['mode']} {x['idle_share']:.4f}" for x in rows) + ", walls "
+            + " / ".join(f"{x['wall_ms']:.3f}" for x in rows) + " ms",
+            flush=True)
+    for name, split in captured["profile"].items():
+        for mode, row in split.items():
+            print(f"  {name} host split {mode}: wall {row['wall_ms']:.3f} ms; "
+                  + ", ".join(f"{k} {v:.3f}"
+                              for k, v in row["parts_ms"].items()),
+                  flush=True)
+
     meta_k = {
         "K1a": ("qaray_tpu_torch/csrc/megakernel.cu",
                 "qaray_tpu/ops/pallas_pathtrace.py:1614"),
@@ -3087,6 +3165,48 @@ def main():
     return 0
 
 
+def captured_phase(numbers):
+    """Phase 4w: captured execution (utils/compiled.py) against the eager
+    one, bit for bit, in a process of its own
+    (qaray_tpu_torch/tools/capture_turns.py), whose profiler has seen no
+    graphs of the phases before: the Renderer on 4a, 4b, 4e, 4k and 4o in
+    turns (eager, captured, captured, eager) under the profiler,
+    render_batch's and a fold's replays under sync debug mode "error", the
+    fast gradient route over 3 steps with changing parameters (4m's path),
+    a photon map build and the host's time of one render of 4a and 4b in
+    each mode; captures, capture seconds, graphs and peak memory. Returns
+    the figures (numbers["captured"])."""
+    print("phase 4w: captured against eager, bit for bit (a process of "
+          "tools/capture_turns.py)", flush=True)
+    cmd = [sys.executable, "-m", "qaray_tpu_torch.tools.capture_turns",
+           "sync", "4a", "4b", "4e", "4k", "4o", "grad", "photon", "profile"]
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[1:-1]:
+        print(line, flush=True)
+    check(proc.returncode == 0 and lines, "tools/capture_turns.py exits 0 "
+          f"(rc {proc.returncode}; {proc.stderr.strip()[-2000:]})")
+    out = numbers["captured"] = json.loads(lines[-1])
+    check(out["sync"]["equal"], "render_batch (both routes) and a fold "
+          "replayed under sync debug mode \"error\" equal their eager runs")
+    for name in ("4a", "4b", "4e", "4k", "4o"):
+        res = out[name]
+        check(res["planes_equal"], f"{name}: captured and eager planes "
+              "equal, bit for bit")
+        check(res["again_captures"] == 0 and all(
+            x["captures"] == 0 for x in res["turns"]),
+            f"{name}: renders after the first capture nothing")
+    check(out["grad"]["equal"] and out["grad"]["captures"][1:] == [0, 0]
+          and out["grad"]["captures_again"] == [0, 0, 0]
+          and out["grad"]["gradients_move"], "fast gradient route: 3 "
+          "steps with changing parameters equal eager, captured on the "
+          "first step only")
+    check(out["photon"]["equal"] and out["photon"]["captures"][-1] == 0,
+          "photon maps: captured equal eager, a second build captures "
+          "nothing")
+    return out
+
+
 def multi_device_phases(here, scene, fb_a, s_arr, s_meta, cfg_pt, bpx, bpy,
                         bsid, rbg, caus_desc, p_photon, fb_k, spot_grad,
                         cfg_gp, render_main, reset_counts, read_counts,
@@ -3113,6 +3233,7 @@ def multi_device_phases(here, scene, fb_a, s_arr, s_meta, cfg_pt, bpx, bpy,
     )
     from qaray_tpu_torch.renderer import Renderer, RendererParam
     from qaray_tpu_torch.scene.xml_parser import load_scene
+    from qaray_tpu_torch.utils import compiled
     from qaray_tpu_torch.viz.serve import RenderServer
 
     figures = numbers.setdefault("multi_device", {})
@@ -3370,12 +3491,22 @@ def multi_device_phases(here, scene, fb_a, s_arr, s_meta, cfg_pt, bpx, bpy,
         try:
             st = finished(srv, 0)
             first, depth = get(srv, "/image.png"), get(srv, "/depth.png")
-            get(srv, "/orbit?dyaw=30")
-            finished(srv, st["generation"])
-            second = get(srv, "/image.png")
+            orbit_caps = []
+            for _ in range(3):
+                c0 = compiled.stats["captures"]
+                get(srv, "/orbit?dyaw=30")
+                st = finished(srv, st["generation"])
+                orbit_caps.append(compiled.stats["captures"] - c0)
+                if len(orbit_caps) == 1:
+                    second = get(srv, "/image.png")
         finally:
             srv.shutdown()
     c = read_counts()
+    print(f"  graphs captured by each of three /orbit frames: {orbit_caps}",
+          flush=True)
+    check(orbit_caps == [0, 0, 0], "/orbit frames replay the first "
+          "render's graphs (a new camera is a table copied in)")
+    figures["orbit_captures"] = orbit_caps
     counts_out.append(c)
     check(st["spp"] >= 2 and first[:4] == depth[:4] == b"\x89PNG",
           f"/status reached spp {st['spp']}; /image.png and /depth.png are "

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from qaray_tpu_torch.scene.arrays import SceneArrays
+from qaray_tpu_torch.utils.compiled import jit
 
 
 class DiffParams(NamedTuple):
@@ -181,22 +182,11 @@ def _value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words, target,
     """render_value_and_grad on one device; with n, of the loss's part
     sum / n over these lanes' n-element share."""
     from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
-    from qaray_tpu_torch.ops.adjoint import adjoint_render, adjoint_supported
+    from qaray_tpu_torch.ops.adjoint import adjoint_supported
 
     if adjoint_supported(meta, cfg) and use_pathtrace_mega(meta, cfg):
-        from qaray_tpu_torch.ops.megakernel import mega_render
-
-        with torch.no_grad():
-            radiance, _ = mega_render(scene, meta, cfg, px, py, sample_ids,
-                                      key_words)
-            loss = _loss(radiance, target, n)
-            n = radiance.numel() if n is None else n
-            if target is None:
-                ct = torch.full_like(radiance, 1.0 / n)
-            else:
-                ct = 2.0 * (radiance - target) / n
-        flat = adjoint_render(scene, meta, cfg, px, py, sample_ids,
-                              key_words, ct)
+        loss, flat = _fast_step(scene, meta, cfg, px, py, sample_ids,
+                                key_words, target, n)
         return loss, _unpack_adjoint(flat, meta, scene)
 
     params = DiffParams(*(t.detach().requires_grad_()
@@ -208,6 +198,36 @@ def _value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words, target,
     return loss.detach(), DiffParams(*(
         torch.zeros_like(p) if g is None else g
         for p, g in zip(params, grads)))
+
+
+def _fast_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
+                         target, n):
+    """The fast route's step: the megakernel's forward, the loss, its
+    cotangent and the fused adjoint: (loss, flat gradient)."""
+    from qaray_tpu_torch.ops.adjoint import adjoint_render
+    from qaray_tpu_torch.ops.megakernel import mega_render
+
+    with torch.no_grad():
+        radiance, _ = mega_render(scene, meta, cfg, px, py, sample_ids,
+                                  key_words)
+        loss = _loss(radiance, target, n)
+        n = radiance.numel() if n is None else n
+        if target is None:
+            ct = torch.full_like(radiance, 1.0 / n)
+        else:
+            ct = 2.0 * (radiance - target) / n
+    flat = adjoint_render(scene, meta, cfg, px, py, sample_ids, key_words,
+                          ct)
+    return loss, flat
+
+
+# The fast route's step under capture (utils/compiled.py), the counterpart
+# of the JAX package's jitted render_value_and_grad (qaray_tpu/diff.py:118).
+# The parameters of each step reach it spliced into the scene's material
+# and light tables, which the graph reads from buffers they are copied into
+# when they change: a loop over changing parameters replays one graph.
+_fast_step = jit(_fast_value_and_grad, static_argnames=("meta", "cfg"),
+                 inputs=("px", "py", "sample_ids", "target"))
 
 
 def _sharded_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,

@@ -9,6 +9,15 @@ it retires the dispatch. Where JAX returned new arrays, these functions
 update the planes in place (one copy of the image state instead of two).
 With photon maps a fourth plane max-folds the irradiance debug flags.
 
+As in the JAX package the planes hold one row more than the image: row
+N = W * H is the dump row, which the padding lanes of a dispatch (the
+Renderer pads each to a power-of-two bucket) fold into; the image and the
+convergence mask leave it out. The folds and the convergence mask run
+under capture on the card (utils/compiled.py, the counterpart of the JAX
+package's jax.jit over them), keyed on the planes' storage: init_state
+copies a new render's planes into the previous state where the shapes
+agree, so that a second render replays the first one's graphs.
+
 The recurrence is the reference's (SuperSamplerHalton::Accumulate,
 scene/scene.cpp:113-123):
     dc   = (x - mean) / (s + 1)
@@ -19,19 +28,31 @@ scene/scene.cpp:113-123):
 import numpy as np
 import torch
 
+from qaray_tpu_torch.utils.compiled import jit
 
-def init_state(fb, device, want_irr: bool = False):
-    """Host FrameBuffer -> device accumulator state (with want_irr the
-    irradiance plane too, as 0..1 floats)."""
-    state = {
-        "mean": torch.as_tensor(fb.mean, device=device).clone(),
-        "std": torch.as_tensor(fb.color_std, device=device).clone(),
-        "count": torch.as_tensor(fb.count, device=device).clone(),
-    }
+
+def init_state(fb, device, want_irr: bool = False, into=None):
+    """Host FrameBuffer -> device accumulator state, the dump row
+    included (with want_irr the irradiance plane too, as 0..1 floats).
+    into: a previous state, whose planes take the values in place where
+    their shapes and kinds agree."""
+    host = {"mean": np.pad(fb.mean, ((0, 1), (0, 0))),
+            "std": np.pad(fb.color_std, ((0, 1), (0, 0))),
+            "count": np.pad(fb.count, (0, 1))}
     if want_irr:
-        state["irr"] = torch.as_tensor(
-            fb.irrad.astype(np.float32) / 255.0, device=device)
-    return state
+        host["irr"] = np.pad(fb.irrad.astype(np.float32) / 255.0, (0, 1))
+    dev = torch.device(device)
+    if (into is not None and into.keys() == host.keys()
+            and all(into[k].device.type == dev.type
+                    and dev.index in (None, into[k].device.index)
+                    and tuple(into[k].shape) == v.shape
+                    and into[k].dtype == torch.from_numpy(v).dtype
+                    for k, v in host.items())):
+        for k, v in host.items():
+            into[k].copy_(torch.from_numpy(v))
+        return into
+    return {k: torch.as_tensor(v, device=device).clone()
+            for k, v in host.items()}
 
 
 def _welford(mean, std, count, colors):
@@ -61,8 +82,9 @@ def _fold(state, where, colors, skip):
     return n_skip
 
 
-def accumulate_round(state, pixel_ids, colors, skip=None, irr=None):
-    """One new sample for each pixel id (ids unique within a call).
+def _accumulate_round(state, pixel_ids, colors, skip=None, irr=None):
+    """One new sample for each pixel id (ids unique within a call but for
+    the dump row N, the padding lanes' id).
 
     skip: optional bool [B], lanes NOT folded by this call (gather-escalated
     lanes, folded later with their exact radiance); irr: optional bool [B],
@@ -77,7 +99,11 @@ def accumulate_round(state, pixel_ids, colors, skip=None, irr=None):
     return n_skip
 
 
-def accumulate_contig(state, start: int, colors, skip=None, irr=None):
+accumulate_round = jit(_accumulate_round, state=("state",),
+                       inputs=("pixel_ids", "colors", "skip", "irr"))
+
+
+def _accumulate_contig(state, start: int, colors, skip=None, irr=None):
     """accumulate_round for the contiguous pixel ids [start, start + B):
     slices instead of a gather and a scatter. Here, as in the JAX package,
     the irradiance plane takes every lane's flag."""
@@ -89,30 +115,47 @@ def accumulate_contig(state, start: int, colors, skip=None, irr=None):
     return n_skip
 
 
+# start is a host int, baked into the graph: part of its key.
+accumulate_contig = jit(_accumulate_contig, state=("state",),
+                        inputs=("colors", "skip", "irr"))
+
+
+def _unconverged_mask(state, threshold, spp: int):
+    std = state["std"][:-1]
+    return (((std[:, 0] > threshold[0]) | (std[:, 1] > threshold[1])
+             | (std[:, 2] > threshold[2]))
+            & (state["count"][:-1] == spp))
+
+
+# The device part of unconverged_ids (the JAX package's jitted
+# _unconverged); threshold and spp are baked in.
+_unconverged = jit(_unconverged_mask, state=("state",))
+
+
 def unconverged_ids(state, threshold, spp, on_device: bool = False):
     """Pixels still over the adaptive threshold at exactly `spp` samples
     (the host-side compaction input; one bool plane crosses to the host,
-    the round's one synchronizing read). With on_device, (host ids, the
-    same ids on the device, copied there from pinned memory without a
-    wait)."""
-    std = state["std"]
-    over = ((std[:, 0] > threshold[0]) | (std[:, 1] > threshold[1])
-            | (std[:, 2] > threshold[2]))
-    mask = (over & (state["count"] == spp)).cpu().numpy()
+    the round's one synchronizing read, as in the JAX Renderer). With
+    on_device, (host ids, the same ids on the device, copied there from
+    pinned memory without a wait)."""
+    mask = _unconverged(state, tuple(float(x) for x in threshold),
+                        int(spp)).cpu().numpy()
     ids = np.nonzero(mask)[0].astype(np.int32)
     if not on_device:
         return ids
     host = torch.from_numpy(ids)
-    if std.device.type == "cuda":
+    dev = state["std"].device
+    if dev.type == "cuda":
         host = host.pin_memory()
-    return ids, host.to(std.device, non_blocking=True)
+    return ids, host.to(dev, non_blocking=True)
 
 
 def sync_to_fb(state, fb):
-    """Pull the device planes into the host FrameBuffer mirror."""
-    fb.mean = state["mean"].cpu().numpy()
-    fb.color_std = state["std"].cpu().numpy()
-    fb.count = state["count"].cpu().numpy()
+    """Pull the device planes, without the dump row, into the host
+    FrameBuffer mirror."""
+    fb.mean = state["mean"][:-1].cpu().numpy()
+    fb.color_std = state["std"][:-1].cpu().numpy()
+    fb.count = state["count"][:-1].cpu().numpy()
     if "irr" in state:
-        fb.irrad = (state["irr"].cpu().numpy() * 255.0).astype(np.uint8)
+        fb.irrad = (state["irr"][:-1].cpu().numpy() * 255.0).astype(np.uint8)
     return fb

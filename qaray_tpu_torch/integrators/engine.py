@@ -73,6 +73,7 @@ from qaray_tpu_torch.scene.arrays import (
     SceneArrays,
     SceneMeta,
 )
+from qaray_tpu_torch.utils.compiled import jit
 
 # Lanes the wavefront engine has rendered (render_batch_wavefront calls),
 # so a caller can show that a run went through the megakernel only.
@@ -131,14 +132,16 @@ def generate_camera_rays(scene: SceneArrays, meta: SceneMeta, px, py,
 
 
 def _gather_lanes(pmap, do, p, n, v, mtl):
-    """gather_blinn of `pmap` on the lanes `do` selects, zero elsewhere."""
-    out = torch.zeros_like(p)
-    idx = torch.nonzero(do)[:, 0]
-    if idx.numel():
-        out[idx] = gather_blinn(pmap, p[idx], n[idx], v[idx],
-                                mtl.diffuse[idx], mtl.specular[idx],
-                                mtl.glossiness[idx])
-    return out
+    """gather_blinn of `pmap` on the lanes `do` selects, zero elsewhere.
+    Every lane is gathered and the selected ones kept, as the JAX engine
+    does (qaray_tpu/integrators/engine.py:161-167): no host read of the
+    selection, so a batch's launches do not depend on its data and the
+    engine can be captured (utils/compiled.py). A lane's gather does not
+    depend on the others, so the selected lanes get the bits of a gather
+    of those lanes alone."""
+    out = gather_blinn(pmap, p, n, v, mtl.diffuse, mtl.specular,
+                       mtl.glossiness)
+    return torch.where(do[:, None], out, 0.0)
 
 
 def _photonmap_vertex(scene, meta, cfg, hits, mtl, v, keys, has_diffuse_hit,
@@ -636,10 +639,10 @@ def lane_fold_data(px, py, sample_ids, width: int):
     return (rid * 65536 + sample_ids.to(torch.int64)) & 0xFFFFFFFF
 
 
-def render_batch_wavefront(scene: SceneArrays, meta: SceneMeta,
-                           cfg: IntegratorConfig, px, py, sample_ids,
-                           key_words, photon_maps=None,
-                           want_aux: bool = False):
+def _render_batch_wavefront(scene: SceneArrays, meta: SceneMeta,
+                            cfg: IntegratorConfig, px, py, sample_ids,
+                            key_words, photon_maps=None,
+                            want_aux: bool = False):
     """One sample per (px, py) lane on the wavefront engine: (radiance [B,3],
     primary depth [B]), with want_aux also the irradiance debug flag [B].
     Counterpart of engine.render_batch_xla_impl and the plain version of
@@ -664,6 +667,26 @@ def render_batch_wavefront(scene: SceneArrays, meta: SceneMeta,
     if want_aux:
         return radiance, t0, irrad0
     return radiance, t0
+
+
+def _plain_walks(arguments) -> bool:
+    """Does this call take the plain versions on the card (QARAY_NO_PALLAS,
+    meta.force_xla, QARAY_BVH_WALK=stacked)? Their walks loop until no ray
+    is left, a host read a graph cannot hold: such a call runs eagerly, as
+    the switch asks."""
+    from qaray_tpu_torch.ops.trace import _plain
+
+    meta = arguments["meta"]
+    return _plain(meta) or (meta.num_mesh_instances > 0 and os.environ.get(
+        "QARAY_BVH_WALK") == "stacked")
+
+
+# The wavefront engine under capture (utils/compiled.py): the counterpart
+# of the JAX package's jitted render_batch_xla. The Renderer's escalated
+# lanes render through it.
+render_batch_wavefront = jit(
+    _render_batch_wavefront, static_argnames=("meta", "cfg", "want_aux"),
+    inputs=("px", "py", "sample_ids"), eager_if=_plain_walks)
 
 
 # Combined photon-table rows (global + caustics) the megakernel route takes:
@@ -711,9 +734,9 @@ def use_pathtrace_mega(meta: SceneMeta, cfg: IntegratorConfig,
     )
 
 
-def render_batch(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
-                 px, py, sample_ids, key_words, photon_maps=None,
-                 want_aux: bool = False):
+def _render_batch(scene: SceneArrays, meta: SceneMeta,
+                  cfg: IntegratorConfig, px, py, sample_ids, key_words,
+                  photon_maps=None, want_aux: bool = False):
     """Render one sample for each (px, py) lane: (radiance [B,3], depth [B]).
 
     With want_aux=True the tuple gains the per-lane irradiance debug flag
@@ -747,3 +770,11 @@ def render_batch(scene: SceneArrays, meta: SceneMeta, cfg: IntegratorConfig,
         return radiance, t0
     return render_batch_wavefront(scene, meta, cfg, px, py, sample_ids,
                                   key_words, photon_maps, want_aux)
+
+
+# render_batch under capture (utils/compiled.py), both routes: the
+# counterpart of the JAX package's jax.jit over render_batch
+# (qaray_tpu/integrators/engine.py:783). On CPU tensors it is the function
+# above.
+render_batch = jit(_render_batch, static_argnames=("meta", "cfg", "want_aux"),
+                   inputs=("px", "py", "sample_ids"), eager_if=_plain_walks)

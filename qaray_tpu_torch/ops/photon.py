@@ -207,9 +207,8 @@ def _morton_keys(p, valid):
     """[B,3] points -> 30-bit Morton codes over the valid points' box, as
     int64 tensors. Invalid lanes get 0x7FFFFFFF, so the sort packs them at
     the tail, past the valid lanes K5 gathers."""
-    big = torch.tensor(BIGFLOAT, dtype=torch.float32, device=p.device)
-    lo = torch.where(valid[:, None], p, big).amin(dim=0)
-    hi = torch.where(valid[:, None], p, -big).amax(dim=0)
+    lo = torch.where(valid[:, None], p, BIGFLOAT).amin(dim=0)
+    hi = torch.where(valid[:, None], p, -BIGFLOAT).amax(dim=0)
     ext = torch.clamp_min(hi - lo, 1e-12)
     q = torch.clamp((p - lo) / ext * 1023.0, 0.0, 1023.0).to(torch.int64)
     key = (_spread(q[:, 0]) | (_spread(q[:, 1]) << 1)

@@ -118,10 +118,18 @@ def elliptic_offsets_np():
     return x.astype(np.float32), y.astype(np.float32)
 
 
+_offsets = {}
+
+
 def _elliptic_offsets(device):
-    xs, ys = elliptic_offsets_np()
-    return (torch.as_tensor(xs, device=device),
-            torch.as_tensor(ys, device=device))
+    """elliptic_offsets_np on `device`, copied there once: a copy from the
+    host would stall the stream and could not be captured."""
+    key = str(device)
+    if key not in _offsets:
+        xs, ys = elliptic_offsets_np()
+        _offsets[key] = (torch.as_tensor(xs, device=device),
+                         torch.as_tensor(ys, device=device))
+    return _offsets[key]
 
 
 def sample_textured_color_filtered(atlas, color, tex_id, tex_m, tex_t, uvw,

@@ -7,8 +7,11 @@ surfaces after the first bounce (the caustics map only before any diffuse
 hit). Here batches of photon paths advance in lock step, each bounce one
 closest-hit trace (ops/trace.trace_closest: on a card K2b, K3 or K4a, as
 the scene's route decides), and the host loop collects stores until the
-map is full. The JAX package compiles the whole bounce loop; here it runs
-eagerly.
+map is full. The JAX package compiles the whole bounce loop
+(qaray_tpu/photon/build.py:120); here trace_photon_paths runs under
+capture on the card (utils/compiled.py), one graph for each batch size
+(4,096 doubling to 2^20), with the batch's key words a device input, not
+baked in; the compaction of the stores stays on the host, as there.
 
 Semantics kept:
 - photon sources are point lights only (PointLight::IsPhotonSource;
@@ -44,6 +47,7 @@ from qaray_tpu_torch.integrators import common as C
 from qaray_tpu_torch.ops.trace import trace_closest
 from qaray_tpu_torch.photon.gather import PhotonMapData
 from qaray_tpu_torch.scene.arrays import LIGHT_POINT
+from qaray_tpu_torch.utils.compiled import jit
 
 
 def _photon_bounce(scene, meta, hits, mtl, v, keys, glossy_attempts=4):
@@ -120,20 +124,23 @@ def _photon_bounce(scene, meta, hits, mtl, v, keys, glossy_attempts=4):
     return normalize(new_dir, eps=1e-30), factor, alive
 
 
-def trace_photon_paths(scene, meta, base_words, num_paths: int,
-                       bounces: int, caustics: bool):
+def _trace_photon_paths(scene, meta, base_words, num_paths: int,
+                        bounces: int, caustics: bool):
     """Trace a batch of photon paths: per-(path, bounce) stores.
 
-    base_words: the batch's threefry key words. Returns [num_paths, bounces]
-    tensors: store mask, position, incoming direction, power. Inside a path
-    the order is the reference's sequential fill (path-major, bounce
-    minor)."""
+    base_words: the batch's threefry key words, two ints or an int64
+    tensor [2] (on the scene's device: an input of the captured batch).
+    Returns [num_paths, bounces] tensors: store mask, position, incoming
+    direction, power. Inside a path the order is the reference's
+    sequential fill (path-major, bounce minor)."""
     photon_lights = [i for i, k in enumerate(meta.light_kinds)
                      if k == LIGHT_POINT]
     if not photon_lights:
         raise ValueError("photon maps need at least one point light")
     light_scale = 1.0 / len(photon_lights)
     dev = scene.lights.position.device
+    if isinstance(base_words, torch.Tensor):
+        base_words = (base_words[0], base_words[1])
     keys = RNG.ray_keys(base_words, torch.arange(num_paths, device=dev))
     ke = RNG.fold(keys, RNG.P_PHOTON_EMIT)
 
@@ -141,7 +148,9 @@ def trace_photon_paths(scene, meta, base_words, num_paths: int,
     r = RNG.uniform(RNG.fold(ke, 0))
     pick = torch.ceil(r * nl) if caustics else torch.floor(r * nl)
     pick = torch.clamp_max(pick.to(torch.int64), nl - 1)
-    light_ids = torch.as_tensor(photon_lights, device=dev)[pick]
+    light_ids = torch.full_like(pick, photon_lights[0])
+    for j, li in enumerate(photon_lights[1:], 1):
+        light_ids = torch.where(pick == j, li, light_ids)
     p = scene.lights.position[light_ids]
     # PointLight::RandomPhoton (lights.cpp:76-80).
     d = uniform_sphere(RNG.uniform(RNG.fold(ke, 1), (2,)))
@@ -177,6 +186,12 @@ def trace_photon_paths(scene, meta, base_words, num_paths: int,
             torch.stack(dirs, dim=1), torch.stack(powers, dim=1))
 
 
+trace_photon_paths = jit(
+    _trace_photon_paths,
+    static_argnames=("meta", "num_paths", "bounces", "caustics"),
+    inputs=("base_words",))
+
+
 def _build_one_map(scene, meta, param, size, bounces, radius, caustics, seed,
                    batch=4096):
     """Emit batches until `size` photons are stored (renderer.cpp:148-198,
@@ -184,14 +199,18 @@ def _build_one_map(scene, meta, param, size, bounces, radius, caustics, seed,
     are needed, up to 2^20. After 8 batches in a row with no store a
     caustics map with nothing stored is left empty (the reference would
     spin forever) and a global map raises RuntimeError."""
+    dev = scene.lights.position.device
     pos_all, dir_all, pow_all = [], [], []
     emitted_with_store = 0
     total = 0
     b = 0
     zero_batches = 0
     while total < size:
-        words = RNG.key_words("threefry2x32",
-                              seed + 7919 * b + (100000 if caustics else 0))
+        words = torch.tensor(RNG.key_words(
+            "threefry2x32", seed + 7919 * b + (100000 if caustics else 0)),
+            dtype=torch.int64)
+        if dev.type == "cuda":
+            words = words.pin_memory().to(dev, non_blocking=True)
         mask, pos, pdir, ppow = trace_photon_paths(scene, meta, words, batch,
                                                    bounces, caustics)
         emitted_with_store += int(mask.any(dim=1).sum())
@@ -229,7 +248,6 @@ def _build_one_map(scene, meta, param, size, bounces, radius, caustics, seed,
     n = pos.shape[0]
     ppow = ppow * (1.0 / max(emitted_with_store, 1))
     pad = size - n
-    dev = scene.lights.position.device
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)

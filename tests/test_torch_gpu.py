@@ -36,8 +36,18 @@ scene with a material texture; on the autograd route K2b's saved t and
 prim_idx share no storage with its attributes. W1 (the packed BVH walk)
 equals its plain walk bit for bit on a world tree, over transformed
 instances and over more instances than a block stages at once, closest
-and any hit (with and without rays occluded on entry).
+and any hit (with and without rays occluded on entry). Captured execution
+(utils/compiled.py) equals the eager run bit for bit, its replays under
+torch.cuda.set_sync_debug_mode("error"): render_batch on the megakernel
+route, the wavefront route, K3, K4a/K4b, W1 and K1d with escalated lanes
+(and their exact re-render), the folds, three fast-route gradient steps
+with changing parameters, photon maps; a second render, the later
+gradient steps, a second map build and three /orbit frames capture
+nothing.
 """
+
+import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -1188,3 +1198,236 @@ def test_two_process_cli_equals_single(cuda, tmp_path):
     assert np.array_equal(png("mh0_colorBuffer.png"), png("sp_colorBuffer.png"))
     assert np.all(png("mh0_rank0_maskBuffer.png")
                   + png("mh1_rank1_maskBuffer.png") == 2)
+
+
+# -- captured execution (utils/compiled.py) ----------------------------------
+
+
+def _replay_under_sync_error(fn):
+    """fn() with torch.cuda.set_sync_debug_mode("error"): a synchronizing
+    call on the replay path raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _captured_equals_eager(call):
+    """call() under compiled.eager(), then captured (its first call
+    captures) and replayed under sync debug "error": the replay's outputs
+    equal the eager ones bit for bit and capture nothing. Returns the
+    captures of the first captured call."""
+    from qaray_tpu_torch.utils import compiled
+
+    with compiled.eager():
+        want = call()
+    before = compiled.stats["captures"]
+    first = call()
+    captured = compiled.stats["captures"] - before
+    got = _replay_under_sync_error(call)
+    assert compiled.stats["captures"] - before == captured
+    for a, b, c in zip(want, first, got):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    return captured
+
+
+def _route_case(route, monkeypatch):
+    """(scene arrays, meta, config, lanes, photon maps) of a render_batch
+    route, its route switches set."""
+    maps = None
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    if route in ("megakernel", "wavefront"):
+        arr, meta = compile_scene(load_scene(SCENES[1]), device="cuda")
+        if route == "wavefront":
+            monkeypatch.setenv("QARAY_NO_MEGAKERNEL", "1")
+    elif route == "k3":
+        desc = load_scene("tests/assets/mesh_scene.xml")
+        arr, meta = compile_scene(desc, device="cuda")
+        monkeypatch.setenv("QARAY_NO_MEGAKERNEL", "1")
+        assert meta.mesh_stream
+    elif route == "k4":
+        monkeypatch.setenv("QARAY_STREAM_MAX_TRIS", "1")
+        monkeypatch.setenv("QARAY_NO_MEGAKERNEL", "1")
+        arr, meta = compile_scene(_ico_scene(5), device="cuda")
+        assert meta.mesh_tiled
+    elif route == "w1":
+        arr, meta = compile_scene(load_scene("tests/assets/grid_scene.xml"),
+                                  device="cuda", world_bvh=False)
+    else:  # k1d: caustics_scene, its global radius blown up to escalate
+        arr, meta = _caustics((200, 150))
+        g, c = _small_maps(arr, meta)
+        maps = (g._replace(radius=torch.tensor(50.0)), c)
+        cfg = IntegratorConfig(integrator="photonmap", max_bounce=5,
+                               shadow_spp=16, use_photon_map=True)
+    px, py, sid = _lanes(200, 150, 1, "cuda")
+    return arr, meta, cfg, (px % meta.img_width, py % meta.img_height,
+                            sid), maps
+
+
+@pytest.mark.parametrize("route", ["megakernel", "wavefront", "k3", "k4",
+                                   "w1", "k1d"])
+def test_captured_render_batch_equals_eager(cuda, route, monkeypatch):
+    """render_batch on each route (K1a; K2b/K2c on the wavefront engine;
+    K3; K4a/K4b; W1 per instance; K1d with K5 and escalated lanes, whose
+    exact re-render on the captured wavefront engine equals its eager one
+    too) at 200x150 lanes: captured equals eager bit for bit, a replay
+    under sync debug "error" captures nothing."""
+    from qaray_tpu_torch.integrators.engine import (
+        render_batch,
+        render_batch_wavefront,
+    )
+
+    arr, meta, cfg, lanes, maps = _route_case(route, monkeypatch)
+    words = (0, 3)
+    assert _captured_equals_eager(lambda: render_batch(
+        arr, meta, cfg, *lanes, words, maps, want_aux=True)) >= 1
+    if route == "k1d":
+        esc = render_batch(arr, meta, cfg, *lanes, words, maps,
+                           want_aux=True)[-1]
+        assert bool(esc.any())
+        idx = torch.nonzero(esc).squeeze(1)
+        n = 1 << max(8, (idx.numel() - 1).bit_length())
+        pad = n - idx.numel()
+        sub = [torch.cat([x[idx], x.new_zeros(pad)]) for x in lanes]
+        _captured_equals_eager(lambda: render_batch_wavefront(
+            arr, meta, cfg, *sub, words, maps))
+
+
+def test_captured_folds_equal_eager(cuda):
+    """accumulate_round (with skipped lanes, the irradiance plane and dump
+    lanes), accumulate_contig and the convergence mask: the same folds on
+    two states, eager and captured, give the same planes bit for bit; a
+    second pass over new tensors of the same shapes captures nothing."""
+    from qaray_tpu_torch.fb import device_accum
+    from qaray_tpu_torch.fb.framebuffer import FrameBuffer
+    from qaray_tpu_torch.utils import compiled
+
+    w, h = 64, 48
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def folds(state):
+        for s in range(3):
+            ids = torch.randperm(w * h, device="cuda", generator=gen)[:1000]
+            ids = torch.cat([ids, torch.full((24,), w * h, device="cuda")])
+            colors = torch.rand((1024, 3), device="cuda", generator=gen)
+            skip = torch.rand(1024, device="cuda", generator=gen) < 0.1
+            irr = torch.rand(1024, device="cuda", generator=gen) < 0.5
+            device_accum.accumulate_round(state, ids.int(), colors,
+                                          skip=skip, irr=irr)
+            device_accum.accumulate_contig(state, 100, colors[:512],
+                                           skip=skip[:512], irr=irr[:512])
+        return device_accum.unconverged_ids(state, (0.01, 0.01, 0.01), 2)
+
+    gen.manual_seed(0)
+    with compiled.eager():
+        want = device_accum.init_state(FrameBuffer(w, h), "cuda", True)
+        ids_want = folds(want)
+    gen.manual_seed(0)
+    got = device_accum.init_state(FrameBuffer(w, h), "cuda", True)
+    ids_got = folds(got)
+    before = compiled.stats["captures"]
+    gen.manual_seed(0)
+    again = device_accum.init_state(FrameBuffer(w, h), "cuda", True,
+                                    into=got)
+    folds(again)
+    assert compiled.stats["captures"] == before
+    assert np.array_equal(ids_want, ids_got)
+    for k in want:  # the dump row (the last) takes any of its lanes
+        assert torch.equal(want[k][:-1], got[k][:-1]), k
+
+
+def test_captured_fast_gradients_over_changing_steps(cuda):
+    """Three steps of the fast route (K1a + K6) on spot_scene with the
+    material and light parameters changed every step: captured equals eager
+    bit for bit, the gradients change from step to step, and only the
+    first step captures."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.utils import compiled
+
+    arr, meta = _grad_scene("spot", (200, 150))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    px, py, sid = _lanes(200, 150, 1, "cuda")
+    base = diff.extract_params(arr)
+
+    def steps(mode):
+        outs, caps = [], []
+        for s in range(3):
+            params = diff.DiffParams(*(t * (1.0 + 0.1 * s) for t in base))
+            scene = diff.splice_params(arr, params)
+            before = compiled.stats["captures"]
+            with mode():
+                out = diff.render_value_and_grad(scene, meta, cfg, px, py,
+                                                 sid + s, (0, 5))
+            caps.append(compiled.stats["captures"] - before)
+            outs.append(out)
+        return outs, caps
+
+    want, _ = steps(compiled.eager)
+    got, caps = steps(contextlib.nullcontext)
+    assert caps[1:] == [0, 0]
+    again, caps_again = steps(contextlib.nullcontext)
+    assert caps_again == [0, 0, 0]
+    for w_, g_, a_ in zip(want, got, again):
+        assert torch.equal(w_[0], g_[0]) and torch.equal(w_[0], a_[0])
+        for x, y in zip(w_[1], g_[1]):
+            assert torch.equal(x, y)
+    assert not torch.equal(want[0][1].mtl_diffuse, want[1][1].mtl_diffuse)
+
+
+def test_captured_photon_map_equals_eager(cuda):
+    """caustics_scene's maps at 200x150 (global and caustics, several batch
+    sizes): the captured photon batch gives the eager maps bit for bit; a
+    second build captures nothing."""
+    from qaray_tpu_torch.utils import compiled
+
+    arr, meta = _caustics((200, 150))
+    with compiled.eager():
+        want = _small_maps(arr, meta)
+    got = _small_maps(arr, meta)
+    before = compiled.stats["captures"]
+    again = _small_maps(arr, meta)
+    assert compiled.stats["captures"] == before
+    for a, b, c in zip(want, got, again):
+        for f in a._fields:
+            x, y, z = getattr(a, f), getattr(b, f), getattr(c, f)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y.to(x.device)) and torch.equal(
+                    x, z.to(x.device)), f
+
+
+def test_renders_and_orbit_frames_capture_once(cuda, tmp_path, monkeypatch):
+    """Renderer.render() twice on mesh_scene, then three frames of the
+    preview server's /orbit (each recompiles the scene with a new camera):
+    only the first render captures; every orbit frame equals its eager
+    render bit for bit."""
+    from qaray_tpu_torch.renderer import Renderer, RendererParam
+    from qaray_tpu_torch.utils import compiled
+    from qaray_tpu_torch.viz.serve import RenderServer
+
+    desc = load_scene(os.path.abspath("tests/assets/mesh_scene.xml"))
+    monkeypatch.chdir(tmp_path)
+    r = Renderer(RendererParam(spp_min=2, spp_max=4), device="cuda")
+    r.compute_scene(desc)
+    r.render()
+    before = compiled.stats["captures"]
+    r.render()
+    assert compiled.stats["captures"] == before
+    server = RenderServer(r, desc)
+    caps = []
+    for _ in range(3):
+        start = compiled.stats["captures"]
+        server.orbit(dyaw=15.0)
+        server._worker.join()
+        caps.append(compiled.stats["captures"] - start)
+        got = server._fb_snapshot
+        with compiled.eager():
+            e = Renderer(RendererParam(spp_min=2, spp_max=4), device="cuda")
+            e.compute_scene(desc)
+            want = e.render()
+        for k in ("mean", "color_std", "count"):
+            assert np.array_equal(getattr(got, k), getattr(want, k)), k
+    assert caps == [0, 0, 0], caps

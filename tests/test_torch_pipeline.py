@@ -183,7 +183,8 @@ def test_escalated_lanes_fold_in_the_jax_order(layout, monkeypatch):
             r._render_fn = dispatch
             monkeypatch.setattr(jax_engine, "render_batch_xla", exact)
         else:
-            def dispatch(cfg, px, py, sid, words):
+            def dispatch(scene, meta, cfg, px, py, sid, words, maps,
+                         want_aux=False):
                 rad, esc = lanes(px, py, sid, torch)
                 n = rad.shape[0]
                 return (torch.tensor(rad), torch.zeros(n),
@@ -194,7 +195,7 @@ def test_escalated_lanes_fold_in_the_jax_order(layout, monkeypatch):
                 rad[:, 0] += 0.5
                 return torch.tensor(rad), torch.zeros(rad.shape[0])
 
-            r._dispatch = dispatch
+            r._render_fn = dispatch
             monkeypatch.setattr(engine, "render_batch_wavefront", exact)
         fb = r.render()
         count = np.asarray(fb.count).reshape(h, w)

@@ -173,11 +173,12 @@ def test_renderer_param_mc_samples_and_exports():
     r.compute_scene(scene)
     lanes = []
 
-    def dispatch(cfg, px, py, sid, words):
+    def dispatch(cfg, ids, sid, words):
         assert cfg.mc_samples == 10
-        lanes.append(px.shape[0])
-        n = px.shape[0]
-        return torch.zeros((n, 3)), torch.zeros(n), None, None
+        lanes.append(ids.shape[0])
+        n = ids.shape[0]
+        sid = torch.full((n,), sid) if isinstance(sid, int) else sid
+        return torch.zeros((n, 3)), torch.zeros(n), None, None, ids, sid
 
     r._dispatch = dispatch
     r.render()
