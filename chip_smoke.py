@@ -142,9 +142,10 @@ Phases, each fatal on failure:
           spot_scene.xml at 800x600 with 262,144 lanes and mesh_scene.xml
           with 131,072, by the fast route (K1a forward, one K6 launch) and
           by autograd (QARAY_NO_MEGAKERNEL: K2b/K2c, K3 on the mesh, and
-          their backward), the two routes' gradients within 3e-2 of each
-          field's max|b|; forward+backward paths/s and the device's idle
-          share printed;
+          their backward), both routes' steps captured on their first
+          step and replayed after it, the two routes' gradients within
+          3e-2 of each field's max|b|; forward+backward paths/s and the
+          device's idle share printed;
        n. mesh_scene and ico5 at 1 spp under QARAY_NO_MEGAKERNEL and
           QARAY_MESH_PATH=bvh: the world tree on W1, no K3;
        o. grid_scene (25 instances of a 320-triangle mesh) with the
@@ -186,8 +187,8 @@ Phases, each fatal on failure:
           PNGs, /orbit?dyaw=30 renders a different image, and three
           /orbit frames (each a new scene compile) capture no graph;
        w. captured execution (utils/compiled.py, render_batch, the folds,
-          the fast gradient step and the photon batch under CUDA graphs,
-          which every phase from 4a on runs) against the eager one
+          both gradient routes' steps and the photon batch under CUDA
+          graphs, which every phase from 4a on runs) against the eager one
           (compiled.eager()), bit for bit, in a process of its own
           (tools/capture_turns.py, whose profiler has seen no graphs of
           the phases before): the Renderer on 4a, 4b, 4e, 4k and 4o in
@@ -195,7 +196,12 @@ Phases, each fatal on failure:
           later renders capturing nothing; render_batch on both routes and
           a fold replayed under torch.cuda.set_sync_debug_mode("error");
           4m's fast route over 3 steps with changing parameters, captured
-          on the first only; a photon map build; captures, their seconds,
+          on the first only; 4m's autograd step on spot_scene (262,144
+          lanes) and mesh_scene (131,072) in turns, its loss bit for bit,
+          every gradient field within the eager turns' spread, its
+          launches those of eager, a replay under sync debug "error", its
+          peak memory, and the operators and kernels that take the eager
+          step's device time; a photon map build; captures, their seconds,
           graphs and peak memory. A first render of a scene in 4a-4v
           includes its captures; phases 2 and 3 run the plain versions
           eagerly (QARAY_EAGER);
@@ -844,6 +850,7 @@ def main():
     from qaray_tpu_torch.scene.textures import load_image
     from qaray_tpu_torch.tools.kernel_times import w1_walked
     from qaray_tpu_torch.scene.xml_parser import load_scene
+    from qaray_tpu_torch.utils import compiled
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1949,12 +1956,16 @@ def main():
             os.environ["QARAY_NO_MEGAKERNEL"] = "1"
         try:
             with forbid_grad:
+                caps = [compiled.stats["captures"]]
                 step(0)
                 torch.cuda.synchronize()
+                caps.append(compiled.stats["captures"])
                 t = time.time()
                 outs = [step(s) for s in range(1, rounds + 1)]
                 torch.cuda.synchronize()
                 wall = time.time() - t
+                caps = [caps[1] - caps[0],
+                        compiled.stats["captures"] - caps[1]]
                 counts = read_counts()
         finally:
             os.environ.pop("QARAY_NO_MEGAKERNEL", None)
@@ -1962,8 +1973,11 @@ def main():
         rate = rounds * batch / wall
         loss, grads = outs[0]
         print(f"  {what} {route} route, {batch} lanes: {rounds} steps in "
-              f"{wall:.4f} s, {rate:.4e} forward+backward paths/s",
-              flush=True)
+              f"{wall:.4f} s, {rate:.4e} forward+backward paths/s; "
+              f"captured (utils/compiled.py): {caps[0]} captures in the "
+              f"first step, {caps[1]} in the timed steps", flush=True)
+        check(caps[1] == 0, f"{what} {route}: the timed steps replay the "
+              "step's graph, capturing nothing")
         print(f"  launch counts: {json.dumps(counts)}", flush=True)
         check(bool(torch.isfinite(loss)) and all(
             bool(g.isfinite().all()) for g in grads),
@@ -3173,13 +3187,15 @@ def captured_phase(numbers):
     turns (eager, captured, captured, eager) under the profiler,
     render_batch's and a fold's replays under sync debug mode "error", the
     fast gradient route over 3 steps with changing parameters (4m's path),
-    a photon map build and the host's time of one render of 4a and 4b in
+    the autograd route's step in turns with the split of its eager device
+    time, a photon map build and the host's time of one render of 4a and 4b in
     each mode; captures, capture seconds, graphs and peak memory. Returns
     the figures (numbers["captured"])."""
     print("phase 4w: captured against eager, bit for bit (a process of "
           "tools/capture_turns.py)", flush=True)
     cmd = [sys.executable, "-m", "qaray_tpu_torch.tools.capture_turns",
-           "sync", "4a", "4b", "4e", "4k", "4o", "grad", "photon", "profile"]
+           "sync", "4a", "4b", "4e", "4k", "4o", "grad", "autograd", "photon",
+           "profile"]
     proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True)
     lines = proc.stdout.strip().splitlines()
     for line in lines[1:-1]:
@@ -3201,6 +3217,16 @@ def captured_phase(numbers):
           and out["grad"]["gradients_move"], "fast gradient route: 3 "
           "steps with changing parameters equal eager, captured on the "
           "first step only")
+    for name, res in out["autograd"].items():
+        check(res["loss_equal"] and res["within_eager_spread"]
+              and res["launches_equal"] and res["first_captures"] >= 1
+              and all(x["captures"] == 0 for x in res["turns"]),
+              f"autograd step on {name}: the loss equal eager's bit for "
+              "bit, every field within the eager turns' spread, eager's "
+              "launches, captured on the first step only, a replay under "
+              "sync debug \"error\"")
+    check(out["op_split"]["busy_ms"] > 0, "the eager autograd step's "
+          "device time split by operator")
     check(out["photon"]["equal"] and out["photon"]["captures"][-1] == 0,
           "photon maps: captured equal eager, a second build captures "
           "nothing")

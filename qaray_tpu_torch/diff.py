@@ -20,8 +20,9 @@ fused adjoint serves (ops/adjoint.adjoint_supported) and the megakernel
 renders, the megakernel's forward (K1a) and one launch of the adjoint
 (K6); elsewhere autograd through render_with_params, whose forward runs
 the wavefront engine (K2, K3 or K4 on a card) and whose backward is
-autograd with K2's winner-only rule (ops/analytic.py). On CPU tensors the
-kernels' plain versions run in their place.
+autograd with K2's winner-only rule (ops/analytic.py). Both routes' steps
+are captured on a card (utils/compiled.py). On CPU tensors the kernels'
+plain versions run in their place.
 """
 
 from typing import NamedTuple
@@ -29,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from qaray_tpu_torch.integrators.engine import _plain_walks
 from qaray_tpu_torch.scene.arrays import SceneArrays
 from qaray_tpu_torch.utils.compiled import jit
 
@@ -111,7 +113,9 @@ def render_with_params(scene, meta, cfg, params: DiffParams, px, py,
     XLA engine): under autograd the megakernel's backward would run that
     engine anyway (ops/megakernel.py), so this saves the megakernel's
     forward. render_batch (and its megakernel) stays differentiable for
-    callers who backpropagate through it themselves."""
+    callers who backpropagate through it themselves. Under such a caller's
+    autograd on a card both replay captured graphs, a forward without a
+    tape and a backward step (utils/compiled.py)."""
     from qaray_tpu_torch.integrators.engine import render_batch_wavefront
 
     radiance, _ = render_batch_wavefront(splice_params(scene, params), meta,
@@ -184,11 +188,21 @@ def _value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words, target,
     from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
     from qaray_tpu_torch.ops.adjoint import adjoint_supported
 
-    if adjoint_supported(meta, cfg) and use_pathtrace_mega(meta, cfg):
-        loss, flat = _fast_step(scene, meta, cfg, px, py, sample_ids,
-                                key_words, target, n)
-        return loss, _unpack_adjoint(flat, meta, scene)
+    with torch.no_grad():  # the caller's tape does not reach the steps
+        if adjoint_supported(meta, cfg) and use_pathtrace_mega(meta, cfg):
+            loss, flat = _fast_step(scene, meta, cfg, px, py, sample_ids,
+                                    key_words, target, n)
+            return loss, _unpack_adjoint(flat, meta, scene)
+        return _autograd_step(scene, meta, cfg, px, py, sample_ids,
+                              key_words, target, n)
 
+
+def _autograd_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
+                             target, n):
+    """The autograd route's step: leaves made from the scene's DiffParams
+    fields, render_with_params on them (the wavefront engine on the step's
+    own tape), the loss and its gradients; zeros for the fields the loss
+    does not reach."""
     params = DiffParams(*(t.detach().requires_grad_()
                           for t in extract_params(scene)))
     with torch.enable_grad():
@@ -228,6 +242,16 @@ def _fast_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
 # when they change: a loop over changing parameters replays one graph.
 _fast_step = jit(_fast_value_and_grad, static_argnames=("meta", "cfg"),
                  inputs=("px", "py", "sample_ids", "target"))
+
+
+# The autograd route's step under capture, one forward and one backward in
+# one graph (the JAX package's jit covers this route too); its parameters
+# reach it through the tables as the fast route's do. The plain walks on
+# the card run it eagerly, as render_batch does.
+_autograd_step = jit(_autograd_value_and_grad,
+                     static_argnames=("meta", "cfg"),
+                     inputs=("px", "py", "sample_ids", "target"),
+                     eager_if=_plain_walks)
 
 
 def _sharded_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,

@@ -772,9 +772,23 @@ def _render_batch(scene: SceneArrays, meta: SceneMeta,
                                   key_words, photon_maps, want_aux)
 
 
+def _render_batch_vjp(arguments, wrt, cts):
+    """render_batch's backward under a caller's autograd on a card: the
+    megakernel's (megakernel.mega_vjp, which replays its captured backward
+    step) on its route, the wavefront engine re-run under autograd
+    (render_batch.recompute) elsewhere."""
+    if use_pathtrace_mega(arguments["meta"], arguments["cfg"],
+                          arguments["photon_maps"]):
+        from qaray_tpu_torch.ops.megakernel import mega_vjp
+
+        return mega_vjp(arguments, wrt, cts)
+    return render_batch.recompute(arguments, wrt, cts)
+
+
 # render_batch under capture (utils/compiled.py), both routes: the
 # counterpart of the JAX package's jax.jit over render_batch
-# (qaray_tpu/integrators/engine.py:783). On CPU tensors it is the function
-# above.
+# (qaray_tpu/integrators/engine.py:783), its VJP that of jax.vjp there. On
+# CPU tensors it is the function above.
 render_batch = jit(_render_batch, static_argnames=("meta", "cfg", "want_aux"),
-                   inputs=("px", "py", "sample_ids"), eager_if=_plain_walks)
+                   inputs=("px", "py", "sample_ids"), eager_if=_plain_walks,
+                   vjp=_render_batch_vjp)

@@ -37,7 +37,9 @@ Gradients: where a differentiable scene leaf (diff.DiffParams's fields of
 the scene) requires grad, mega_render is a torch.autograd.Function: the
 kernel forward as above, and a backward that re-runs the wavefront engine
 under autograd on the same lanes and key words, in batches of BWD_BATCH
-lanes, and takes the radiance cotangent back to those leaves. Under
+lanes, and takes the radiance cotangent back to those leaves: a step
+captured on a card (_mega_backward), which engine.render_batch's backward
+on this route replays too (mega_vjp). Under
 threefry words both compute the same function draw for draw, so this is
 the gradient of the forward's estimator. (The JAX package's backward
 samples XLA's rbg stream under an rbg key, an independent estimator; here
@@ -47,6 +49,7 @@ maps and the photonmap flags carry no gradient.
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from qaray_tpu_torch.core.constants import BIAS
 from qaray_tpu_torch.core.rng import fold_words
@@ -61,6 +64,7 @@ from qaray_tpu_torch.scene.arrays import (
     SceneMeta,
     mega_textured,
 )
+from qaray_tpu_torch.utils.compiled import jit
 
 launches = {"K1a": 0, "K1b": 0, "K1c": 0, "K1d": 0}
 
@@ -272,44 +276,89 @@ def _forward(scene, meta, cfg, px, py, sample_ids, key_words, work,
 class _MegaRender(torch.autograd.Function):
     """pallas_pathtrace.mega_render's custom_vjp: the kernel forward (its
     plain version on the CPU), the wavefront engine's autograd backward
-    with respect to the DiffParams leaves."""
+    with respect to the DiffParams leaves (_mega_backward)."""
 
     @staticmethod
     def forward(ctx, args, *leaves):
         ctx.args = args
-        ctx.save_for_backward(*leaves)
         out = _forward(*args)
         ctx.mark_non_differentiable(*out[1:])
         return out
 
     @staticmethod
     def backward(ctx, g_rad, *_rest):
-        from qaray_tpu_torch.integrators.engine import render_batch_wavefront
-
-        scene, meta, cfg, px, py, sid, key_words, _, photon_maps = ctx.args
-        leaves = ctx.saved_tensors
         need = ctx.needs_input_grad[1:]
         if g_rad is None or not any(need):
-            return (None,) * (1 + len(leaves))
-        params = DiffParams(*(t.detach().requires_grad_(w)
-                              for t, w in zip(leaves, need)))
-        wrt = [t for t, w in zip(params, need) if w]
-        total = [torch.zeros_like(t) for t in wrt]
-        spliced = splice_params(scene, params)
-        with torch.enable_grad():
-            for lo in range(0, px.shape[0], BWD_BATCH):
-                sl = slice(lo, lo + BWD_BATCH)
-                rad = render_batch_wavefront(
-                    spliced, meta, cfg, px[sl], py[sl], sid[sl], key_words,
-                    photon_maps=photon_maps)[0]
-                if not rad.requires_grad:
-                    continue
-                for acc, g in zip(total, torch.autograd.grad(
-                        rad, wrt, g_rad[sl], allow_unused=True)):
-                    if g is not None:
-                        acc += g
-        got = iter(total)
-        return (None, *(next(got) if w else None for w in need))
+            return (None,) * (1 + len(need))
+        scene, meta, cfg, px, py, sid, key_words, _, photon_maps = ctx.args
+        return (None, *_mega_backward(scene, meta, cfg, px, py, sid,
+                                      key_words, photon_maps, g_rad, need))
+
+
+def _mega_backward_step(scene, meta, cfg, px, py, sample_ids, key_words,
+                        photon_maps, g_rad, need):
+    """_MegaRender's backward (the counterpart of pallas_pathtrace's
+    _mega_bwd): the wavefront engine re-run under autograd on the lanes in
+    batches of BWD_BATCH, on leaves made from the scene's DiffParams
+    fields, and the gradients of those `need` names (a bool a field) for
+    the radiance cotangent g_rad; None for the others."""
+    from qaray_tpu_torch.integrators.engine import render_batch_wavefront
+
+    params = DiffParams(*(t.detach().requires_grad_(w)
+                          for t, w in zip(extract_params(scene), need)))
+    wrt = [t for t, w in zip(params, need) if w]
+    total = [torch.zeros_like(t) for t in wrt]
+    spliced = splice_params(scene, params)
+    with torch.enable_grad():
+        for lo in range(0, px.shape[0], BWD_BATCH):
+            sl = slice(lo, lo + BWD_BATCH)
+            rad = render_batch_wavefront(
+                spliced, meta, cfg, px[sl], py[sl], sample_ids[sl],
+                key_words, photon_maps=photon_maps)[0]
+            if not rad.requires_grad:
+                continue
+            for acc, g in zip(total, torch.autograd.grad(
+                    rad, wrt, g_rad[sl], allow_unused=True)):
+                if g is not None:
+                    acc += g
+    got = iter(total)
+    return tuple(next(got) if w else None for w in need)
+
+
+# The megakernel's backward under capture (utils/compiled.py): the scene's
+# fields, the leaves among them, are tables; one batch's tape bounds the
+# graph's pool.
+_mega_backward = jit(_mega_backward_step,
+                     static_argnames=("meta", "cfg", "need"),
+                     inputs=("px", "py", "sample_ids", "g_rad"))
+
+
+def mega_vjp(arguments, wrt, cts):
+    """engine.render_batch's backward on the megakernel route under a
+    caller's autograd (its jit's vjp, utils/compiled.py): _mega_backward at
+    the radiance's cotangent cts[0], for the wrt leaves of the call's
+    arguments that are DiffParams fields of its scene; zeros for the
+    others, which the megakernel's forward does not read through autograd
+    either."""
+    a = arguments
+    scene = a["scene"]
+    field = {id(t): k for k, t in enumerate(extract_params(scene))}
+    leaves, fields = [], []
+    for n, idx in wrt:
+        flat = pytree.tree_leaves(a[n])
+        for i in idx:
+            leaves.append(flat[i])
+            fields.append(field.get(id(flat[i])) if n == "scene" else None)
+    need = tuple(k in fields for k in range(len(DiffParams._fields)))
+    grads = (None,) * len(need)
+    if cts[0] is not None and any(need):
+        maps = a["photon_maps"] if gathers(a["cfg"], a["photon_maps"]) \
+            else None
+        grads = _mega_backward(scene, a["meta"], a["cfg"], a["px"], a["py"],
+                               a["sample_ids"], a["key_words"], maps, cts[0],
+                               need)
+    return tuple(torch.zeros_like(x) if k is None or grads[k] is None
+                 else grads[k] for x, k in zip(leaves, fields))
 
 
 def mega_render_host(scene: SceneArrays, meta: SceneMeta, cfg, px, py,

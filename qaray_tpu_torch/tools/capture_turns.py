@@ -20,16 +20,24 @@ time goes, captures, graphs and peak memory.
 - The fast gradient route (spot_scene, 262,144 lanes, pathtrace, rbg): 3
   steps with the material and light parameters changed every step, eager
   and captured, equal bit for bit, captured once.
+- The autograd route's step (QARAY_NO_MEGAKERNEL; spot_scene 262,144
+  lanes, mesh_scene 131,072) in the same turns: wall, busy, idle share,
+  peak memory, captures, launches; the loss bit for bit and each field
+  within the eager turns' spread; a replay under sync debug "error". Then
+  where the device time of one eager step goes (op_split: operators and
+  kernels under torch.profiler).
 - A photon map build (caustics_scene's default maps): equal bit for bit,
   one capture a batch size.
 - render_batch replays under torch.cuda.set_sync_debug_mode("error").
 
     python -m qaray_tpu_torch.tools.capture_turns [CASE ...]
 
-CASE is any of 4a 4b 4e 4k 4o 4g grad photon sync profile (default: all).
+CASE is any of 4a 4b 4e 4k 4o 4g grad autograd photon sync profile
+(default: all).
 Prints the card's name and power limit and, last, one JSON line.
 """
 
+import contextlib
 import cProfile
 import json
 import os
@@ -47,6 +55,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.dirname(
 ASSETS = os.path.join(HERE, "tests", "assets")
 PLANES = ("mean", "color_std", "count", "zbuffer", "irrad")
 TURNS = ("eager", "captured", "captured", "eager")
+# The autograd route's cases: 4m's lanes.
+AUTOGRAD_LANES = (("spot", 1 << 18), ("mesh", 1 << 17))
 
 
 def card_line():
@@ -400,6 +410,166 @@ def grad_turns(steps=3, lanes=1 << 18):
                 k1a=k1a, k6=k6, gradients_move=moved)
 
 
+def autograd_case(name, lanes):
+    """(scene arrays, meta, config, a step function of the sample index) of
+    the autograd route (QARAY_NO_MEGAKERNEL) on spot_scene or mesh_scene at
+    800x600 on its first `lanes` lanes, pathtrace, max_bounce 5,
+    shadow_spp 16, rbg: 4m's gradient path."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.integrators.engine import IntegratorConfig
+    from qaray_tpu_torch.renderer import key_words
+    from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+
+    desc = load_scene(os.path.join(ASSETS, f"{name}_scene.xml"))
+    desc.camera.img_width, desc.camera.img_height = 800, 600
+    arr, meta = compile_scene(desc, device="cuda")
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    ids = torch.arange(lanes, device="cuda", dtype=torch.int32)
+    px, py = ids % 800, (ids // 800) % 600
+    words = key_words("rbg", 0)
+
+    def step(s):
+        with _env({"QARAY_NO_MEGAKERNEL": "1"}):
+            return diff.render_value_and_grad(
+                arr, meta, cfg, px, py, torch.full_like(ids, s), words)
+
+    return step
+
+
+def _step_once(step, mode, profile=True):
+    """One gradient step in `mode`: ((loss, gradients), wall ms, device
+    busy ms or None, captures, the step's own peak MiB (above what was
+    allocated before it), launch counts)."""
+    from qaray_tpu_torch.utils import compiled
+
+    torch.cuda.synchronize()
+    if profile:
+        flush_profiler()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before, counts = compiled.stats["captures"], compiled._snapshot()
+    with _mode(mode), contextlib.ExitStack() as stack:
+        if profile:
+            prof = stack.enter_context(torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]))
+        t = time.perf_counter()
+        out = step(1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = (sum(_device_us(e) for e in prof.key_averages()) / 1e3
+            if profile else None)
+    after = compiled._snapshot()
+    moved = {f"{k[2] or k[1]}": after[k] - v for k, v in counts.items()
+             if after[k] != v}
+    return (out, wall, busy, compiled.stats["captures"] - before,
+            (torch.cuda.max_memory_allocated() - held) / 2**20, moved)
+
+
+def autograd_turns(name, lanes, turns=TURNS):
+    """The autograd route's step (autograd_case) in turns, one step a
+    turn under torch.profiler (CUDA activity), after a first captured step
+    that captures its graph (untimed): per turn the wall, busy time, idle
+    share, captures, peak MiB and launch counts; the capture's peak and
+    what it added to the memory reserved (the graphs' pool). Bits: the loss of every turn equal to the
+    first eager turn's, each field of a captured turn no further from it
+    than the second eager turn is (max |difference| a field); a captured
+    step replayed under sync debug "error"."""
+    step = autograd_case(name, lanes)
+    reserved = torch.cuda.memory_reserved()
+    first = _step_once(step, "captured", profile=False)
+    capture_peak = first[4]
+    reserved = (torch.cuda.memory_reserved() - reserved) / 2**20
+    rows, outs = [], []
+    for mode in turns:
+        out, wall, busy, caps, peak, counts = _step_once(step, mode)
+        outs.append(out)
+        rows.append(dict(mode=mode, wall_ms=wall, busy_ms=busy,
+                         idle_share=1.0 - busy / wall, captures=caps,
+                         peak_mib=peak, launches=counts))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synced = step(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager = [o for o, r in zip(outs, rows) if r["mode"] == "eager"]
+    captured = [o for o, r in zip(outs, rows) if r["mode"] == "captured"]
+    captured += [first[0], synced]
+    spread = [(a - b).abs().max().item()
+              for a, b in zip(eager[0][1], eager[1][1])]
+    off = [max((c[1][i] - eager[0][1][i]).abs().max().item()
+               for c in captured) for i in range(len(spread))]
+    loss_equal = all(torch.equal(o[0], eager[0][0])
+                     for o in eager + captured)
+    within = all(o <= s for o, s in zip(off, spread))
+    launches_equal = all(r["launches"] == rows[0]["launches"] for r in rows)
+    out = dict(case=name, lanes=lanes, turns=rows,
+               first_captures=first[3], first_captured_ms=first[1],
+               capture_peak_mib=capture_peak, reserved_mib=reserved,
+               loss_equal=loss_equal, within_eager_spread=within,
+               eager_spread=spread, captured_off=off,
+               launches_equal=launches_equal)
+    print(f"  autograd step, {name} {lanes} lanes: loss equal {loss_equal}; "
+          f"fields within the eager turns' spread {within} (spread "
+          + ", ".join(f"{s:.3g}" for s in spread) + "; captured off "
+          + ", ".join(f"{o:.3g}" for o in off) + f"); launches equal "
+          f"{launches_equal} {json.dumps(rows[0]['launches'])}; first "
+          f"captured step {first[1]:.1f} ms with {first[3]} captures, its "
+          f"peak {capture_peak:.1f} MiB, {reserved:.1f} MiB more reserved",
+          flush=True)
+    print("    turns " + " / ".join(
+        f"{x['mode']} {x['wall_ms']:.3f} ms busy {x['busy_ms']:.3f} idle "
+        f"{x['idle_share']:.4f} peak {x['peak_mib']:.1f} MiB captures "
+        f"{x['captures']}" for x in rows), flush=True)
+    return out
+
+
+def op_split(name="spot", lanes=1 << 18, top=12):
+    """Where the device time of one eager autograd step goes (autograd_case,
+    after the turns have warmed it): torch.profiler with CPU and CUDA
+    activity, the operators by the device time of the kernels they launch
+    themselves and the kernels by name, each with its count and its share
+    of the step's device busy time."""
+    from qaray_tpu_torch.utils import compiled
+
+    step = autograd_case(name, lanes)
+    with compiled.eager():
+        step(1)
+        torch.cuda.synchronize()
+        flush_profiler()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step(1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type != torch.autograd
+               .DeviceType.CPU]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    ops = sorted(((_device_us(e) / 1e3, e.key, e.count) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and _device_us(e) > 0), reverse=True)[:top]
+    kern = sorted(((_device_us(e) / 1e3, e.key, e.count) for e in kernels),
+                  reverse=True)[:top]
+    out = dict(case=name, lanes=lanes, wall_ms=wall, busy_ms=busy,
+               ops=[dict(name=k, count=c, device_ms=ms, share=ms / busy)
+                    for ms, k, c in ops],
+               kernels=[dict(name=k[:120], count=c, device_ms=ms,
+                             share=ms / busy) for ms, k, c in kern])
+    print(f"  eager autograd step, {name} {lanes} lanes, under the profiler "
+          f"(CPU and CUDA): wall {wall:.1f} ms, device busy {busy:.1f} ms",
+          flush=True)
+    for what in ("ops", "kernels"):
+        print(f"    top {what} by device ms (count, share of busy): " + "; ".join(
+            f"{x['name']} {x['device_ms']:.1f} ({x['count']}, "
+            f"{x['share']:.3f})" for x in out[what]), flush=True)
+    return out
+
+
 def photon_turns():
     """caustics_scene's default maps, eager then captured (twice):
     (equal bit for bit, captures of each captured build)."""
@@ -491,7 +661,7 @@ def main(argv):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     which = argv or ["sync", "4a", "4b", "4e", "4k", "4o", "4g", "grad",
-                     "photon", "profile"]
+                     "autograd", "photon", "profile"]
     print(card_line(), flush=True)
     out = {}
     here = os.getcwd()
@@ -505,6 +675,10 @@ def main(argv):
                     out[name] = sync_check()
                 elif name == "grad":
                     out[name] = grad_turns()
+                elif name == "autograd":
+                    out[name] = {w: autograd_turns(w, n)
+                                 for w, n in AUTOGRAD_LANES}
+                    out["op_split"] = op_split()
                 elif name == "photon":
                     out[name] = photon_turns()
                 elif name == "profile":

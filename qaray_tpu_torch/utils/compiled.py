@@ -27,10 +27,20 @@ Here the same functions are captured as CUDA graphs and replayed.
   same shapes replays the graph it has; the table buffers are shared by
   the graphs of one function, argument and shape.
 - On CPU tensors fn is called directly: that is the device the caller
-  asked for. With grad enabled and a tensor that requires grad, fn runs
-  eagerly too (autograd's graph is not captured), as does a call that
-  `eager_if` says cannot be captured (the plain walks on the card, whose
-  loops end on a host read).
+  asked for. So is a call that `eager_if` says cannot be captured (the
+  plain walks on the card, whose loops end on a host read).
+- A call on the card whose tensors require grad, with grad enabled, goes
+  through an autograd Function (_Grad): its forward replays fn's graph
+  without a tape, its backward replays a captured VJP step, by default fn
+  re-run under autograd on leaves made from its table buffers and
+  torch.autograd.grad of its outputs at the given cotangents
+  (`recompute`; the whole-network capture of torch.cuda.graphs, whose
+  backward kernels go to the capturing side stream); `vjp=` names another
+  (render_batch's megakernel route takes the megakernel's backward). The
+  step holds no tape between graphs. A function may also build such
+  leaves and call torch.autograd.grad itself (diff._autograd_step): its
+  capture holds the forward and the backward. A wrapped function called
+  inside another's warm-up or capture runs as part of it, on its tape.
 - On CUDA tensors a failed capture or replay raises; nothing falls back to
   eager on its own. The eager path is reachable only through the explicit
   switch, `eager()` or QARAY_EAGER=1, as jax.disable_jit is in JAX: tests
@@ -194,6 +204,76 @@ class _Desc(NamedTuple):
     too_large: object
 
 
+def _wrt(names, descs):
+    """The tensors of a call that require grad: ((argument, leaf indices)
+    pairs, the tensors in that order)."""
+    wrt, leaves = [], []
+    for n, d in zip(names, descs):
+        idx = tuple(i for i, x in enumerate(d.leaves)
+                    if isinstance(x, torch.Tensor) and x.requires_grad)
+        if idx:
+            wrt.append((n, idx))
+            leaves += [d.leaves[i] for i in idx]
+    return tuple(wrt), leaves
+
+
+def _recompute_fn(fn):
+    """fn's VJP by re-running it under autograd: a function of fn's
+    arguments, `wrt` ((argument, leaf indices) pairs, as _wrt gives them)
+    and `cts` (a cotangent or None for each of fn's flattened outputs) that
+    returns the gradients of those leaves, zeros where none reaches one."""
+
+    def recompute(**kw):
+        wrt, cts = kw.pop("wrt"), kw.pop("cts")
+        leaves = []
+        for n, idx in wrt:
+            flat, spec = pytree.tree_flatten(kw[n])
+            for i in idx:
+                flat[i] = flat[i].detach().requires_grad_()
+                leaves.append(flat[i])
+            kw[n] = pytree.tree_unflatten(flat, spec)
+        with torch.enable_grad():
+            pairs = [(o, c) for o, c in zip(pytree.tree_leaves(fn(**kw)), cts)
+                     if c is not None and o.requires_grad]
+            grads = (torch.autograd.grad([o for o, _ in pairs], leaves,
+                                         [c for _, c in pairs],
+                                         allow_unused=True)
+                     if pairs else [None] * len(leaves))
+        return tuple(torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, grads))
+
+    sig = inspect.signature(fn)
+    recompute.__signature__ = sig.replace(parameters=[
+        *sig.parameters.values(),
+        *(inspect.Parameter(n, inspect.Parameter.KEYWORD_ONLY, default=None)
+          for n in ("wrt", "cts"))])
+    recompute.__name__ = f"{fn.__name__}_vjp"
+    return recompute
+
+
+class _Grad(torch.autograd.Function):
+    """A wrapped function under its caller's autograd: the forward calls
+    the wrapper with no tape (a replay on the card), the backward its VJP
+    step (Compiled.vjp) at the outputs' cotangents. spec receives the
+    outputs' tree."""
+
+    @staticmethod
+    def forward(ctx, wrapped, arguments, wrt, spec, *leaves):
+        ctx.set_materialize_grads(False)
+        ctx.wrapped, ctx.arguments, ctx.wrt = wrapped, arguments, wrt
+        out, tree = pytree.tree_flatten(wrapped(**arguments))
+        spec.append(tree)
+        ctx.mark_non_differentiable(*(
+            x for x in out
+            if isinstance(x, torch.Tensor) and not x.is_floating_point()))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None,) * 4 + tuple(ctx.wrapped.vjp(ctx.arguments, ctx.wrt,
+                                                   cts))
+
+
 class _Graph:
     """A captured graph, its static inputs and table slots, the state it
     updates (held, so that the storage it is keyed on stays its own), its
@@ -207,7 +287,7 @@ class Compiled:
     """A function wrapped by jit(); see the module's docstring."""
 
     def __init__(self, fn, static_argnames=(), inputs=(), state=(),
-                 eager_if=None):
+                 eager_if=None, vjp=None):
         self.fn = fn
         params = inspect.signature(fn).parameters.values()
         self._defaults = {p.name: p.default for p in params}
@@ -215,6 +295,8 @@ class Compiled:
         self.inputs = frozenset(inputs)
         self.state = frozenset(state)
         self.eager_if = eager_if
+        self._vjp = vjp
+        self._recompute = None
         self._graphs = OrderedDict()
         self._tables = {}
         # The last description of each tuple argument (the scene, the
@@ -278,10 +360,6 @@ class Compiled:
         names = [n for n in arguments if n not in self.static]
         descs = [self._describe(n, arguments[n]) for n in names]
         devices = set().union(*(d.devices for d in descs))
-        if torch.is_grad_enabled() and any(
-                isinstance(x, torch.Tensor) and x.requires_grad
-                for d in descs for x in d.leaves):
-            return arguments, names, descs, None
         device = None
         if devices:
             if len(devices) > 1:
@@ -307,6 +385,10 @@ class Compiled:
         arguments, names, descs, device = self._prepare(args, kwargs)
         if device is None:
             return self.fn(*args, **kwargs)
+        if torch.is_grad_enabled():
+            wrt, leaves = _wrt(names, descs)
+            if wrt:
+                return self._differentiate(arguments, wrt, leaves)
         key = self._key(arguments, descs, device)
         entry = self._graphs.get(key)
         if entry is None:
@@ -321,6 +403,41 @@ class Compiled:
         return pytree.tree_unflatten(
             [x.clone() if isinstance(x, torch.Tensor) else x
              for x in entry.out_leaves], entry.out_spec)
+
+    # -- under the caller's autograd ------------------------------------------
+
+    def differentiable(self, *args, **kwargs):
+        """fn under the caller's autograd through _Grad, on any device: the
+        route a call on the card takes where a tensor argument requires
+        grad (on the CPU a call runs fn on the caller's tape; tests call
+        this there)."""
+        arguments = self._bind(args, kwargs)
+        names = [n for n in arguments if n not in self.static]
+        wrt, leaves = _wrt(names, [self._describe(n, arguments[n])
+                                   for n in names])
+        return self._differentiate(arguments, wrt, leaves)
+
+    def _differentiate(self, arguments, wrt, leaves):
+        spec = []
+        out = _Grad.apply(self, arguments, wrt, spec, *leaves)
+        return pytree.tree_unflatten(list(out), spec[0])
+
+    def vjp(self, arguments, wrt, cts):
+        """The gradients of the wrt leaves of a call's arguments for the
+        cotangents cts of its flattened outputs: vjp(arguments, wrt, cts)
+        where jit() was given one, else recompute."""
+        if self._vjp is not None:
+            return self._vjp(arguments, wrt, cts)
+        return self.recompute(arguments, wrt, cts)
+
+    def recompute(self, arguments, wrt, cts):
+        """The VJP by fn re-run under autograd (_recompute_fn), captured as
+        a function of its own: wrt static, the cotangents inputs."""
+        if self._recompute is None:
+            self._recompute = Compiled(
+                _recompute_fn(self.fn), self.static | {"wrt"},
+                self.inputs | {"cts"}, eager_if=self.eager_if)
+        return self._recompute(**arguments, wrt=wrt, cts=cts)
 
     def _key(self, arguments, descs, device):
         for d in descs:
@@ -438,15 +555,17 @@ class Compiled:
         return out, delta
 
 
-def jit(fn=None, *, static_argnames=(), inputs=(), state=(), eager_if=None):
+def jit(fn=None, *, static_argnames=(), inputs=(), state=(), eager_if=None,
+        vjp=None):
     """Wrap fn for capture and replay on the card (see the module's
     docstring). static_argnames: arguments hashed into the key (meta, cfg,
     want_aux, ...); inputs: arguments whose tensors change every call (the
     lanes), copied in on every call; state: arguments fn updates in place,
     keyed on their storage; eager_if(arguments): True where a call cannot
-    be captured."""
+    be captured; vjp(arguments, wrt, cts): the backward under a caller's
+    autograd, where it is not fn re-run (Compiled.vjp)."""
     if fn is None:
         return functools.partial(jit, static_argnames=static_argnames,
                                  inputs=inputs, state=state,
-                                 eager_if=eager_if)
-    return Compiled(fn, static_argnames, inputs, state, eager_if)
+                                 eager_if=eager_if, vjp=vjp)
+    return Compiled(fn, static_argnames, inputs, state, eager_if, vjp)

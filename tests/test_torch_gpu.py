@@ -43,7 +43,13 @@ route, the wavefront route, K3, K4a/K4b, W1 and K1d with escalated lanes
 (and their exact re-render), the folds, three fast-route gradient steps
 with changing parameters, photon maps; a second render, the later
 gradient steps, a second map build and three /orbit frames capture
-nothing.
+nothing. The autograd route's step (spot_scene, mesh_scene) over three
+steps with changing parameters, and render_batch's gradients under a
+caller's autograd (megakernel route, wavefront route, mega_render
+itself): losses and radiance equal eager's bit for bit, every gradient
+field within two eager runs' spread, eager's launches (on the wavefront
+route with the forward its backward step re-runs), later steps capture
+nothing, replays under sync debug "error".
 """
 
 import contextlib
@@ -1431,3 +1437,162 @@ def test_renders_and_orbit_frames_capture_once(cuda, tmp_path, monkeypatch):
         for k in ("mean", "color_std", "count"):
             assert np.array_equal(getattr(got, k), getattr(want, k)), k
     assert caps == [0, 0, 0], caps
+
+
+# -- the gradient's autograd route and render_batch under autograd, captured
+
+
+def _counts():
+    """Every launch counter a replay adds to (utils/compiled.py)."""
+    from qaray_tpu_torch.utils import compiled
+
+    return compiled._snapshot()
+
+
+def _moved(before, after):
+    return {k: after[k] - v for k, v in before.items() if after[k] != v}
+
+
+def _within_eager_spread(eager, again, got, what):
+    """Each DiffParams field of got no further from eager than the second
+    eager run is (bit for bit where the two eager runs agree); returns the
+    spreads (max |eager - again|) by field."""
+    from qaray_tpu_torch import diff
+
+    spreads = {}
+    for f, a, b, c in zip(diff.DiffParams._fields, eager, again, got):
+        spread = (a - b).abs().max().item()
+        off = (c - a).abs().max().item()
+        assert off <= spread, f"{what}: {f} {off:.3g} apart, eager {spread:.3g}"
+        spreads[f] = spread
+    return spreads
+
+
+@pytest.mark.parametrize("name", ["spot", "mesh"])
+def test_captured_autograd_step_over_changing_steps(cuda, name, monkeypatch):
+    """The autograd route's step (QARAY_NO_MEGAKERNEL: K2b/K2c, K3 on
+    mesh_scene) at 200x150, max_bounce 5, over three steps with the
+    material and light parameters changed every step, eager twice and
+    captured twice (a fourth captured call replayed under sync debug
+    "error"): the losses equal eager's bit for bit, every field within the
+    two eager runs' spread, the same launches as eager; only the first
+    captured step captures, and the gradients move between steps."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.utils import compiled
+
+    monkeypatch.setenv("QARAY_NO_MEGAKERNEL", "1")
+    arr, meta = _grad_scene(name, (200, 150))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    px, py, sid = _lanes(200, 150, 1, "cuda")
+    base = diff.extract_params(arr)
+
+    def step(s):
+        params = diff.DiffParams(*(t * (1.0 + 0.1 * s) for t in base))
+        return diff.render_value_and_grad(diff.splice_params(arr, params),
+                                          meta, cfg, px, py, sid + s, (0, 5))
+
+    def steps(mode):
+        outs, caps = [], []
+        counts = _counts()
+        for s in range(3):
+            before = compiled.stats["captures"]
+            with mode():
+                outs.append(step(s))
+            caps.append(compiled.stats["captures"] - before)
+        torch.cuda.synchronize()
+        return outs, caps, _moved(counts, _counts())
+
+    want, _, eager_counts = steps(compiled.eager)
+    again, _, _ = steps(compiled.eager)
+    got, caps, got_counts = steps(contextlib.nullcontext)
+    assert caps[0] >= 1 and caps[1:] == [0, 0], caps
+    replay, caps_replay, _ = steps(contextlib.nullcontext)
+    assert caps_replay == [0, 0, 0]
+    assert got_counts == eager_counts and eager_counts[
+        ("qaray_tpu_torch.ops.analytic", "launches", "K2b")] > 0
+    if name == "mesh":
+        assert eager_counts[("qaray_tpu_torch.ops.mesh_sweep", "launches",
+                             "K3")] > 0
+    last = _replay_under_sync_error(lambda: step(2))
+    for s, (w_, a_, g_, r_) in enumerate(zip(want, again, got, replay)):
+        assert torch.equal(w_[0], g_[0]) and torch.equal(w_[0], r_[0]), s
+        spread = _within_eager_spread(w_[1], a_[1], g_[1], f"{name} {s}")
+        _within_eager_spread(w_[1], a_[1], r_[1], f"{name} {s} again")
+        print(f"{name} step {s}: eager against eager {spread}")
+    assert torch.equal(last[0], want[2][0])
+    _within_eager_spread(want[2][1], again[2][1], last[1], f"{name} sync")
+    assert not torch.equal(want[0][1].mtl_diffuse, want[1][1].mtl_diffuse)
+
+
+@pytest.mark.parametrize("route", ["megakernel", "wavefront", "mega_render"])
+def test_captured_render_batch_gradients(cuda, route, monkeypatch):
+    """render_batch on spot_scene at 200x150 under its caller's autograd,
+    on the megakernel route (K1a's graph forward, the megakernel's
+    backward step replayed), the wavefront route (the engine's graph
+    forward, the engine re-run under autograd as the backward step) and
+    mega_render called directly on lanes of its own (its backward step
+    captured on autograd's device thread): radiance equal to eager's bit
+    for bit, every gradient field within two eager runs' spread; the
+    launches of eager, and on the wavefront route also those of the
+    forward its backward step re-runs; a second call captures nothing and
+    replays under sync debug "error"."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.integrators.engine import render_batch
+    from qaray_tpu_torch.utils import compiled
+
+    if route == "wavefront":
+        monkeypatch.setenv("QARAY_NO_MEGAKERNEL", "1")
+    arr, meta = _grad_scene("spot", (200, 150))
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16)
+    px, py, sid = _lanes(200, 150, 1, "cuda")
+    if route == "mega_render":
+        px, py, sid = px[:20000], py[:20000], sid[:20000]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ct = torch.rand((px.shape[0], 3), device="cuda", generator=gen)
+
+    def call():
+        params = diff.DiffParams(*(t.detach().requires_grad_()
+                                   for t in diff.extract_params(arr)))
+        scene = diff.splice_params(arr, params)
+        if route == "mega_render":
+            rad = megakernel.mega_render(scene, meta, cfg, px, py, sid,
+                                         (0, 3))[0]
+        else:
+            rad = render_batch(scene, meta, cfg, px, py, sid, (0, 3))[0]
+        grads = torch.autograd.grad((rad * ct).sum(), params,
+                                    allow_unused=True)
+        return rad.detach(), [torch.zeros_like(p) if g is None else g
+                              for p, g in zip(params, grads)]
+
+    def counted(mode):
+        counts = _counts()
+        with mode():
+            out = call()
+        torch.cuda.synchronize()
+        return out, _moved(counts, _counts())
+
+    want, eager_counts = counted(compiled.eager)
+    again, _ = counted(compiled.eager)
+    before = compiled.stats["captures"]
+    got, got_counts = counted(contextlib.nullcontext)
+    assert compiled.stats["captures"] > before
+    before = compiled.stats["captures"]
+    last = _replay_under_sync_error(call)
+    assert compiled.stats["captures"] == before
+    if route == "wavefront":
+        counts = _counts()
+        with compiled.eager(), torch.no_grad():
+            render_batch(arr, meta, cfg, px, py, sid, (0, 3))
+        forward = _moved(counts, _counts())
+        eager_counts = {k: v + forward.get(k, 0)
+                        for k, v in eager_counts.items()}
+    assert got_counts == eager_counts, (got_counts, eager_counts)
+    k1a = eager_counts.get(("qaray_tpu_torch.ops.megakernel", "launches",
+                            "K1a"), 0)
+    assert (k1a == 1) == (route != "wavefront")
+    for out in (got, last):
+        assert torch.equal(out[0], want[0])
+        spread = _within_eager_spread(want[1], again[1], out[1], route)
+    print(f"{route}: eager against eager {spread}")
