@@ -217,8 +217,8 @@ Phases, each fatal on failure:
      mean, and both instantiations' registers, spills, stack frame, shared
      memory and blocks an SM. The device's idle share eager against
      captured in 4w's turns, and the host's time of one render of 4a and
-     4b in each mode (4w's process: the Renderer's parts by perf_counter,
-     the functions that hold it under cProfile). Every profiled session
+     4b in each mode (4w's process: the Renderer's program spans, the
+     functions that hold it under cProfile). Every profiled session
      follows a short one that takes the device records the profiler loses
      after CUDA graphs are made (flush_profiler); kernels whose records it
      lost all the same are timed by CUDA events, and say so. The

@@ -29,8 +29,8 @@ src/main.cpp:8-61):
     -rank-debug                      with -multihost, each rank writes
                                      PREFIXrank{r}_maskBuffer.png and
                                      PREFIXrank{r}_sampleBuffer.png
-    -profile DIR                     torch.profiler trace of the render into
-                                     DIR
+    -profile DIR                     torch.profiler trace of the set-up and
+                                     the render into DIR
     -serve PORT                      the preview server (viz/serve.py) on
                                      localhost:PORT; blocks
     -threads N                       the CPU's threads for torch
@@ -198,19 +198,21 @@ def _run(param, scene_file, out_prefix, opts, device):
         RenderServer(renderer, scene, opts["serve"]).serve(block=True)
         return 0
 
-    renderer.compute_scene(scene)
-    renderer.set_progress_callback(
-        lambda done, total: print(f"progress: {done}/{total} spp",
-                                  flush=True))
-    param.progressive_prefix = out_prefix
-
     from qaray_tpu_torch.utils.timing import FrameTimer, profile
 
-    timer = FrameTimer()
-    timer.start()
+    # The trace holds the set-up's spans (scene.compile, photon.build, the
+    # captures) before the render's.
     with profile(opts.get("profile"), renderer.device):
+        renderer.compute_scene(scene)
+        renderer.set_progress_callback(
+            lambda done, total: print(f"progress: {done}/{total} spp",
+                                      flush=True))
+        param.progressive_prefix = out_prefix
+
+        timer = FrameTimer()
+        timer.start()
         fb = renderer.render()
-    timer.stop()
+        timer.stop()
 
     if opts.get("multihost"):
         from qaray_tpu_torch.parallel.distributed import (

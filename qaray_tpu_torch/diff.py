@@ -23,6 +23,10 @@ the wavefront engine (K2, K3 or K4 on a card) and whose backward is
 autograd with K2's winner-only rule (ops/analytic.py). Both routes' steps
 are captured on a card (utils/compiled.py). On CPU tensors the kernels'
 plain versions run in their place.
+
+Each step is one program span, grad.fast or grad.autograd after its route
+(utils/timing.span; its id the process's step count): the spans' calls in
+timing.totals count each route's steps, a mesh's shards inside one.
 """
 
 from typing import NamedTuple
@@ -33,6 +37,9 @@ import torch
 from qaray_tpu_torch.integrators.engine import _plain_walks
 from qaray_tpu_torch.scene.arrays import SceneArrays
 from qaray_tpu_torch.utils.compiled import jit
+from qaray_tpu_torch.utils import timing
+
+GRAD_SPANS = ("grad.fast", "grad.autograd")
 
 
 class DiffParams(NamedTuple):
@@ -174,22 +181,31 @@ def render_value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
     explicit counterpart of the psum XLA inserts for the JAX package. The
     sum's order is not one device's, so the result agrees with the
     unsharded one to rounding, not bit for bit."""
-    if mesh is not None:
-        return _sharded_value_and_grad(scene, meta, cfg, px, py, sample_ids,
-                                       key_words, target, mesh)
-    return _value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words,
-                           target)
+    step = 1 + sum(timing.totals.get(k, (0.0, 0))[1] for k in GRAD_SPANS)
+    with timing.span(GRAD_SPANS[not _fast_route(meta, cfg)],
+                     id=f"step {step}"):
+        if mesh is not None:
+            return _sharded_value_and_grad(scene, meta, cfg, px, py,
+                                           sample_ids, key_words, target,
+                                           mesh)
+        return _value_and_grad(scene, meta, cfg, px, py, sample_ids,
+                               key_words, target)
+
+
+def _fast_route(meta, cfg) -> bool:
+    """Whether a step takes the fast route (see render_value_and_grad)."""
+    from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
+    from qaray_tpu_torch.ops.adjoint import adjoint_supported
+
+    return adjoint_supported(meta, cfg) and use_pathtrace_mega(meta, cfg)
 
 
 def _value_and_grad(scene, meta, cfg, px, py, sample_ids, key_words, target,
                     n=None):
     """render_value_and_grad on one device; with n, of the loss's part
     sum / n over these lanes' n-element share."""
-    from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
-    from qaray_tpu_torch.ops.adjoint import adjoint_supported
-
     with torch.no_grad():  # the caller's tape does not reach the steps
-        if adjoint_supported(meta, cfg) and use_pathtrace_mega(meta, cfg):
+        if _fast_route(meta, cfg):
             loss, flat = _fast_step(scene, meta, cfg, px, py, sample_ids,
                                     key_words, target, n)
             return loss, _unpack_adjoint(flat, meta, scene)

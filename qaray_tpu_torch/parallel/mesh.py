@@ -26,7 +26,6 @@ gather run on the CPU and on one card.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import NamedTuple
 
 import torch
@@ -34,9 +33,10 @@ import torch.distributed as dist
 
 from qaray_tpu_torch.integrators.engine import render_batch
 from qaray_tpu_torch.parallel import distributed
+from qaray_tpu_torch.utils.timing import span
 
 # Collectives of shard_render_batch in this process: the all_gathers and
-# the host seconds blocked in them.
+# the host seconds blocked in them (the spans mesh.all_gather).
 stats = {"all_gathers": 0, "all_gather_s": 0.0}
 
 
@@ -191,10 +191,10 @@ def _all_gather(outs, cuts, mesh: RenderMesh):
     pad = packed.new_zeros((longest, packed.shape[1]))
     pad[:packed.shape[0]] = packed
     parts = [torch.empty_like(pad) for _ in range(world)]
-    t = time.perf_counter()
-    dist.all_gather(parts, pad, group=distributed.group())
+    with span("mesh.all_gather") as timed:
+        dist.all_gather(parts, pad, group=distributed.group())
     stats["all_gathers"] += 1
-    stats["all_gather_s"] += time.perf_counter() - t
+    stats["all_gather_s"] += timed.seconds
     whole = torch.cat([p[:m] for p, m in zip(parts, rows)]).to(dev)
     out, c = [], 0
     for o, w in zip(outs, widths):

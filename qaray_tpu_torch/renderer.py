@@ -49,13 +49,23 @@ own device, unsharded. Across processes (parallel/distributed.py) every
 rank issues the same dispatches, and so the same collectives, in the same
 order. rank_debug counts the lanes this process's devices rendered, for
 save_rank_debug's planes.
+
+The Renderer's parts are program spans (utils/timing.span): `render`
+(the whole image, its id the render count and the seed) holds
+render.start (key words, the accumulator, the id tensors), render.dispatch
+and render.fold at each call of _dispatch and of the folds, render.retire
+(_retire_inflight: the reads, render.escalate around the escalated lanes'
+re-render, their folds), render.converge (the convergence read) and
+render.end (the last retire, the accumulator's copy to the host and
+finalize). The spans open at the call sites, around the functions they
+name; render.escalate's calls count the escalated re-renders. `stats`
+counts their lanes and the lanes their buckets padded them to.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -67,6 +77,11 @@ from qaray_tpu_torch.fb import device_accum
 from qaray_tpu_torch.fb.framebuffer import FrameBuffer
 from qaray_tpu_torch.integrators.engine import IntegratorConfig, render_batch
 from qaray_tpu_torch.scene.compiler import compile_scene
+from qaray_tpu_torch.utils.timing import span
+
+# Escalated re-renders (_render_escalated) in this process: the escalated
+# lanes and the lanes of their power-of-two buckets.
+stats = {"escalated_lanes": 0, "escalated_padded": 0}
 
 
 @dataclasses.dataclass
@@ -147,6 +162,7 @@ class Renderer:
         self._progress_cb: Optional[Callable] = None
         self._accum = None
         self._inflight = None
+        self._renders = 0
         # The one-deep pipeline; False keeps the synchronous loop, which
         # reads each dispatch before the next is enqueued (tests and
         # chip_smoke.py compare the two).
@@ -165,12 +181,13 @@ class Renderer:
             )
             from qaray_tpu_torch.photon.cluster import cluster_photon_map
 
-            gmap, cmap = build_photon_maps(self.scene_arrays, self.meta,
-                                           self.param)
-            # Morton-clustered tables for the gather kernels (K1d, K5); the
-            # exact gathers of the wavefront engine ignore them.
-            self.photon_maps = (cluster_photon_map(gmap),
-                                cluster_photon_map(cmap))
+            with span("photon.build"):
+                gmap, cmap = build_photon_maps(self.scene_arrays, self.meta,
+                                               self.param)
+                # Morton-clustered tables for the gather kernels (K1d, K5);
+                # the exact gathers of the wavefront engine ignore them.
+                self.photon_maps = (cluster_photon_map(gmap),
+                                    cluster_photon_map(cmap))
             # The reference dumps both maps for its viewer
             # (renderer.cpp:204-209, 284-289): same files, same records.
             # Across processes the primary writes them.
@@ -237,30 +254,37 @@ class Renderer:
 
     def render(self) -> FrameBuffer:
         assert self.scene_arrays is not None, "call compute_scene() first"
+        self._renders += 1
+        with span("render", id=f"render {self._renders} seed "
+                  f"{self.param.seed}"):
+            return self._render()
+
+    def _render(self) -> FrameBuffer:
         p = self.param
         cfg = self.integrator_config()
         fb = self.fb
         num_pixels = self.meta.img_width * self.meta.img_height
-        words = key_words(p.rng_impl, p.seed)
-        self._words = words
-        # Megakernel dispatches with photon gathering return a last
-        # escalation flag per lane (the gather saw > GATHER_K photons in
-        # the radius): those lanes are rendered again on the exact engine.
-        from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
+        with span("render.start"):
+            words = key_words(p.rng_impl, p.seed)
+            self._words = words
+            # Megakernel dispatches with photon gathering return a last
+            # escalation flag per lane (the gather saw > GATHER_K photons
+            # in the radius): those lanes are rendered again on the exact
+            # engine.
+            from qaray_tpu_torch.integrators.engine import use_pathtrace_mega
 
-        self._mega_photon = bool(cfg.use_photon_map and use_pathtrace_mega(
-            self.meta, cfg, self.photon_maps))
-        self._accum = device_accum.init_state(fb, self.device,
-                                              want_irr=self._want_aux(),
-                                              into=self._accum)
-        self._rank_mask = (
-            torch.zeros(num_pixels, dtype=torch.int32, device=self.device)
-            if p.rank_debug and self._mesh is not None else None)
-        self._inflight = None
-        all_ids = np.arange(num_pixels, dtype=np.int32)
-        all_dev = torch.arange(num_pixels, dtype=torch.int32,
-                               device=self.device)
-        start = time.time()
+            self._mega_photon = bool(cfg.use_photon_map and use_pathtrace_mega(
+                self.meta, cfg, self.photon_maps))
+            self._accum = device_accum.init_state(fb, self.device,
+                                                  want_irr=self._want_aux(),
+                                                  into=self._accum)
+            self._rank_mask = (
+                torch.zeros(num_pixels, dtype=torch.int32, device=self.device)
+                if p.rank_debug and self._mesh is not None else None)
+            self._inflight = None
+            all_ids = np.arange(num_pixels, dtype=np.int32)
+            all_dev = torch.arange(num_pixels, dtype=torch.int32,
+                                   device=self.device)
 
         # Phase 1: spp_min samples for every pixel, several sample indices
         # per dispatch when the image alone underfills the batch. A resumed
@@ -289,8 +313,9 @@ class Renderer:
         s = p.spp_min
         while s < p.spp_max:
             self._flush()
-            active, active_dev = device_accum.unconverged_ids(
-                self._accum, p.threshold, s, on_device=True)
+            with span("render.converge"):
+                active, active_dev = device_accum.unconverged_ids(
+                    self._accum, p.threshold, s, on_device=True)
             if active.size == 0 or self.stop_flag:
                 break
             for _ in range(min(p.round_spp, p.spp_max - s)):
@@ -299,9 +324,9 @@ class Renderer:
                 s += 1
             self._report(s)
 
-        self.sync_fb()
-        self._last_elapsed = time.time() - start
-        fb.finalize(p.use_srgb, p.spp_max)
+        with span("render.end"):
+            self.sync_fb()
+            fb.finalize(p.use_srgb, p.spp_max)
         return fb
 
     def sync_fb(self):
@@ -399,12 +424,13 @@ class Renderer:
         sl = slice(lo, lo + pixel_ids.size)
         esc = None if esc is None else esc[sl]
         irr = None if irr is None else irr[sl]
-        if _is_contig(pixel_ids):
-            return device_accum.accumulate_contig(
-                self._accum, int(pixel_ids[0]), radiance[sl], skip=esc,
-                irr=irr)
-        return device_accum.accumulate_round(self._accum, dev_ids,
-                                             radiance[sl], skip=esc, irr=irr)
+        with span("render.fold"):
+            if _is_contig(pixel_ids):
+                return device_accum.accumulate_contig(
+                    self._accum, int(pixel_ids[0]), radiance[sl], skip=esc,
+                    irr=irr)
+            return device_accum.accumulate_round(
+                self._accum, dev_ids, radiance[sl], skip=esc, irr=irr)
 
     def _render_packed(self, cfg, pixel_ids, dev_ids, sample_indices, words,
                        record_depth: bool):
@@ -418,8 +444,9 @@ class Renderer:
         sid = (torch.arange(k, dtype=torch.int32, device=self.device)
                .repeat_interleave(n) + sample_indices[0])
         lanes = dev_ids.repeat(k)
-        radiance, depth, irr, esc, _, _ = self._dispatch(cfg, lanes, sid,
-                                                         words)
+        with span("render.dispatch"):
+            radiance, depth, irr, esc, _, _ = self._dispatch(cfg, lanes, sid,
+                                                             words)
         self._retire_inflight()
         job = _Dispatch(pixel_ids, lanes, sid,
                         None if esc is None else esc[:n * k], n)
@@ -438,8 +465,9 @@ class Renderer:
             ids = pixel_ids[lo:lo + chunk]
             n = ids.size
             lanes = dev_ids[lo:lo + chunk]
-            radiance, depth, irr, esc, padded, sid = self._dispatch(
-                cfg, lanes, sample_idx, words)
+            with span("render.dispatch"):
+                radiance, depth, irr, esc, padded, sid = self._dispatch(
+                    cfg, lanes, sample_idx, words)
             job = _Dispatch(ids, lanes, sid[:n],
                             None if esc is None else esc[:n], n)
             if _is_contig(ids):
@@ -447,8 +475,9 @@ class Renderer:
             else:
                 # The padded dispatch folds whole, its dump lanes into the
                 # dump row, as the JAX Renderer folds phase 2.
-                skip = device_accum.accumulate_round(
-                    self._accum, padded, radiance, skip=esc, irr=irr)
+                with span("render.fold"):
+                    skip = device_accum.accumulate_round(
+                        self._accum, padded, radiance, skip=esc, irr=irr)
             job.skips = [skip]
             self._retire_inflight()
             self._stage(job, depth if record_depth else None)
@@ -489,7 +518,9 @@ class Renderer:
         if job.event is not None:
             job.event.synchronize()
         if job.counts is not None and int(job.counts.sum()):
-            job.fixed = self._render_escalated(job.lanes, job.sid, job.esc)
+            with span("render.escalate"):
+                job.fixed = self._render_escalated(job.lanes, job.sid,
+                                                   job.esc)
 
     def _render_escalated(self, lanes, sid, esc):
         """Render a dispatch's escalated lanes again, all in one call, on
@@ -504,6 +535,8 @@ class Renderer:
 
         w = self.meta.img_width
         ids, esid = self._padded(lanes[idx], sid[idx])
+        stats["escalated_lanes"] += idx.numel()
+        stats["escalated_padded"] += ids.shape[0]
         radiance, _ = render_batch_wavefront(
             self.scene_arrays, self.meta, self.integrator_config(), ids % w,
             ids // w, esid, self._words, self.photon_maps)
@@ -518,6 +551,10 @@ class Renderer:
         job, self._inflight = self._inflight, None
         if job is None:
             return
+        with span("render.retire"):
+            self._retire(job)
+
+    def _retire(self, job):
         self._read(job)
         if job.depth is not None:
             self.fb.set_depth(job.pixel_ids, job.depth.cpu().numpy())
@@ -529,15 +566,18 @@ class Renderer:
         segments = [(a, b) for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
         if len(segments) == 1:
             # One segment: the padded render folds whole.
-            device_accum.accumulate_round(self._accum, padded, radiance)
+            with span("render.fold"):
+                device_accum.accumulate_round(self._accum, padded, radiance)
             return
         ids = job.lanes[idx]
         dump = self.meta.img_width * self.meta.img_height
         for a, b in segments:
             pad = _pad_to_bucket(b - a) - (b - a)
-            device_accum.accumulate_round(
-                self._accum, torch.cat([ids[a:b], ids.new_full((pad,), dump)]),
-                torch.cat([radiance[a:b], radiance.new_zeros((pad, 3))]))
+            with span("render.fold"):
+                device_accum.accumulate_round(
+                    self._accum,
+                    torch.cat([ids[a:b], ids.new_full((pad,), dump)]),
+                    torch.cat([radiance[a:b], radiance.new_zeros((pad, 3))]))
 
     _flush = _retire_inflight
 

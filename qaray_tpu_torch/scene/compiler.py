@@ -49,6 +49,7 @@ from qaray_tpu_torch.scene.arrays import (
     analytic_prims,
     with_kernel_tables,
 )
+from qaray_tpu_torch.utils.timing import span
 
 _LIGHT_KIND = {
     "ambient": LIGHT_AMBIENT,
@@ -653,5 +654,7 @@ def compile_scene(scene: D.SceneDesc, device="cuda", world_bvh: bool = True):
 
     Meshes are baked to world space (world_bvh=True, the default) and
     stay per instance in object space with world_bvh=False (or
-    QARAY_NO_WORLD_BVH=1, or above WORLD_BVH_MAX_TRIS world triangles)."""
-    return SceneCompiler(scene, world_bvh=world_bvh).compile(device)
+    QARAY_NO_WORLD_BVH=1, or above WORLD_BVH_MAX_TRIS world triangles).
+    Its host time is the span scene.compile."""
+    with span("scene.compile"):
+        return SceneCompiler(scene, world_bvh=world_bvh).compile(device)

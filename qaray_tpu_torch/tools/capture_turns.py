@@ -13,10 +13,10 @@ time goes, captures, graphs and peak memory.
   captured turn's planes (mean, std, count, depth, irradiance) equal the
   first eager turn's bit for bit, and the second captured turn captures
   nothing new.
-- The host's time of one render of 4a and 4b in each mode under cProfile:
-  the functions that hold it (own time), and the cumulative time of the
-  Renderer's parts (finalize, sync_to_fb, unconverged_ids, the dispatch,
-  the folds, the reads).
+- The host's time of one render of 4a and 4b in each mode: the
+  Renderer's program spans (render.start, render.dispatch, render.fold,
+  render.retire, render.escalate, render.converge, render.end), and under
+  cProfile the functions that hold it (own time).
 - The fast gradient route (spot_scene, 262,144 lanes, pathtrace, rbg): 3
   steps with the material and light parameters changed every step, eager
   and captured, equal bit for bit, captured once.
@@ -245,95 +245,45 @@ def render_turns(name, r=None, turns=TURNS, profile=True):
     return out
 
 
-def _timed_parts(r):
-    """Wrap the Renderer's parts (on r and on the fold module) with
-    perf_counter timers: returns (the {part: [ms, calls]} table, undo)."""
-    from qaray_tpu_torch.fb import device_accum
-
-    table, inside = {}, [0]
-    undo = []
-
-    def timed(label, fn, nested=False):
-        def run(*a, **kw):
-            t = time.perf_counter()
-            if nested:
-                inside[0] += 1
-            try:
-                return fn(*a, **kw)
-            finally:
-                if nested:
-                    inside[0] -= 1
-                row = table.setdefault(
-                    label + (" (in retire)" if inside[0] and not nested
-                             and label == "folds" else ""), [0.0, 0])
-                row[0] += (time.perf_counter() - t) * 1e3
-                row[1] += 1
-        return run
-
-    for name, label, nested in (("_dispatch", "dispatch", False),
-                                ("_stage", "stage", False),
-                                ("_retire_inflight", "retire", True),
-                                ("_flush", "retire", True),
-                                ("_read", "read (event wait, escalations)",
-                                 False)):
-        setattr(r, name, timed(label, getattr(r, name), nested))
-        undo.append(lambda n=name: r.__dict__.pop(n, None))
-    for name, label in (("accumulate_round", "folds"),
-                        ("accumulate_contig", "folds"),
-                        ("unconverged_ids", "unconverged_ids"),
-                        ("sync_to_fb", "sync_to_fb"),
-                        ("init_state", "init_state")):
-        fn = getattr(device_accum, name)
-        setattr(device_accum, name, timed(label, fn))
-        undo.append(lambda n=name, f=fn: setattr(device_accum, n, f))
-    return table, undo
+# The Renderer's spans that cpu_split reads (utils/timing.span): the whole
+# render, then its parts in the order of a render. render.escalate and the
+# escalated lanes' render.fold run inside render.retire, and the last
+# render.retire inside render.end: a nested span counts in its parent too.
+RENDER_SPANS = ("render", "render.start", "render.dispatch", "render.fold",
+                "render.retire", "render.escalate", "render.converge",
+                "render.end")
 
 
 def cpu_split(name, r=None, top=12):
     """Where the host's time of one render of case `name` goes, in each
     mode (after a captured render that captures its graphs): the wall and
-    the Renderer's parts timed by perf_counter (init_state, dispatch, the
-    main folds, stage, retire with its reads and escalated re-renders and
-    folds, the convergence read, sync_to_fb, finalize, and the rest: the
-    Python loop between them), then a second render under cProfile for the functions
+    the Renderer's program spans (utils/timing.totals over the render: the
+    whole render, render.start with init_state, render.dispatch,
+    render.fold, render.retire with its reads and escalated re-renders and
+    folds, render.converge, render.end with the last retire, sync_to_fb
+    and finalize), then a second render under cProfile for the functions
     that hold the host (own time; cProfile inflates Python's share)."""
     from qaray_tpu_torch.fb.framebuffer import FrameBuffer
+    from qaray_tpu_torch.utils import timing
 
     what, _, _, env, _ = cases()[name]
     r = r or make_renderer(name)
     render_once(r, "captured", env, profile=False)
     out = {}
     for mode in ("eager", "captured"):
-        table, undo = _timed_parts(r)
         r.fb = FrameBuffer(r.meta.img_width, r.meta.img_height)
-        finalize = r.fb.finalize
-        ms_fin = [0.0]
-
-        def fin(*a, **kw):
-            t = time.perf_counter()
-            try:
-                return finalize(*a, **kw)
-            finally:
-                ms_fin[0] += (time.perf_counter() - t) * 1e3
-
-        r.fb.finalize = fin
+        before = {k: list(v) for k, v in timing.totals.items()}
         torch.cuda.synchronize()
-        try:
-            with _env(env), _mode(mode):
-                t = time.perf_counter()
-                r.render()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t) * 1e3
-        finally:
-            for u in undo:
-                u()
-        parts = {k: v[0] for k, v in table.items()}
-        parts["fb.finalize"] = ms_fin[0]
-        calls = {k: v[1] for k, v in table.items()}
-        top_level = sum(v for k, v in parts.items()
-                        if k not in ("folds (in retire)",
-                                     "read (event wait, escalations)"))
-        parts["the rest (the loop's Python)"] = wall - top_level
+        with _env(env), _mode(mode):
+            t = time.perf_counter()
+            r.render()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+        grown = {k: [v[0] - before.get(k, [0.0, 0])[0],
+                     v[1] - before.get(k, [0.0, 0])[1]]
+                 for k, v in timing.totals.items()}
+        parts = {k: grown[k][0] * 1e3 for k in RENDER_SPANS if k in grown}
+        calls = {k: grown[k][1] for k in RENDER_SPANS if k in grown}
         r.fb = FrameBuffer(r.meta.img_width, r.meta.img_height)
         torch.cuda.synchronize()
         prof = cProfile.Profile()

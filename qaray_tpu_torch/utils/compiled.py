@@ -64,12 +64,13 @@ import functools
 import importlib
 import inspect
 import os
-import time
 from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
+
+from qaray_tpu_torch.utils.timing import span
 
 # The switches the captured functions read at call time: part of the key.
 ROUTE_SWITCHES = ("QARAY_NO_MEGAKERNEL", "QARAY_MESH_PATH", "QARAY_BVH_WALK",
@@ -96,7 +97,7 @@ _COUNTERS = (("qaray_tpu_torch.ops.analytic", "launches"),
              ("qaray_tpu_torch.integrators.engine", "wavefront_lanes"))
 
 # Over every wrapped function: graphs captured, replays, seconds spent in
-# warm-up and capture.
+# warm-up and capture (the spans `capture`).
 stats = {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 _eager_depth = 0
@@ -501,27 +502,27 @@ class Compiled:
 
     def _capture(self, key, arguments, names, descs, device):
         global _active
-        t0 = time.perf_counter()
-        if len(self._tables) > MAX_TABLES:
-            self._graphs.clear()
-            self._tables.clear()
-        entry = _Graph()
-        _active += 1
-        try:
-            with torch.cuda.device(device):
-                static, warm = self._static_args(entry, arguments, names,
-                                                 descs, device)
-                out, delta = self._warm_and_capture(entry, static, warm,
-                                                    device)
-        finally:
-            _active -= 1
-        entry.delta = delta
-        entry.out_leaves, entry.out_spec = pytree.tree_flatten(out)
-        self._graphs[key] = entry
-        while len(self._graphs) > MAX_GRAPHS:
-            self._graphs.popitem(last=False)
+        with span("capture") as timed:
+            if len(self._tables) > MAX_TABLES:
+                self._graphs.clear()
+                self._tables.clear()
+            entry = _Graph()
+            _active += 1
+            try:
+                with torch.cuda.device(device):
+                    static, warm = self._static_args(entry, arguments, names,
+                                                     descs, device)
+                    out, delta = self._warm_and_capture(entry, static, warm,
+                                                        device)
+            finally:
+                _active -= 1
+            entry.delta = delta
+            entry.out_leaves, entry.out_spec = pytree.tree_flatten(out)
+            self._graphs[key] = entry
+            while len(self._graphs) > MAX_GRAPHS:
+                self._graphs.popitem(last=False)
         stats["captures"] += 1
-        stats["capture_s"] += time.perf_counter() - t0
+        stats["capture_s"] += timed.seconds
         return entry
 
     def _warm_and_capture(self, entry, static, warm, device):

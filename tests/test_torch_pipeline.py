@@ -15,6 +15,7 @@ import qaray_tpu.fb.device_accum as jax_accum
 import qaray_tpu.integrators.engine as jax_engine
 import qaray_tpu_torch.fb.device_accum as accum
 import qaray_tpu_torch.integrators.engine as engine
+import qaray_tpu_torch.renderer as renderer_mod
 from qaray_tpu.renderer import Renderer as JaxRenderer
 from qaray_tpu.renderer import RendererParam as JaxParam
 from qaray_tpu.scene.xml_parser import load_scene as jax_load
@@ -59,16 +60,9 @@ def render(case, pipelined, monkeypatch):
     if scene == "caustics":
         g, c = r.photon_maps
         r.photon_maps = (g._replace(radius=torch.tensor(50.0)), c)
-    escalated = []
-    render_escalated = r._render_escalated
-
-    def counted(*args):
-        fixed = render_escalated(*args)
-        escalated.append(0 if fixed is None else fixed[0].size)
-        return fixed
-
-    r._render_escalated = counted
-    return r.render(), sum(escalated)
+    before = renderer_mod.stats["escalated_lanes"]
+    fb = r.render()
+    return fb, renderer_mod.stats["escalated_lanes"] - before
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
