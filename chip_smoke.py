@@ -103,6 +103,17 @@ Phases, each fatal on failure:
           launch equal to the first, bit for bit; and render_batch's
           gradients on the megakernel route (K1a forward, the engine's
           autograd backward) against render_with_params';
+       g. G1 (the material gather's backward, csrc/mtl_gather.cu) on the
+          inputs of every backward call of the inverse benchmark cell's
+          step (softdof 800x600 x 1 spp, 480,000 lanes, pathtrace,
+          max_bounce 5): within 1e-6 of each row's sum of |g| of a
+          float64 sum, and of index_put_ within index_put_'s own gap to
+          that sum plus 1e-6; twice the same bits; the step
+          captured equal to eager bit for bit (loss and every field), one
+          G1 launch for each gather on the tape; G1's ms at those shapes,
+          its bound, the plain version's and the autograd backward's it
+          replaces. Alone: python3 -c "import chip_smoke as c;
+          c.g1_phase({})";
   4. the main path at 800x600 with every launch count set to 0 before each
      route and read after it, and every plain version of a kernel made to
      raise if it is called; K2b's and K2c's launches recorded by size, and
@@ -806,6 +817,174 @@ def k1c_need(arr, meta, cfg, px, py, sid, words):
     return total
 
 
+# G1's bar against a float64 sum, of each row's sum of |g|: its longest
+# chain of float32 adds is some 128 terms (a thread's lanes, the block's 16
+# slices, a fold slice's blocks, the 16 fold slices), typically
+# sqrt(128) * 2^-24 = 6.7e-7 (tests/test_torch_gpu.py). index_put_ (the
+# plain version, and autograd's backward it replaces) adds a row's lanes
+# one after another, 460,000 of them on the inverse cell's step, and on
+# its cotangents drifts from the float64 sum by far more: G1 is held to
+# index_put_ within index_put_'s own gap to the float64 sum plus this bar.
+G1_EXACT_TOL = 1e-6
+
+
+def g1_phase(numbers):
+    """Phase 3g (see the module's docstring); G1's figures in
+    numbers["G1"]."""
+    sys.path.insert(0, HERE)
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.integrators.engine import IntegratorConfig
+    from qaray_tpu_torch.ops import mtl_gather
+    from qaray_tpu_torch.scene.compiler import compile_scene
+    from qaray_tpu_torch.scene.xml_parser import load_scene
+    from qaray_tpu_torch.utils import compiled
+
+    print("phase 3g: G1 (the material gather's backward) on the inverse "
+          "cell's step, softdof 800x600 x 1 spp, pathtrace, max_bounce 5",
+          flush=True)
+    desc = load_scene(SCENE)
+    desc.camera.img_width, desc.camera.img_height = 800, 600
+    arr, meta = compile_scene(desc, device="cuda")
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16, shadow_spp_max=64)
+    check(not diff._fast_route(meta, cfg), "depth of field takes the "
+          "autograd route")
+    px, py, sid = lanes(800, 600, 1)
+    target = torch.full((px.shape[0], 3), 0.25, device="cuda")
+
+    def step():
+        return diff.render_value_and_grad(arr, meta, cfg, px, py, sid,
+                                          (0, 11), target=target)
+
+    calls = []
+    launch = mtl_gather.gather_bwd
+
+    def recording(mid, grads, rows):
+        calls.append((mid.clone(), [None if g is None else g.clone()
+                                    for g in grads], rows))
+        return launch(mid, grads, rows)
+
+    mtl_gather.gather_bwd = recording
+    try:
+        with compiled.eager():
+            before = mtl_gather.launches["G1"]
+            want = step()
+            torch.cuda.synchronize()
+            launched = mtl_gather.launches["G1"] - before
+    finally:
+        mtl_gather.gather_bwd = launch
+    check(len(calls) > 0 and launched == len(calls),
+          f"the eager step launched G1 once for each of its {len(calls)} "
+          "material gathers on the tape")
+    worst_plain = worst_exact = worst_lib = 0.0
+    for mid, grads, rows in calls:
+        got = mtl_gather.gather_bwd(mid, grads, rows)
+        again = mtl_gather.gather_bwd(mid, grads, rows)
+        plain = mtl_gather.gather_bwd_plain(mid, grads, rows)
+        exact = mtl_gather.gather_bwd_plain(
+            mid, [None if g is None else g.double() for g in grads], rows)
+        for a, b, c, e, g in zip(got, again, plain, exact, grads):
+            if g is None:
+                continue
+            if not torch.equal(a, b):
+                raise AssertionError("G1: two launches differ")
+            scale = mtl_gather.gather_bwd_plain(
+                mid, [g.abs().double()], rows)[0].clamp_min(1e-30)
+            off_exact = ((a.double() - e).abs() / scale).max().item()
+            off_lib = ((c.double() - e).abs() / scale).max().item()
+            off_plain = ((a.double() - c.double()).abs() / scale).max().item()
+            if off_plain > off_lib + G1_EXACT_TOL:
+                raise AssertionError(f"G1 {off_plain:.3g} from index_put_, "
+                                     f"index_put_ {off_lib:.3g} from exact")
+            worst_plain = max(worst_plain, off_plain)
+            worst_exact = max(worst_exact, off_exact)
+            worst_lib = max(worst_lib, off_lib)
+    check(worst_exact <= G1_EXACT_TOL,
+          f"G1 on the step's {len(calls)} calls: within {G1_EXACT_TOL:g} "
+          f"of each row's sum of |g| of a float64 sum ({worst_exact:.3g}); "
+          f"index_put_ {worst_lib:.3g} from it, G1 {worst_plain:.3g} from "
+          "index_put_ (within index_put_'s own gap plus the bar); two "
+          "launches the same bits")
+    with compiled.eager():
+        again = step()
+    eager_env = os.environ.pop("QARAY_EAGER", None)  # phases 2-3 set it
+    try:
+        caps = compiled.stats["captures"]
+        before = mtl_gather.launches["G1"]
+        first = step()
+        launched_first = mtl_gather.launches["G1"] - before
+        caps_first = compiled.stats["captures"] - caps
+        before = mtl_gather.launches["G1"]
+        replay = step()
+        launched_replay = mtl_gather.launches["G1"] - before
+        caps_replay = compiled.stats["captures"] - caps - caps_first
+        torch.cuda.synchronize()
+    finally:
+        if eager_env is not None:
+            os.environ["QARAY_EAGER"] = eager_env
+    same = all(torch.equal(got[0], want[0]) and all(
+        torch.equal(a, b) for a, b in zip(got[1], want[1]))
+        for got in (again, first, replay))
+    check(same and launched_first == launched_replay == len(calls)
+          and caps_first > 0 and caps_replay == 0,
+          "the step eager twice, captured and replayed: loss and every "
+          f"field bit for bit; {launched_replay} G1 launches a replay "
+          f"({caps_first} graphs captured, none at the replay)")
+
+    # Times at the step's largest call (the first bounce, every lane).
+    mid, grads, rows = max(calls, key=lambda c: c[0].shape[0])
+    n = mid.shape[0]
+    nbytes = n * (8 + 4 * sum(g[0].numel() for g in grads if g is not None))
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+
+    def g1():
+        mtl_gather.gather_bwd(mid, grads, rows)
+
+    reps = 20
+    g1()
+    flush_profiler()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            g1()
+        torch.cuda.synchronize()
+    seen = [e for e in prof.key_averages() if "mtl_gather_bwd" in e.key]
+    by_kernel = {e.key[:60]: device_us(e) / max(e.count, 1) / 1e3
+                 for e in seen}
+    kernel_ms_ = sum(device_us(e) for e in seen) / reps / 1e3
+    call_ms = cuda_ms(g1, reps)
+    tables = [torch.zeros((rows, 3) if g.ndim > 1 else (rows,),
+                          device="cuda", requires_grad=True)
+              for g in grads if g is not None]
+    cts = [g for g in grads if g is not None]
+    plain_ms = cuda_ms(lambda: mtl_gather.gather_bwd_plain(mid, grads, rows),
+                       reps)
+
+    def library():
+        outs = [t[mid] for t in tables]
+        torch.autograd.grad(outs, tables, cts)
+
+    library_ms = cuda_ms(library, reps)
+    step_ms = sum(cuda_ms(lambda c=c: mtl_gather.gather_bwd(*c), 5)
+                  for c in calls)
+    print(f"  G1 at {n} lanes, {rows} rows, {len(cts)} cotangents: kernels "
+          f"{kernel_ms_:.5f} ms a call (by kernel {by_kernel}), the call by "
+          f"events {call_ms:.5f} ms; bound {bound_ms:.5f} ms (bytes, "
+          f"{nbytes / n:.0f} B a lane); plain (index_put_ a table) "
+          f"{plain_ms:.4f} ms; autograd's backward of table[mid] (library) "
+          f"{library_ms:.4f} ms; the step's {len(calls)} calls "
+          f"{step_ms:.4f} ms by events", flush=True)
+    numbers["G1"] = dict(lanes=n, rows=rows, calls_a_step=len(calls),
+                         kernel_ms=kernel_ms_, call_ms=call_ms,
+                         bound_ms=bound_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, step_calls_ms=step_ms,
+                         max_gap_plain=worst_plain,
+                         max_gap_exact=worst_exact,
+                         max_gap_plain_exact=worst_lib)
+    del calls, want, again, first, replay
+    torch.cuda.synchronize()
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels run only on a GPU",
@@ -823,7 +1002,7 @@ def main():
     from qaray_tpu_torch import diff
     from qaray_tpu_torch.ops import _build, adjoint, analytic, megakernel
     from qaray_tpu_torch.ops import bvh_packed, mesh_sweep, trace
-    from qaray_tpu_torch.ops import photon
+    from qaray_tpu_torch.ops import mtl_gather, photon
     from qaray_tpu_torch.ops import intersect as I
     from qaray_tpu_torch.ops import tiles
     from qaray_tpu_torch.ops.mesh_stream import (
@@ -1630,17 +1809,19 @@ def main():
           "1e-4 of max|b|)")
     del params, rad_g, rad_w
     torch.cuda.synchronize()
+    g1_phase(numbers)
 
     # -- 4. the main path ----------------------------------------------------
     os.environ.pop("QARAY_EAGER", None)
     counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
                 tiles.launches, photon.launches, adjoint.launches,
-                bvh_packed.launches)
+                bvh_packed.launches, mtl_gather.launches)
     forbid = ForbidPlain(
         (analytic, "closest_plain"), (analytic, "closest_full_plain"),
         (analytic, "shadow_plain"), (mesh_sweep, "stream_closest"),
         (mesh_sweep, "stream_any_hit"), (tiles, "walk_plain"),
-        (photon, "photon_gather_plain"), (bvh_packed, "traverse_bvh_packed"))
+        (photon, "photon_gather_plain"), (bvh_packed, "traverse_bvh_packed"),
+        (mtl_gather, "gather_bwd_plain"))
 
     def reset_counts():
         for counts in counters:

@@ -1,7 +1,7 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
 // compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu,
-// photon.cu, analytic.cu, bvh.cu) as C++ and run them on the CPU
-// (ops/_build.load_host). The CPU tests use it to hold a source's
+// photon.cu, analytic.cu, bvh.cu, mtl_gather.cu) as C++ and run them on
+// the CPU (ops/_build.load_host). The CPU tests use it to hold a source's
 // arithmetic to the plain PyTorch version where there is no card and no
 // nvcc. It says nothing about what nvcc accepts or how fast the kernel is.
 //
@@ -197,12 +197,14 @@ static void qr_host_call(const void* arg) {
 }
 
 // Runs kernel(arg) over `blocks` blocks of `threads` card threads, as
-// blocks of qr_host_block host threads. A block of fibers runs in rounds:
+// blocks of qr_host_block host threads, as row `row` of a grid of `rows`
+// rows (blockIdx.y, gridDim.y). A block of fibers runs in rounds:
 // each live fiber in turn, in thread order, until it arrives at a barrier
 // or returns; a round ends with every live fiber at the same barrier.
 template <class K, class A>
 void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
-                    size_t smem, const A& arg) {
+                    size_t smem, const A& arg, unsigned row = 0,
+                    unsigned rows = 1) {
   if (smem > sizeof(float) * QR_HOST_SMEM_FLOATS ||
       qr_host_block > sizeof(qr_host_sum_calls) / sizeof(unsigned)) {
     qr_host_error = cudaErrorInvalidValue;
@@ -212,7 +214,9 @@ void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
   const unsigned total = blocks * threads;
   blockDim.x = nb;
   gridDim.x = (total + nb - 1) / nb;
-  threadIdx.y = threadIdx.z = blockIdx.y = blockIdx.z = 0;
+  gridDim.y = rows;
+  threadIdx.y = threadIdx.z = blockIdx.z = 0;
+  blockIdx.y = row;
   if (nb == 1) {
     for (unsigned b = 0; b < gridDim.x; ++b) {
       blockIdx.x = b;
@@ -259,3 +263,8 @@ void qr_host_launch(K kernel, unsigned blocks, unsigned threads,
 #define QR_LAUNCH(kernel, blocks, threads, smem, stream, arg) \
   qr_host_launch(kernel, (unsigned)(blocks), (unsigned)(threads), \
                  (size_t)(smem), arg)
+// A grid of bx by by blocks: its rows one after another.
+#define QR_LAUNCH_2D(kernel, bx, by, threads, smem, stream, arg)           \
+  for (unsigned qr_row = 0; qr_row < (unsigned)(by); ++qr_row)            \
+  qr_host_launch(kernel, (unsigned)(bx), (unsigned)(threads),             \
+                 (size_t)(smem), arg, qr_row, (unsigned)(by))

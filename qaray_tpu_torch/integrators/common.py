@@ -17,6 +17,7 @@ from qaray_tpu_torch.core.constants import (
 )
 from qaray_tpu_torch.core.vecmath import cross, dot, normalize, pow_safe
 from qaray_tpu_torch.core.warps import uniform_ball_ref
+from qaray_tpu_torch.ops.mtl_gather import gather
 from qaray_tpu_torch.ops.texture import (
     sample_textured_color,
     sample_textured_color_filtered,
@@ -58,14 +59,21 @@ def gather_materials(scene: SceneArrays, mtl_id, uvw, has_texture,
     slots go through the reference's 32-sample elliptic footprint filter
     (primary hits; core/texture.cpp:32-52), without them they point-sample.
     textured: static flag (meta.has_mtl_textures); False skips all texture
-    sampling, which is exact for scenes without a live material texture."""
+    sampling, which is exact for scenes without a live material texture.
+
+    The differentiable tables (the colour slots and the glossiness) are
+    gathered by ops/mtl_gather.gather: on a tape its backward is G1 on a
+    card; off a tape plain indexing, as the other columns are."""
     mt = scene.materials
     mid = torch.clamp_min(mtl_id, 0).long()
+    *colors, glossiness = gather(mid, (mt.diffuse, mt.specular, mt.emission,
+                                       mt.reflection, mt.refraction,
+                                       mt.glossiness))
 
-    def slot(colors, slot_idx):
+    def slot(rows, slot_idx):
         if not textured:
-            return colors[mid]
-        args = (scene.textures, colors[mid], mt.tex_id[mid, slot_idx],
+            return rows
+        args = (scene.textures, rows, mt.tex_id[mid, slot_idx],
                 mt.tex_m[mid, slot_idx], mt.tex_t[mid, slot_idx], uvw)
         if duvw is not None:
             return sample_textured_color_filtered(*args, duvw[0], duvw[1],
@@ -73,13 +81,13 @@ def gather_materials(scene: SceneArrays, mtl_id, uvw, has_texture,
         return sample_textured_color(*args, has_texture)
 
     return MtlSamples(
-        diffuse=slot(mt.diffuse, SLOT_DIFFUSE),
-        specular=slot(mt.specular, SLOT_SPECULAR),
-        emission=slot(mt.emission, SLOT_EMISSION),
-        reflection=slot(mt.reflection, SLOT_REFLECTION),
-        refraction=slot(mt.refraction, SLOT_REFRACTION),
+        diffuse=slot(colors[0], SLOT_DIFFUSE),
+        specular=slot(colors[1], SLOT_SPECULAR),
+        emission=slot(colors[2], SLOT_EMISSION),
+        reflection=slot(colors[3], SLOT_REFLECTION),
+        refraction=slot(colors[4], SLOT_REFRACTION),
         absorption=mt.absorption[mid],
-        glossiness=mt.glossiness[mid],
+        glossiness=glossiness,
         reflection_glossiness=mt.reflection_glossiness[mid],
         refraction_glossiness=mt.refraction_glossiness[mid],
         ior=mt.ior[mid],

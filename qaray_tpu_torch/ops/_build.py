@@ -24,7 +24,7 @@ tests without a card can hold the source's arithmetic to the plain version
 (ops/megakernel.mega_render_host, ops/adjoint.adjoint_render_host,
 ops/tiles.tiled_sweep_host, ops/mesh_sweep.sweep_host,
 ops/analytic.closest_host, closest_full_host, shadow_host,
-ops/bvh_packed.walk_host). No entry point
+ops/bvh_packed.walk_host, ops/mtl_gather.gather_bwd_host). No entry point
 of the port uses it.
 """
 
@@ -39,7 +39,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = {"adjoint": "adjoint.cu", "analytic": "analytic.cu",
            "bvh": "bvh.cu", "megakernel": "megakernel.cu",
-           "photon": "photon.cu", "tiles": "tiles.cu"}
+           "mtl_gather": "mtl_gather.cu", "photon": "photon.cu",
+           "tiles": "tiles.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",

@@ -50,6 +50,11 @@ itself): losses and radiance equal eager's bit for bit, every gradient
 field within two eager runs' spread, eager's launches (on the wavefront
 route with the forward its backward step re-runs), later steps capture
 nothing, replays under sync debug "error".
+G1 (the material gather's backward) at 480,000 lanes on 2 and 3,000 rows
+within 1e-4 of each row's sum of |g| of index_put_ and 1e-6 of a float64 sum,
+three launches bit for bit; the inverse benchmark cell's autograd step
+eager twice, captured and replayed bit for bit, one G1 launch for each
+gather on the tape.
 """
 
 import contextlib
@@ -1596,3 +1601,114 @@ def test_captured_render_batch_gradients(cuda, route, monkeypatch):
         assert torch.equal(out[0], want[0])
         spread = _within_eager_spread(want[1], again[1], out[1], route)
     print(f"{route}: eager against eager {spread}")
+
+
+# -- G1, the material gather's backward (csrc/mtl_gather.cu)
+
+# tests/test_torch_mtl_gather.py's bars, of each row's sum of |g|: against
+# index_put_ (another order of summation) and against a float64 sum (G1's
+# longest chain of float32 adds is some 128 terms: typically
+# sqrt(128) * 2^-24 = 6.7e-7).
+G1_TOL = 1e-4
+G1_EXACT_TOL = 1e-6
+
+
+def _g1_inputs(n, rows, seed):
+    """mid [n] in runs along image rows (as a bounce's hits lie) and six
+    cotangents on the card."""
+    from qaray_tpu_torch.ops import mtl_gather
+
+    rs = np.random.RandomState(seed)
+    runs = rs.randint(1, 200, size=n + 1)
+    mid = np.repeat(rs.randint(0, rows, size=n + 1), runs)[:n]
+    grads = [torch.tensor(rs.standard_normal(
+        (n, w) if w > 1 else (n,)).astype(np.float32), device="cuda")
+        for w in mtl_gather.WIDTHS]
+    return torch.tensor(mid, device="cuda"), grads
+
+
+@pytest.mark.parametrize("rows", [2, 3000])
+def test_g1_matches_plain(cuda, rows):
+    """G1 at the inverse cell's 480,000 lanes, on softdof's 2 material rows
+    and on 3,000 rows (64 row tiles), against index_put_ (the plain
+    version) and a float64 sum, within G1_TOL and G1_EXACT_TOL of the
+    row's sum of |g|;
+    three launches give the same bits; each counts one launch."""
+    from qaray_tpu_torch.ops import mtl_gather
+
+    n = 480_000
+    mid, grads = _g1_inputs(n, rows, seed=rows)
+    before = mtl_gather.launches["G1"]
+    got = [mtl_gather.gather_bwd(mid, grads, rows) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert mtl_gather.launches["G1"] == before + 3
+    want = mtl_gather.gather_bwd_plain(mid, grads, rows)
+    exact = mtl_gather.gather_bwd_plain(mid, [g.double() for g in grads],
+                                        rows)
+    for k, g in enumerate(grads):
+        scale = mtl_gather.gather_bwd_plain(
+            mid, [g.abs().double()], rows)[0].clamp_min(1e-30)
+        a = got[0][k].double()
+        off_plain = ((a - want[k].double()).abs() / scale).max().item()
+        off_exact = ((a - exact[k]).abs() / scale).max().item()
+        plain_exact = ((want[k].double() - exact[k]).abs()
+                       / scale).max().item()
+        print(f"rows {rows} table {k}: G1 - plain {off_plain:.3g}, "
+              f"G1 - exact {off_exact:.3g}, plain - exact {plain_exact:.3g}"
+              " of the row's sum of |g|")
+        assert off_plain <= G1_TOL and off_exact <= G1_EXACT_TOL, k
+        assert torch.equal(got[0][k], got[1][k])
+        assert torch.equal(got[0][k], got[2][k])
+
+
+def test_captured_autograd_step_with_g1_equals_eager(cuda, monkeypatch):
+    """The inverse cell's step (softdof 800x600 x 1 spp, pathtrace,
+    max_bounce 5, shadow_spp 16..64, threefry keys, an mse loss; depth of
+    field takes the autograd route): eager twice and captured twice (the
+    second a replay under sync debug "error") give the same loss and
+    gradients bit for bit, and G1's launches advance by one for each
+    material gather on the tape, eager and replayed."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.integrators import common
+    from qaray_tpu_torch.ops import mtl_gather
+    from qaray_tpu_torch.utils import compiled
+
+    desc = load_scene(SCENES[1])
+    desc.camera.img_width, desc.camera.img_height = 800, 600
+    arr, meta = compile_scene(desc, device="cuda")
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16, shadow_spp_max=64)
+    assert not diff._fast_route(meta, cfg)
+    px, py, sid = _lanes(800, 600, 1, "cuda")
+    target = torch.full((px.shape[0], 3), 0.25, device="cuda")
+    taped = []
+    gather = common.gather
+
+    def counting(mid, tables):
+        taped.append(torch.is_grad_enabled()
+                     and any(t.requires_grad for t in tables))
+        return gather(mid, tables)
+
+    monkeypatch.setattr(common, "gather", counting)
+
+    def step():
+        taped.clear()
+        before = mtl_gather.launches["G1"]
+        out = diff.render_value_and_grad(arr, meta, cfg, px, py, sid,
+                                         (0, 11), target=target)
+        return out, mtl_gather.launches["G1"] - before
+
+    with compiled.eager():
+        (want, launched) = step()
+        gathers = sum(taped)
+        again, _ = step()
+    assert gathers > 0 and launched == gathers, (launched, gathers)
+    first, launched_first = step()
+    replay, launched_replay = _replay_under_sync_error(step)
+    torch.cuda.synchronize()
+    assert launched_first == launched_replay == gathers
+    for got in (again, first, replay):
+        assert torch.equal(got[0], want[0])
+        for f, a, b in zip(diff.DiffParams._fields, got[1], want[1]):
+            assert torch.equal(a, b), f
+    print(f"{gathers} gathers on the tape, loss {want[0].item():.6g}")
