@@ -21,7 +21,10 @@ root with the best t so far and takes a hit where tri >= 0 and t < best
 t; xf None is one world-space tree walked as it is. For CPU tensors (or where the caller
 asks for the plain versions) they run that loop in PyTorch; for CUDA
 tensors they launch W1, one launch for all instances, bit for bit the
-plain loop's results. `launches` counts W1's launches.
+plain loop's results. `launches` counts W1's launches; `stats` the rays
+handed to closest (closest_rays) and to occluded (any_rays), counted from
+the shapes on every device (replays of a captured call add them too,
+utils/compiled._COUNTERS).
 """
 
 import torch
@@ -34,6 +37,7 @@ from qaray_tpu_torch.ops.bvh_traverse import (
 from qaray_tpu_torch.ops.intersect import _apply, intersect_triangles
 
 launches = {"W1": 0}
+stats = {"closest_rays": 0, "any_rays": 0}
 
 _fns = {}
 
@@ -358,6 +362,7 @@ def closest(p, d, t_cur, pnodes, ltri, proot, xf=None, max_leaf: int = 4,
     ray's inner nodes popped and triangles tested."""
     _check(p, d, t_cur, pnodes, ltri, proot, xf, stack_size)
     _check_work(work, p)
+    stats["closest_rays"] += p.shape[0]
     if p.device.type == "cpu" or plain:
         if work is not None:
             work.zero_()
@@ -377,6 +382,7 @@ def occluded(p, d, t_max, occ_in, pnodes, ltri, proot, xf=None,
     if occ_in is not None and (occ_in.dtype != torch.bool
                                or occ_in.shape != t_max.shape):
         raise ValueError("occ_in must be bool [B]")
+    stats["any_rays"] += p.shape[0]
     if p.device.type == "cpu" or plain:
         if work is not None:
             work.zero_()

@@ -198,7 +198,8 @@ class SceneCompiler:
             if id(mesh) in records:
                 continue
             v, n, uv, has_uv, fm = self._mesh_face_data(mesh)
-            bvh = bvh_mod.build_bvh(v, MAX_LEAF)
+            with span("scene.bvh_build"):
+                bvh = bvh_mod.build_bvh(v, MAX_LEAF)
             depth = max(depth, bvh_mod.bvh_depth(bvh))
             records[id(mesh)] = {
                 "root": node_off,
@@ -222,7 +223,8 @@ class SceneCompiler:
             node_off += len(bvh.left)
         all_v = np.concatenate(tri_v)
         g = [np.concatenate([part[k] for part in parts]) for k in range(5)]
-        pnodes, ltri, node_ref = bvh_mod.pack_bvh(*g, all_v)
+        with span("scene.bvh_build"):
+            pnodes, ltri, node_ref = bvh_mod.pack_bvh(*g, all_v)
         mesh_tabs = dict(
             tri_v=all_v, tri_n=np.concatenate(tri_n),
             tri_uv=np.concatenate(tri_uv),
@@ -323,9 +325,10 @@ class SceneCompiler:
         wn = np.concatenate(wn_l)
         mtl_all = np.concatenate(mtl_l)
         num = wv.shape[0]
-        bvh = bvh_mod.build_bvh(wv, MAX_LEAF)
-        pnodes, ltri, node_ref = bvh_mod.pack_bvh(
-            bvh.bounds, bvh.left, bvh.right, bvh.count, bvh.elems, wv)
+        with span("scene.bvh_build"):
+            bvh = bvh_mod.build_bvh(wv, MAX_LEAF)
+            pnodes, ltri, node_ref = bvh_mod.pack_bvh(
+                bvh.bounds, bvh.left, bvh.right, bvh.count, bvh.elems, wv)
         tables = {}
         # The dense sweep under the stream budget, the tiled clusters above
         # it: only the selected route's tables are built.

@@ -27,6 +27,7 @@ import numpy as np
 
 from qaray_tpu_torch.scene import desc as D
 from qaray_tpu_torch.scene.obj_loader import load_obj
+from qaray_tpu_torch.utils.timing import span
 
 
 import re
@@ -167,7 +168,8 @@ class SceneParser:
 
                 print(f'ERROR: Cannot load file "{name}".', file=sys.stderr)
                 return
-            mesh = load_obj(path, load_mtl_files=(mtl_name is None))
+            with span("scene.obj_load"):
+                mesh = load_obj(path, load_mtl_files=(mtl_name is None))
             self.meshes[name] = mesh
             # Auto MultiMtl synthesis from OBJ .mtl (xmlload.cpp:232-273).
             if mtl_name is None and mesh.obj_materials:

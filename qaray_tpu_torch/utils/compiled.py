@@ -95,6 +95,7 @@ _COUNTERS = (("qaray_tpu_torch.ops.analytic", "launches"),
              ("qaray_tpu_torch.ops.photon", "launches"),
              ("qaray_tpu_torch.ops.adjoint", "launches"),
              ("qaray_tpu_torch.ops.bvh_packed", "launches"),
+             ("qaray_tpu_torch.ops.bvh_packed", "stats"),
              ("qaray_tpu_torch.ops.mtl_gather", "launches"),
              ("qaray_tpu_torch.ops.mtl_gather", "stats"),
              ("qaray_tpu_torch.integrators.engine", "wavefront_lanes"))

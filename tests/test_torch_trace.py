@@ -239,3 +239,43 @@ def test_counters_keep_their_keys():
     assert set(mesh.stats) == {"all_gathers", "all_gather_s"}
     assert set(renderer_mod.stats) == {"escalated_lanes",
                                        "escalated_padded"}
+
+
+def test_mesh_setup_spans_once_each():
+    """A CPU compile of mesh_scene (one OBJ on the world route) opens
+    scene.obj_load once, around the parser's load_obj, and
+    scene.bvh_build once, around the tree's build and pack."""
+    names = ("scene.obj_load", "scene.bvh_build")
+    before = {k: timing.totals.get(k, [0.0, 0])[1] for k in names}
+    desc = load_scene(os.path.join(ASSETS, "mesh_scene.xml"))
+    compile_scene(desc, device="cpu")
+    grown = {k: timing.totals[k][1] - before[k] for k in names}
+    assert grown == {"scene.obj_load": 1, "scene.bvh_build": 1}
+
+
+def test_bvh_ray_counters():
+    """ops/bvh_packed.stats on a CPU per-instance walk of grid_scene (25
+    instances): the rays handed to the closest and any-hit walks."""
+    from qaray_tpu_torch.ops import bvh_packed, trace
+
+    desc = load_scene(os.path.join(ASSETS, "grid_scene.xml"))
+    arr, meta = compile_scene(desc, device="cpu", world_bvh=False)
+    assert meta.num_mesh_instances == 25
+    g = torch.Generator().manual_seed(3)
+    p = torch.tensor([0.0, -14.0, 2.0]).expand(300, 3).contiguous()
+    d = torch.nn.functional.normalize(
+        torch.rand((300, 3), generator=g) * torch.tensor([0.6, 0.0, 0.3])
+        + torch.tensor([-0.3, 1.0, -0.2]), dim=1)
+    before = dict(bvh_packed.stats)
+    hits = trace.trace_closest(arr, meta, p, d)
+    assert hits["hit"].any()
+    trace.trace_shadow(arr, meta, p[:100], d[:100], torch.full((100,), 5.0))
+    grown = {k: bvh_packed.stats[k] - before[k] for k in before}
+    assert grown == {"closest_rays": 300, "any_rays": 100}
+    # A scene without meshes hands the walks nothing.
+    before = dict(bvh_packed.stats)
+    r = Renderer(RendererParam(spp_min=1, spp_max=1, max_bounce=1,
+                               shadow_spp=1, shadow_spp_max=1), device="cpu")
+    r.compute_scene(softdof(8, 6))
+    r.render()
+    assert bvh_packed.stats == before
