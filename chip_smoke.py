@@ -114,9 +114,22 @@ Phases, each fatal on failure:
           its bound, the plain version's and the autograd backward's it
           replaces. Alone: python3 -c "import chip_smoke as c;
           c.g1_phase({})";
+       h. H1 (the wavefront engine's threefry cipher, csrc/threefry.cu) at
+          the inverse cell's soft-shadow draws, 480,000 lanes x 256, and a
+          fold of 480,000 keys: equal to core/krng.py's int64 cipher bit
+          for bit (max_abs_err), one launch each; its ms, the bound by
+          integer operations and by bytes, the int64 cipher's ms, the
+          kernels' SASS instructions, funnel shifts and opcodes; H1's
+          launches, folds and draws in one eager step of the inverse cell
+          with the int64 cipher refused on CUDA tensors. Alone:
+          python3 -c "import chip_smoke as c; c.h1_phase({})";
   4. the main path at 800x600 with every launch count set to 0 before each
      route and read after it, and every plain version of a kernel made to
-     raise if it is called; K2b's and K2c's launches recorded by size, and
+     raise if it is called (core/krng.py's int64 cipher where it is handed
+     a CUDA tensor); H1 launched on every route with lanes on the
+     wavefront engine, by the photon tracing of k and on the autograd
+     routes of m and t, and its launches a timed step of m printed;
+     K2b's and K2c's launches recorded by size, and
      the rays of K2b's first two launches (a batch's bounces 0 and 1) at
      its largest size and at 65,536 kept for phase 5:
        a. Renderer defaults (photonmap, spp 4..8, max_bounce 5, shadows
@@ -708,19 +721,32 @@ def grad_field_errors(got, want):
     return out
 
 
+def on_cuda(*args, **kw):
+    """Whether any argument is a CUDA tensor."""
+    return any(isinstance(a, torch.Tensor) and a.is_cuda
+               for a in (*args, *kw.values()))
+
+
 class ForbidPlain:
     """Within the block, every plain version a kernel wrapper could take
-    raises: a main-path run that finishes ran only kernels."""
+    raises: a main-path run that finishes ran only kernels. A target is
+    (module, attribute name), or (module, attribute name, when) for a plain
+    version that stays the CPU's path: it raises only where when(*args,
+    **kw) holds, and runs otherwise."""
 
     def __init__(self, *targets):
-        self.targets = targets  # (module, attribute name)
+        self.targets = targets
         self.saved = []
 
     def __enter__(self):
-        for mod, name in self.targets:
-            self.saved.append((mod, name, getattr(mod, name)))
+        for mod, name, *when in self.targets:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
 
-            def refuse(*_args, _name=f"{mod.__name__}.{name}", **_kw):
+            def refuse(*args, _name=f"{mod.__name__}.{name}", _fn=fn,
+                       _when=when[0] if when else None, **kw):
+                if _when is not None and not _when(*args, **kw):
+                    return _fn(*args, **kw)
                 raise AssertionError(f"plain version {_name} ran on the "
                                      "main path")
 
@@ -828,20 +854,16 @@ def k1c_need(arr, meta, cfg, px, py, sid, words):
 G1_EXACT_TOL = 1e-6
 
 
-def g1_phase(numbers):
-    """Phase 3g (see the module's docstring); G1's figures in
-    numbers["G1"]."""
+def inverse_step(words):
+    """The inverse cell's step under key words `words`: softdof 800x600 x
+    1 spp, pathtrace, max_bounce 5, shadow_spp 16..64, an mse loss against
+    a grey image, on the autograd route (depth of field)."""
     sys.path.insert(0, HERE)
     from qaray_tpu_torch import diff
     from qaray_tpu_torch.integrators.engine import IntegratorConfig
-    from qaray_tpu_torch.ops import mtl_gather
     from qaray_tpu_torch.scene.compiler import compile_scene
     from qaray_tpu_torch.scene.xml_parser import load_scene
-    from qaray_tpu_torch.utils import compiled
 
-    print("phase 3g: G1 (the material gather's backward) on the inverse "
-          "cell's step, softdof 800x600 x 1 spp, pathtrace, max_bounce 5",
-          flush=True)
     desc = load_scene(SCENE)
     desc.camera.img_width, desc.camera.img_height = 800, 600
     arr, meta = compile_scene(desc, device="cuda")
@@ -854,8 +876,22 @@ def g1_phase(numbers):
 
     def step():
         return diff.render_value_and_grad(arr, meta, cfg, px, py, sid,
-                                          (0, 11), target=target)
+                                          words, target=target)
 
+    return step
+
+
+def g1_phase(numbers):
+    """Phase 3g (see the module's docstring); G1's figures in
+    numbers["G1"]."""
+    sys.path.insert(0, HERE)
+    from qaray_tpu_torch.ops import mtl_gather
+    from qaray_tpu_torch.utils import compiled
+
+    print("phase 3g: G1 (the material gather's backward) on the inverse "
+          "cell's step, softdof 800x600 x 1 spp, pathtrace, max_bounce 5",
+          flush=True)
+    step = inverse_step((0, 11))
     calls = []
     launch = mtl_gather.gather_bwd
 
@@ -985,12 +1021,118 @@ def g1_phase(numbers):
     torch.cuda.synchronize()
 
 
+# The least integer instructions of one cipher of H1 (csrc/threefry.cu) on
+# sm_90, three-input adds (IADD3) and logic (LOP3) fused where the data
+# flow allows: the third key word k0 ^ k1 ^ C (1 LOP3), x1 + k1 (1; x0
+# starts at 0, so x0 + k0 is k0), 20 rounds of add, funnel shift and xor
+# (60), the 5 key injections' x1 += ks + (i + 1) (5 IADD3) and their x0 +=
+# ks, of which the first four fold into the next round's add (IADD3) and
+# the last stands (1): 68, a fold. A draw adds u01's xor, shift and or (3;
+# its float subtract runs on the float pipe): 71.
+H1_INT_OPS_A_FOLD = 68
+H1_INT_OPS_A_DRAW = 71
+
+
+def h1_phase(numbers):
+    """Phase 3h (see the module's docstring); H1's figures in
+    numbers["H1"]."""
+    sys.path.insert(0, HERE)
+    from qaray_tpu_torch.core import krng
+    from qaray_tpu_torch.ops import _build, threefry
+    from qaray_tpu_torch.tools.parity_dump import _functions
+    from qaray_tpu_torch.utils import compiled
+
+    global PEAK_INT_OPS
+    if PEAK_INT_OPS is None:
+        PEAK_INT_OPS = 64 * 132 * max_sm_clock_hz()
+    lanes, n, chunk = 480_000, 256, 65_536
+    print(f"phase 3h: H1 (the wavefront engine's threefry cipher) at the "
+          f"inverse cell's soft-shadow draws, {lanes} lanes x {n}",
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    k0, k1 = (torch.randint(0, 2**32, (lanes,), device="cuda",
+                            dtype=torch.int64, generator=g) for _ in range(2))
+    f = torch.arange(n, device="cuda")
+
+    def plain():
+        return krng.draw_at(k0[:, None], k1[:, None], f[None, :])
+
+    before = threefry.launches["H1"]
+    u = threefry.uniform(k0, k1, n)
+    folded = threefry.fold(k0, k1, 1003)
+    torch.cuda.synchronize()
+    check(threefry.launches["H1"] == before + 2, "one H1 launch a draw of "
+          f"{lanes * n} floats and one a fold of {lanes} keys")
+    err, same = 0.0, True
+    for lo in range(0, lanes, chunk):
+        want = krng.draw_at(k0[lo:lo + chunk, None], k1[lo:lo + chunk, None],
+                            f[None, :])
+        err = max(err, (u[lo:lo + chunk] - want).abs().max().item())
+        same = same and torch.equal(u[lo:lo + chunk], want)
+    w0, w1 = krng.fold2(k0, k1, torch.full_like(k0, 1003))
+    check(same and err == 0.0 and torch.equal(folded[0], w0)
+          and torch.equal(folded[1], w1),
+          f"H1 equals the int64 cipher bit for bit (max_abs_err {err})")
+    del u, want, folded
+    ms, how = kernel_ms(lambda: threefry.uniform(k0, k1, n),
+                        "threefry_uniform", reps=20)
+    fold_ms, _ = kernel_ms(lambda: threefry.fold(k0, k1, 1003),
+                           "threefry_fold", reps=20)
+    plain_ms = cuda_ms(plain, reps=3)
+    draws = lanes * n
+    int_ops = draws * H1_INT_OPS_A_DRAW
+    nbytes = draws * 4 + lanes * 16
+    t_ops = int_ops / PEAK_INT_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    fold_bytes = lanes * 40
+    fold_bound = max(lanes * H1_INT_OPS_A_FOLD / PEAK_INT_OPS,
+                     fold_bytes / PEAK_BYTES) * 1e3
+    sass = {name: ops for name, ops in _functions(
+        _build._target("threefry")).items() if "threefry_" in name}
+    shape = {}
+    for name, ops in sass.items():
+        # Opcodes without their modifiers (SHF.L.W -> SHF), predicates off.
+        codes = [op.split()[1 if op.startswith("@") else 0].split(".")[0]
+                 for op in ops]
+        hist = {c: codes.count(c) for c in sorted(set(codes))}
+        shape[name.split("threefry_")[1].split("_kernel")[0]] = dict(
+            instructions=len(ops), shf=hist.get("SHF", 0), opcodes=hist)
+    # The inverse cell's step eager, with the int64 cipher refused on CUDA
+    # tensors: H1's launches, folds and draws a step.
+    step = inverse_step((0, 11))
+    before = threefry.launches["H1"], dict(threefry.stats)
+    with compiled.eager(), ForbidPlain((krng, "cipher2x32", on_cuda)):
+        step()
+        torch.cuda.synchronize()
+    step_counts = dict(launches=threefry.launches["H1"] - before[0], **{
+        k: v - before[1][k] for k, v in threefry.stats.items()})
+    check(step_counts["launches"] > 0, "the inverse cell's step launches H1 "
+          f"{step_counts['launches']} times, the int64 cipher on no CUDA "
+          "tensor")
+    print(f"  H1 a step of the inverse cell (eager): "
+          f"{json.dumps(step_counts)}", flush=True)
+    print(f"  H1 uniform {ms:.5f} ms ({how}) for {draws} draws; bound "
+          f"{bound_ms:.5f} ms (integer operations {t_ops:.5f} ms at "
+          f"{H1_INT_OPS_A_DRAW} a draw, bytes {t_bytes:.5f} ms), "
+          f"{bound_ms / ms:.3f} of it; the int64 cipher (plain) "
+          f"{plain_ms:.3f} ms; fold of {lanes} keys {fold_ms:.5f} ms, bound "
+          f"{fold_bound:.5f} ms; SASS {json.dumps(shape)}", flush=True)
+    numbers["H1"] = dict(lanes=lanes, draws_a_lane=n, uniform_ms=ms,
+                         timed_by=how, bound_ms=bound_ms, bound_ops_ms=t_ops,
+                         bound_bytes_ms=t_bytes, plain_ms=plain_ms,
+                         fold_ms=fold_ms, fold_bound_ms=fold_bound,
+                         max_abs_err=err, sass=shape, step=step_counts)
+    torch.cuda.synchronize()
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: the port's kernels run only on a GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from qaray_tpu_torch.core import krng
     from qaray_tpu_torch.core.constants import BIAS
     from qaray_tpu_torch.integrators import engine
     from qaray_tpu_torch.integrators.engine import (
@@ -1002,7 +1144,7 @@ def main():
     from qaray_tpu_torch import diff
     from qaray_tpu_torch.ops import _build, adjoint, analytic, megakernel
     from qaray_tpu_torch.ops import bvh_packed, mesh_sweep, trace
-    from qaray_tpu_torch.ops import mtl_gather, photon
+    from qaray_tpu_torch.ops import mtl_gather, photon, threefry
     from qaray_tpu_torch.ops import intersect as I
     from qaray_tpu_torch.ops import tiles
     from qaray_tpu_torch.ops.mesh_stream import (
@@ -1810,18 +1952,19 @@ def main():
     del params, rad_g, rad_w
     torch.cuda.synchronize()
     g1_phase(numbers)
+    h1_phase(numbers)
 
     # -- 4. the main path ----------------------------------------------------
     os.environ.pop("QARAY_EAGER", None)
     counters = (analytic.launches, megakernel.launches, mesh_sweep.launches,
                 tiles.launches, photon.launches, adjoint.launches,
-                bvh_packed.launches, mtl_gather.launches)
+                bvh_packed.launches, mtl_gather.launches, threefry.launches)
     forbid = ForbidPlain(
         (analytic, "closest_plain"), (analytic, "closest_full_plain"),
         (analytic, "shadow_plain"), (mesh_sweep, "stream_closest"),
         (mesh_sweep, "stream_any_hit"), (tiles, "walk_plain"),
         (photon, "photon_gather_plain"), (bvh_packed, "traverse_bvh_packed"),
-        (mtl_gather, "gather_bwd_plain"))
+        (mtl_gather, "gather_bwd_plain"), (krng, "cipher2x32", on_cuda))
 
     def reset_counts():
         for counts in counters:
@@ -1863,6 +2006,9 @@ def main():
               f"{fb.count.min()}..{fb.count.max()} "
               f"(mean {fb.count.mean():.3f})", flush=True)
         print(f"  launch counts: {json.dumps(counts)}", flush=True)
+        if counts["wavefront_lanes"]:
+            check(counts["H1"] > 0, f"H1 launched {counts['H1']} times for "
+                  "the wavefront engine's draws")
         check(fb.img.shape == (800 * 600, 3), "colour buffer is 800x600x3")
         check(bool(np.isfinite(fb.mean).all()), "radiance finite")
         check(0.0 < float(fb.mean.mean()) < max_mean,
@@ -2091,6 +2237,8 @@ def main():
     check(counts_k["wavefront_lanes"] == escalated_padded[0],
           "only the escalated lanes (padded to their buckets, "
           f"{escalated_padded[0]} lanes) on the wavefront engine")
+    check(counts_k["H1"] > 0, f"H1 launched {counts_k['H1']} times (the "
+          "photon tracing in set-up and the escalated lanes)")
     check(0.0 < (fb_k.irrad > 0).mean() < 1.0, "irradiance plane filled")
 
     print("phase 4l: caustics_scene 800x600 x 1 spp, -use-photon-map, under "
@@ -2141,10 +2289,14 @@ def main():
                 step(0)
                 torch.cuda.synchronize()
                 caps.append(compiled.stats["captures"])
+                h1 = threefry.launches["H1"], dict(threefry.stats)
                 t = time.time()
                 outs = [step(s) for s in range(1, rounds + 1)]
                 torch.cuda.synchronize()
                 wall = time.time() - t
+                h1 = ((threefry.launches["H1"] - h1[0]) / rounds,
+                      {k: (v - h1[1][k]) / rounds
+                       for k, v in threefry.stats.items()})
                 caps = [caps[1] - caps[0],
                         compiled.stats["captures"] - caps[1]]
                 counts = read_counts()
@@ -2159,7 +2311,12 @@ def main():
               f"first step, {caps[1]} in the timed steps", flush=True)
         check(caps[1] == 0, f"{what} {route}: the timed steps replay the "
               "step's graph, capturing nothing")
-        print(f"  launch counts: {json.dumps(counts)}", flush=True)
+        print(f"  launch counts: {json.dumps(counts)}; a timed step (a "
+              f"replay): {h1[0]:g} H1 launches, {json.dumps(h1[1])}",
+              flush=True)
+        if no_mega:
+            check(h1[0] > 0, f"{what} {route}: H1 launched {h1[0]:g} times "
+                  "a step")
         check(bool(torch.isfinite(loss)) and all(
             bool(g.isfinite().all()) for g in grads),
             f"{what} {route}: loss {float(loss):.6g} and gradients finite")
@@ -2314,8 +2471,8 @@ def main():
               f"the start; launches {json.dumps(c_p)}", flush=True)
         check(bool(np.isfinite(fb5.mean).all()) and fb5.mean.mean() > 0,
               f"{what}: radiance finite and not black")
-        key = "W1" if not world else "K4a"
-        check(c_p[key] > 0, f"{what}: {key} launched {c_p[key]} times")
+        for key in ("W1", "H1") if not world else ("K4a",):
+            check(c_p[key] > 0, f"{what}: {key} launched {c_p[key]} times")
         counts_p.append(c_p)
         del r5, fb5
     numbers["W1"]["grid5"] = grid5_cells
@@ -2357,7 +2514,7 @@ def main():
         counts_g, counts_h, counts_i, *counts_j, counts_k, counts_l,
         *counts_m, *counts_n, counts_ow, counts_oi, *counts_p, *counts_mp))
                 for k in ("K1a", "K1b", "K1c", "K1d", "K2a", "K2b", "K2c",
-                          "K3", "K4a", "K4b", "K5", "K6", "W1")}
+                          "K3", "K4a", "K4b", "K5", "K6", "W1", "G1", "H1")}
     print(f"  launches on the main path (4a-4v): {json.dumps(launches)}",
           flush=True)
     analytic.shadow = shadow_fn
@@ -3634,8 +3791,9 @@ def multi_device_phases(here, scene, fb_a, s_arr, s_meta, cfg_pt, bpx, bpy,
             os.environ.pop("QARAY_NO_MEGAKERNEL", None)
         counts_out.append(c)
         if no_mega:
-            check(c["K6"] == 0 and c["K1a"] == 0 and c["K2b"] > 0,
-                  f"autograd route: K2b {c['K2b']} launches, no K1a or K6")
+            check(c["K6"] == 0 and c["K1a"] == 0 and c["K2b"] > 0
+                  and c["H1"] > 0, f"autograd route: K2b {c['K2b']}, H1 "
+                  f"{c['H1']} launches, no K1a or K6")
         else:
             check(c["K1a"] == 2 and c["K6"] == 2,
                   "fast route: K1a and K6 launched once a shard")

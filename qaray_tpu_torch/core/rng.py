@@ -5,6 +5,11 @@ int64 tensors [B] holding threefry-2x32 key words; every draw is a pure
 function of (key, purpose tag, flat element), so a lane's stream does not
 depend on the batch it runs in. With threefry key words the draws equal
 jax.random's bit for bit (core/krng.py).
+
+ray_keys, fold and uniform run the cipher where their tensors are: on CUDA
+tensors as kernel H1 (ops/threefry.py), one launch a fold or a draw; on
+CPU tensors as core/krng.py's int64 code, the plain version H1 equals bit
+for bit.
 """
 
 import math
@@ -12,6 +17,7 @@ import math
 import torch
 
 from qaray_tpu_torch.core.krng import MASK, draw_at, fold2
+from qaray_tpu_torch.ops import threefry
 
 # Purpose tags (the JAX package's values).
 P_LOBE_SELECT = 0
@@ -58,14 +64,21 @@ def fold_words(key_words):
 
 
 def ray_keys(base_words, ray_ids):
-    """Per-ray keys fold_in(base, ray_id) from an integer id tensor [B]."""
+    """Per-ray keys fold_in(base, ray_id) from an integer id tensor [B]; the
+    base words are ints or one-element tensors on the ids' device."""
     b0, b1 = base_words
+    if ray_ids.is_cuda:
+        return threefry.fold(b0, b1, ray_ids.to(torch.int64))
     return fold2(b0, b1, ray_ids)
 
 
 def fold(keys, tag):
     """Fold an int (or an int tensor [B]) tag into a batch of keys."""
     k0, k1 = keys
+    if k0.is_cuda:
+        if isinstance(tag, torch.Tensor):
+            tag = tag.to(torch.int64)
+        return threefry.fold(k0, k1, tag)
     if isinstance(tag, int):
         tag = torch.full(k0.shape, tag, dtype=torch.int64, device=k0.device)
     return fold2(k0, k1, tag)
@@ -75,6 +88,9 @@ def uniform(keys, shape_suffix=()):
     """jax.random.uniform(key, shape_suffix) per key: [B] -> [B, *suffix]."""
     k0, k1 = keys
     n = math.prod(shape_suffix)
+    if k0.is_cuda:
+        return threefry.uniform(k0, k1, n).reshape(k0.shape
+                                                   + tuple(shape_suffix))
     if not shape_suffix:
         return draw_at(k0, k1, 0)
     f = torch.arange(n, dtype=torch.int64, device=k0.device)

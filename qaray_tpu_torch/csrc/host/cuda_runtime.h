@@ -1,9 +1,10 @@
 // Host stand-in for <cuda_runtime.h>: just enough declarations for g++ to
 // compile the kernel sources (megakernel.cu, adjoint.cu, tiles.cu,
-// photon.cu, analytic.cu, bvh.cu, mtl_gather.cu) as C++ and run them on
-// the CPU (ops/_build.load_host). The CPU tests use it to hold a source's
-// arithmetic to the plain PyTorch version where there is no card and no
-// nvcc. It says nothing about what nvcc accepts or how fast the kernel is.
+// photon.cu, analytic.cu, bvh.cu, mtl_gather.cu, threefry.cu) as C++ and
+// run them on the CPU (ops/_build.load_host). The CPU tests use it to hold
+// a source's arithmetic to the plain PyTorch version where there is no card
+// and no nvcc. It says nothing about what nvcc accepts or how fast the
+// kernel is.
 //
 // A launch runs its grid in host blocks of qr_host_set_block threads (1 by
 // default), one block after another, all on the calling thread. A block of
@@ -142,6 +143,9 @@ inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 template <class T>
 T __ldg(const T* p) {
   return *p;
+}
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((uint64_t)a * b) >> 32);
 }
 inline float __uint_as_float(unsigned a) {
   float f;

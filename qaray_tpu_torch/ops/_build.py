@@ -24,8 +24,8 @@ tests without a card can hold the source's arithmetic to the plain version
 (ops/megakernel.mega_render_host, ops/adjoint.adjoint_render_host,
 ops/tiles.tiled_sweep_host, ops/mesh_sweep.sweep_host,
 ops/analytic.closest_host, closest_full_host, shadow_host,
-ops/bvh_packed.walk_host, ops/mtl_gather.gather_bwd_host). No entry point
-of the port uses it.
+ops/bvh_packed.walk_host, ops/mtl_gather.gather_bwd_host,
+ops/threefry.fold_host, uniform_host). No entry point of the port uses it.
 """
 
 import ctypes
@@ -40,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 SOURCES = {"adjoint": "adjoint.cu", "analytic": "analytic.cu",
            "bvh": "bvh.cu", "megakernel": "megakernel.cu",
            "mtl_gather": "mtl_gather.cu", "photon": "photon.cu",
-           "tiles": "tiles.cu"}
+           "threefry": "threefry.cu", "tiles": "tiles.cu"}
 FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v",
@@ -135,12 +135,13 @@ def load_host(name: str) -> ctypes.CDLL:
 
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint32,
-           "f": ctypes.c_float}
+           "l": ctypes.c_longlong, "f": ctypes.c_float}
 
 
 def bind(lib: ctypes.CDLL, fname: str, signature: str):
     """Set the C signature of `fname` from a string of argument codes
-    (p pointer or stream, i int, u uint32, f float); returns int."""
+    (p pointer or stream, i int, u uint32, l int64, f float); returns
+    int."""
     fn = getattr(lib, fname)
     fn.argtypes = [_CTYPES[c] for c in signature]
     fn.restype = ctypes.c_int

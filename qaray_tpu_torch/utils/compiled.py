@@ -52,10 +52,10 @@ their outputs are copied out right after each replay. The cache of a
 wrapped function holds at most MAX_GRAPHS graphs, the least recently used
 dropped first, and about MAX_TABLES table buffers. A replay adds the
 launch counts its capture recorded to the kernels' counters (`launches`
-of each ops module, ops/mtl_gather's backward `stats` and the engine's
-wavefront_lanes), so that a call counts the launches of one run of the
-function, replayed or not; the warm-up's, made once a graph as part of
-capturing it, are not counted.
+of each ops module, ops/mtl_gather's backward `stats`, ops/threefry's
+folds and draws and the engine's wavefront_lanes), so that a call counts
+the launches of one run of the function, replayed or not; the warm-up's,
+made once a graph as part of capturing it, are not counted.
 """
 
 from __future__ import annotations
@@ -98,6 +98,8 @@ _COUNTERS = (("qaray_tpu_torch.ops.analytic", "launches"),
              ("qaray_tpu_torch.ops.bvh_packed", "stats"),
              ("qaray_tpu_torch.ops.mtl_gather", "launches"),
              ("qaray_tpu_torch.ops.mtl_gather", "stats"),
+             ("qaray_tpu_torch.ops.threefry", "launches"),
+             ("qaray_tpu_torch.ops.threefry", "stats"),
              ("qaray_tpu_torch.integrators.engine", "wavefront_lanes"))
 
 # Over every wrapped function: graphs captured, replays, seconds spent in

@@ -54,7 +54,12 @@ G1 (the material gather's backward) at 480,000 lanes on 2 and 3,000 rows
 within 1e-4 of each row's sum of |g| of index_put_ and 1e-6 of a float64 sum,
 three launches bit for bit; the inverse benchmark cell's autograd step
 eager twice, captured and replayed bit for bit, one G1 launch for each
-gather on the tape.
+gather on the tape. H1 (the wavefront engine's threefry cipher) equal to
+core/krng.py's int64 cipher bit for bit at 480,000 x 256 and 1,048,576 x 1
+draws, its folds too; captured equal to eager with eager's launches; the
+inverse cell's step captured with H1 equal bit for bit to the step eager
+on the int64 twin, with no CUDA tensor reaching krng.cipher2x32 there or
+in a wavefront render.
 """
 
 import contextlib
@@ -1712,3 +1717,177 @@ def test_captured_autograd_step_with_g1_equals_eager(cuda, monkeypatch):
         for f, a, b in zip(diff.DiffParams._fields, got[1], want[1]):
             assert torch.equal(a, b), f
     print(f"{gathers} gathers on the tape, loss {want[0].item():.6g}")
+
+
+# -- H1, the wavefront engine's threefry cipher (csrc/threefry.cu)
+
+
+def _h1_keys(lanes, seed):
+    """Two [lanes] int64 tensors of uint32 words over the whole range."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randint(0, 2**32, (lanes,), device="cuda",
+                               dtype=torch.int64, generator=g)
+                 for _ in range(2))
+
+
+def _h1_twin_draws(k0, k1, n, chunk=65_536):
+    """core/krng.py's draws [lanes, n] on the card, chunk lanes at a time
+    (the int64 passes hold [chunk, n] temporaries)."""
+    from qaray_tpu_torch.core import krng
+
+    f = torch.arange(n, dtype=torch.int64, device=k0.device)
+    return torch.cat([krng.draw_at(k0[lo:lo + chunk, None],
+                                   k1[lo:lo + chunk, None], f[None, :])
+                      for lo in range(0, k0.shape[0], chunk)])
+
+
+@pytest.mark.parametrize("lanes,n", [(480_000, 256), (1_048_576, 1)])
+def test_h1_equals_int64_cipher(cuda, lanes, n):
+    """H1 at the inverse cell's soft-shadow draws (480,000 lanes x 256: 64
+    samples x 2 x 2 a lane) and at a dispatch's 1,048,576 lanes x 1 against
+    core/krng.py on the card, bit for bit: uniform, fold with tensor data,
+    with a tag above 2^31 and with scalar base words (ray_keys), one
+    launch each, counted."""
+    from qaray_tpu_torch.core import krng
+    from qaray_tpu_torch.ops import threefry
+
+    k0, k1 = _h1_keys(lanes, seed=n)
+    before = dict(threefry.launches), dict(threefry.stats)
+    u = threefry.uniform(k0, k1, n)
+    folds = [threefry.fold(k0, k1, k1), threefry.fold(k0, k1, 2**31 + 5),
+             threefry.fold(0x9E3779B9, 7, k0)]
+    torch.cuda.synchronize()
+    assert threefry.launches["H1"] == before[0]["H1"] + 4
+    assert threefry.stats["draws"] == before[1]["draws"] + lanes * n
+    assert threefry.stats["folds"] == before[1]["folds"] + 3 * lanes
+    assert u.shape == (lanes, n) and u.dtype == torch.float32
+    assert torch.equal(u, _h1_twin_draws(k0, k1, n))
+    wants = [krng.fold2(k0, k1, k1),
+             krng.fold2(k0, k1, torch.full_like(k0, 2**31 + 5)),
+             krng.fold2(0x9E3779B9, 7, k0)]
+    for (g0, g1), (w0, w1) in zip(folds, wants):
+        assert torch.equal(g0, w0) and torch.equal(g1, w1)
+
+
+def test_h1_captured_equals_eager(cuda):
+    """ray_keys, folds and draws of the shapes the engine asks for, under
+    utils/compiled.jit: captured and replayed (under sync debug "error")
+    equal eager bit for bit, and a replay counts eager's H1 launches."""
+    from qaray_tpu_torch.core import rng
+    from qaray_tpu_torch.ops import threefry
+    from qaray_tpu_torch.utils import compiled
+
+    def draws(ids, words):
+        keys = rng.ray_keys((words[0], words[1]), ids)
+        k = rng.fold(rng.fold(keys, 1000), rng.P_SHADOW + 101)
+        return (k[0], k[1], rng.uniform(k, (64, 2, 2)),
+                rng.uniform(rng.fold(keys, rng.P_DOF), (2,)),
+                rng.uniform(rng.fold(keys, rng.P_LOBE_SELECT)))
+
+    jitted = compiled.jit(draws, inputs=("ids",))
+    ids = torch.arange(65_536, device="cuda") * 65_536 + 3
+    words = torch.tensor([0, 11], dtype=torch.int64, device="cuda")
+
+    def call():
+        before = threefry.launches["H1"]
+        out = jitted(ids, words)
+        return out, threefry.launches["H1"] - before
+
+    with compiled.eager():
+        want, launched = call()
+    assert launched == 8
+    assert _captured_equals_eager(lambda: call()[0]) >= 1
+    got, launched_replay = call()
+    assert launched_replay == launched
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+class _CipherSpy:
+    """core/krng.py's cipher2x32, recording the calls that get a CUDA
+    tensor."""
+
+    def __init__(self, monkeypatch):
+        from qaray_tpu_torch.core import krng
+
+        self.cuda_calls = 0
+        self._cipher = krng.cipher2x32
+        monkeypatch.setattr(krng, "cipher2x32", self)
+
+    def __call__(self, *args):
+        self.cuda_calls += any(isinstance(a, torch.Tensor) and a.is_cuda
+                               for a in args)
+        return self._cipher(*args)
+
+
+def _on_int64_twin(monkeypatch):
+    """Route ops/threefry's fold and uniform, which core/rng.py calls on
+    CUDA tensors, onto core/krng.py's int64 cipher."""
+    from qaray_tpu_torch.core import krng
+    from qaray_tpu_torch.ops import threefry
+
+    def fold(k0, k1, data):
+        if not isinstance(data, torch.Tensor):
+            data = torch.full(k0.shape, data, dtype=torch.int64,
+                              device=k0.device)
+        return krng.fold2(k0, k1, data)
+
+    def uniform(k0, k1, n):
+        return _h1_twin_draws(k0, k1, n)
+
+    monkeypatch.setattr(threefry, "fold", fold)
+    monkeypatch.setattr(threefry, "uniform", uniform)
+
+
+def test_autograd_step_with_h1_equals_int64_twin(cuda, monkeypatch):
+    """The inverse cell's step (softdof 800x600 x 1 spp, pathtrace,
+    max_bounce 5, shadow_spp 16..64, an mse loss; the autograd route),
+    captured with H1, equals the same step eager with core.rng on the
+    int64 twin, loss and every gradient field bit for bit. The H1 step
+    launches H1 and never hands krng.cipher2x32 a CUDA tensor, in its
+    warm-up, capture or replay; nor does a captured wavefront render
+    (render_batch_wavefront at 200x150)."""
+    from qaray_tpu_torch import diff
+    from qaray_tpu_torch.ops import threefry
+    from qaray_tpu_torch.utils import compiled
+
+    spy = _CipherSpy(monkeypatch)
+    desc = load_scene(SCENES[1])
+    desc.camera.img_width, desc.camera.img_height = 800, 600
+    arr, meta = compile_scene(desc, device="cuda")
+    cfg = IntegratorConfig(integrator="pathtrace", max_bounce=5,
+                           shadow_spp=16, shadow_spp_max=64)
+    assert not diff._fast_route(meta, cfg)
+    px, py, sid = _lanes(800, 600, 1, "cuda")
+    target = torch.full((px.shape[0], 3), 0.25, device="cuda")
+
+    def step():  # key words of its own: the first call captures
+        return diff.render_value_and_grad(arr, meta, cfg, px, py, sid,
+                                          (0, 13), target=target)
+
+    before = threefry.launches["H1"], compiled.stats["captures"]
+    first = step()
+    replay = step()
+    torch.cuda.synchronize()
+    assert threefry.launches["H1"] > before[0]
+    assert compiled.stats["captures"] > before[1]
+    assert spy.cuda_calls == 0
+    small = compile_scene(load_scene(SCENES[1]), device="cuda")
+    lanes = _lanes(200, 150, 1, "cuda")
+    render_batch_wavefront(*small, cfg, *lanes, (0, 13))
+    render_batch_wavefront(*small, cfg, *lanes, (0, 13))
+    torch.cuda.synchronize()
+    assert spy.cuda_calls == 0
+
+    _on_int64_twin(monkeypatch)
+    before = threefry.launches["H1"]
+    with compiled.eager():
+        want = step()
+    torch.cuda.synchronize()
+    assert threefry.launches["H1"] == before and spy.cuda_calls > 0
+    for got in (first, replay):
+        assert torch.equal(got[0], want[0])
+        for f, a, b in zip(diff.DiffParams._fields, got[1], want[1]):
+            assert torch.equal(a, b), f
+    print(f"loss {want[0].item():.6g}; the twin's step made "
+          f"{spy.cuda_calls} int64 cipher calls on the card")
